@@ -1,0 +1,50 @@
+"""State carried across from the JAX package.
+
+cora has no learned weights: its "weights" are the SHT tables and the
+per-ℓ covariance roots.  These helpers load numpy copies of the JAX
+package's state into the port, so both packages can run on identical
+tables (isolating the kernel and the ring stage from table construction).
+
+    d = {k: np.asarray(v) for k, v in jax_op.tables(False).items()}
+    op.load_tables(sht_tables_from_numpy(d, op.device))
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+# base tables the port's synthesis reads (SHT.load_tables derives the
+# kernel layout from these; the pixel gather is pure geometry)
+SHT_TABLE_KEYS = (
+    "rec_a", "rec_b", "lam_mm", "lam_k0", "z_half", "lam_ck",
+    "eq_phase", "eq_twid", "bl_A_cap", "bl_C_cap", "bl_Bf_cap",
+)
+
+
+def sht_tables_from_numpy(d: dict, device) -> dict:
+    """Torch tensors on ``device`` for the base SHT tables in ``d``.
+
+    ``d`` is a numpy copy of a JAX operator's ``tables(False)`` (scan mode,
+    ``ring_mode="split"``).  Entries the port does not read are dropped:
+    the TPU matmul-FFT tables, the cached-Λ chunks, and the ``psl_*``
+    padded kernel tables (the port derives its kernel layout from the base
+    tables).  Complex arrays stay complex.
+    """
+    dev = resolve_device(device)
+    missing = [k for k in SHT_TABLE_KEYS if k not in d and k != "lam_ck"]
+    if missing:
+        raise KeyError(f"tables lack {missing}")
+    return {
+        k: torch.from_numpy(np.array(d[k])).to(dev)
+        for k in SHT_TABLE_KEYS if k in d
+    }
+
+
+def roots_from_numpy(roots, device, dtype=torch.float32) -> torch.Tensor:
+    """Per-ℓ covariance roots [lmax+1, nz, nz] as a contiguous tensor."""
+    return torch.as_tensor(np.ascontiguousarray(roots)).to(
+        device=resolve_device(device), dtype=dtype
+    )

@@ -1,0 +1,170 @@
+"""Correlated full-sky Gaussian realisations (port of ``cora_tpu/core/skysim.py``).
+
+The synthesis path: C_l(z, z') → per-ℓ covariance roots (batched f64
+``eigh`` on the device) → a correlated a_lm draw per ℓ-chunk → the fused
+scan-Legendre kernel → the ring FFT stage → HEALPix pixels, streamed over
+frequency chunks so the a_lm cube never exists in full.
+
+White noise comes from an explicit ``torch.Generator``; passing ``xi``
+instead hands the draw a given standard-normal array (tests feed the same
+numpy noise to this package and to the JAX reference).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..healpix import sht as _sht
+from ..util import linalg
+from ..util.profiling import stage
+
+
+def _romberg_avg_weights(order):
+    """Averaging weights of Romberg quadrature on 2**order + 1 uniform
+    samples spanning one channel (they sum to 1)."""
+    n = 1 << order
+    col = []
+    for k in range(order + 1):
+        stride = n >> k
+        idx = np.arange(0, n + 1, stride)
+        w = np.zeros(n + 1)
+        w[idx] = stride
+        w[idx[0]] = w[idx[-1]] = stride / 2.0
+        col.append(w)
+    for m in range(1, order + 1):
+        fac = 4.0**m
+        col = [(fac * col[k] - col[k - 1]) / (fac - 1.0) for k in range(1, len(col))]
+    return col[0] / n
+
+
+def clarray(aps, lmax, zarray, zromb=3, zwidth=None, block_bytes=2**28):
+    """Channel-averaged C_l(z, z') [lmax+1, nz, nz] by Romberg quadrature
+    (host float64; ``zromb=0`` evaluates at the channel centres)."""
+    zarray = np.asarray(zarray, dtype=np.float64)
+    ells = np.arange(lmax + 1)
+
+    if zromb == 0:
+        return aps(
+            ells[:, np.newaxis, np.newaxis],
+            zarray[np.newaxis, :, np.newaxis],
+            zarray[np.newaxis, np.newaxis, :],
+        )
+
+    if zwidth is None:
+        lo = np.sort(zarray)[:2]
+        zwidth = abs(lo[1] - lo[0])
+    half = zwidth / 2.0
+
+    nsub = (1 << zromb) + 1
+    w = _romberg_avg_weights(zromb)
+    zsub = (zarray[:, None] + np.linspace(-half, half, nsub)).ravel()
+
+    nz = zarray.size
+    cla = np.empty((lmax + 1, nz, nz), dtype=np.float64)
+    lstep = max(1, int(block_bytes // (8 * (nz * nsub) ** 2)))
+    for l0 in range(0, lmax + 1, lstep):
+        lb = ells[l0 : l0 + lstep]
+        c = aps(
+            lb[:, np.newaxis, np.newaxis],
+            zsub[np.newaxis, :, np.newaxis],
+            zsub[np.newaxis, np.newaxis, :],
+        ).reshape(lb.size, nz, nsub, nz, nsub)
+        cla[l0 : l0 + lstep] = np.einsum("a,b,liajb->lij", w, w, c, optimize=True)
+    return cla
+
+
+def covariance_roots(corr, device="cuda", threshold=1e-16):
+    """Per-ℓ covariance roots R [lmax+1, nz, nz] (float64, on ``device``)
+    with R Rᵀ = C_l up to clipped modes.
+
+    Counterpart of ``cora_tpu.core.skysim.host_covariance_roots`` and
+    ``cora_tpu.signal.clfast._roots_from_cla_jit``: per-ℓ normalisation by
+    the largest diagonal entry, a 1e-12 diagonal jitter, a batched f64
+    ``eigh`` with eigenvalues below ``threshold·max`` clipped to zero, and
+    the scale restored (an all-zero C_l gives a zero root, as on the host).
+    """
+    dev = resolve_device(device)
+    cla = torch.as_tensor(np.asarray(corr), dtype=torch.float64).to(dev)
+    nz = cla.shape[-1]
+    dmax = cla.diagonal(dim1=-2, dim2=-1).abs().max(dim=-1).values
+    norm = torch.where(dmax > 0, dmax, torch.ones_like(dmax))
+    eye = torch.eye(nz, dtype=torch.float64, device=dev)
+    cla_n = cla / norm[:, None, None] + eye * 1e-12
+    roots = linalg.batch_matrix_root(cla_n, threshold=threshold)
+    return roots * dmax.sqrt()[:, None, None]  # an all-zero C_l keeps a zero root
+
+
+def _chunk_seeds(generator, nchunk):
+    """One 62-bit seed per ℓ-chunk, drawn from ``generator``."""
+    return torch.randint(0, 2**62, (nchunk,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def mkfullsky_streamed(corr, nside, *, device="cuda", generator=None, xi=None,
+                       roots=None, fchunk=16, op=None):
+    """Generator: the correlated sky cube in frequency chunks.
+
+    Yields ``(z_lo, maps[fchunk, npix])`` float32 tensors on ``device``.
+    All chunks share one white-noise realisation (per-ℓ-chunk seeds drawn
+    once from ``generator``, or the given ``xi`` [≥L, nz, 2, ≥L]).  A
+    ragged last chunk is synthesized at full width over the final
+    ``fchunk`` frequencies (``z_lo = nz - fchunk``).
+
+    ``roots``: precomputed per-ℓ roots [lmax+1, nz, nz]; ``corr`` is then
+    ignored.
+    """
+    dev = resolve_device(device)
+    if roots is None:
+        with stage("roots", dev):
+            roots = covariance_roots(corr, dev)
+    roots = torch.as_tensor(roots).to(device=dev, dtype=torch.float32)
+    lmax = roots.shape[0] - 1
+    nz = roots.shape[1]
+
+    with stage("sht_setup", dev):
+        if op is None:
+            op = _sht.get_sht(int(nside), int(lmax), device=dev)
+        elif op.nside != int(nside) or op.lmax != int(lmax):
+            raise ValueError("op does not match requested nside/lmax")
+        t = op.tables(False)
+
+    if xi is not None:
+        xi_chunk = _sht.xi_from_array(xi)
+    else:
+        if generator is None:
+            generator = torch.Generator()
+            generator.seed()
+        nchunk = -(-(lmax + 1) // op.l_chunk)
+        xi_chunk = _sht.xi_from_seeds(_chunk_seeds(generator, nchunk), nz)
+
+    fchunk = min(fchunk, nz)
+    for z_lo in range(0, nz, fchunk):
+        if z_lo + fchunk > nz:
+            z_lo = nz - fchunk
+        grid = _sht.synthesis_grid_correlated(op, t, roots, xi_chunk, z_lo,
+                                              fchunk)
+        yield z_lo, op.grid_to_map(grid)
+
+
+def mkfullsky(corr, nside, *, device="cuda", generator=None, xi=None,
+              roots=None, fchunk=16, op=None):
+    """Correlated HEALPix maps [numz, npix] (float32, on ``device``) from
+    C_l(z, z') [lmax+1, numz, numz] — see :func:`mkfullsky_streamed`."""
+    if roots is None:
+        corr = np.asarray(corr)
+        if corr.ndim != 3 or corr.shape[1] != corr.shape[2]:
+            raise ValueError("Correlation matrix is incorrect shape.")
+        nz = corr.shape[1]
+    else:
+        nz = roots.shape[1]
+    dev = resolve_device(device)
+    out = torch.empty((nz, 12 * int(nside) ** 2), dtype=torch.float32,
+                      device=dev)
+    for z_lo, maps in mkfullsky_streamed(
+        corr, nside, device=dev, generator=generator, xi=xi, roots=roots,
+        fchunk=fchunk, op=op,
+    ):
+        out[z_lo:z_lo + maps.shape[0]] = maps
+    return out

@@ -1,0 +1,248 @@
+"""The scan-Legendre contraction (kernel K1) of the port.
+
+On the CPU the wrapper runs the plain PyTorch version, held here to the
+JAX package's XLA scan formulation on identical tables (the oracle that
+``tests/test_pallas.py`` holds the Pallas kernel to) and, at the block
+level, to a numpy emulation of the CUDA kernel's loop structure (ℓ-block
+start per m tile, band counter, F tiling, two-level sums), which pins the
+kernel's design to the plain version's semantics without a GPU.  The
+CUDA kernel itself is compared on the card (``cuda`` marker).
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from cora_tpu.healpix import sht as jsht
+from cora_tpu_torch import convert
+from cora_tpu_torch.healpix import sht as tsht
+from cora_tpu_torch.ops import scan_legendre as k1
+
+torch.set_num_threads(1)
+
+
+def _triangle_alm(rng, B, L):
+    alm = (rng.standard_normal((B, L, L))
+           + 1j * rng.standard_normal((B, L, L))).astype(np.complex64)
+    return alm * (np.arange(L)[None, :] <= np.arange(L)[:, None])
+
+
+def test_plain_matches_jax_scan_streamed():
+    """fused_GeGo through the plain version vs the JAX streamed scan, same
+    tables (SHT(16, 47, l_chunk=8, ckpt_every=2), 3 alm planes):
+    ≤ 5e-6·max|Ge_ref| (the Pallas kernel's bound)."""
+    nside, lmax = 16, 47
+    L = lmax + 1
+    jop = jsht.SHT(nside, lmax, legendre_mode="scan", l_chunk=8,
+                   scan_ckpt=True, ckpt_every=2)
+    jt = jop.tables(False)
+    alm = _triangle_alm(np.random.default_rng(0), 3, L)
+    ja = jnp.asarray(alm)
+
+    def alm_blk(c, l0, nrows, mw):
+        blk = jax.lax.dynamic_slice_in_dim(ja, l0, nrows, axis=-2)[..., :mw]
+        return jnp.stack([blk.real, blk.imag], axis=1).astype(jnp.float32)
+
+    Ge_r, Go_r = jsht._legendre_contract_scan_streamed(
+        jop, jt, alm_blk, (3, 2), jnp.float32, expand=False)
+    Ge_r = np.asarray(jsht._join_planes(Ge_r))
+    Go_r = np.asarray(jsht._join_planes(Go_r))
+
+    top = tsht.SHT(nside, lmax, l_chunk=8, scan_ckpt=True, ckpt_every=2,
+                   device="cpu")
+    t = top.load_tables(convert.sht_tables_from_numpy(
+        {k: np.asarray(v) for k, v in jt.items()}, "cpu"))
+    Ge, Go = tsht.fused_GeGo(top, t, torch.from_numpy(alm))
+    sc = np.abs(Ge_r).max()
+    assert np.abs(Ge.numpy() - Ge_r).max() <= 5e-6 * sc
+    assert np.abs(Go.numpy() - Go_r).max() <= 5e-6 * sc
+
+
+def _xi_blk(roots_p, xi):
+    half = np.float32(0.70710678)
+
+    def alm_blk(c, l0, nrows, mw):
+        r = jax.lax.dynamic_slice_in_dim(jnp.asarray(roots_p), l0, nrows, 0)
+        x = jax.lax.dynamic_slice_in_dim(jnp.asarray(xi), l0, nrows, 0)
+        a = jnp.einsum("lzy,lypm->lzpm", r, x[..., :mw] * half)
+        return jnp.moveaxis(a, 0, 2)
+
+    return alm_blk
+
+
+def test_correlated_path_matches_jax_xla():
+    """The correlated draw + contraction (_fused_scan_GeGo) vs the JAX XLA
+    scan path with the same white noise (nside=64, lmax=191, l_chunk=128,
+    nz=4): ≤ 1e-4·max, the scan drift class of test_pallas.py."""
+    nside, lmax, nz = 64, 191, 4
+    L = lmax + 1
+    jop = jsht.SHT(nside, lmax, legendre_mode="scan", l_chunk=128,
+                   scan_ckpt=True, ckpt_every=1)
+    jt = jop.tables(False)
+    roots = (np.random.RandomState(2).randn(L, nz, nz) * 0.1).astype(np.float32)
+    Lp = 256
+    xi = np.random.default_rng(5).standard_normal((Lp, nz, 2, L)).astype(np.float32)
+    roots_p = np.pad(roots, ((0, Lp - L), (0, 0), (0, 0)))
+    Ge_r, Go_r = jsht._legendre_contract_scan_streamed(
+        jop, jt, _xi_blk(roots_p, xi), (nz, 2), jnp.float32, expand=False)
+    Ge_r = np.asarray(jsht._join_planes(Ge_r))
+    Go_r = np.asarray(jsht._join_planes(Go_r))
+
+    top = tsht.SHT(nside, lmax, l_chunk=128, scan_ckpt=True, ckpt_every=1,
+                   device="cpu")
+    Ge, Go = tsht._fused_scan_GeGo(top, top.tables(False),
+                                   convert.roots_from_numpy(roots, "cpu"),
+                                   tsht.xi_from_array(xi), 0, nz)
+    sc = np.abs(Ge_r).max()
+    assert np.abs(Ge.numpy() - Ge_r).max() <= 1e-4 * sc
+    assert np.abs(Go.numpy() - Go_r).max() <= 1e-4 * sc
+
+
+def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
+                    band_rows, warps=8, ft=16, lb=32):
+    """numpy float32 replay of csrc/scan_legendre.cu's block loop."""
+    f32 = np.float32
+    L, M = rec_a.shape
+    R = z.size
+    F2 = alm0.shape[0]
+    nband = ck_T.shape[0]
+    he = np.zeros((F2, R, M), f32)
+    ho = np.zeros((F2, R, M), f32)
+    for m0 in range(0, M, warps):
+        ms = np.arange(m0, min(m0 + warps, M))
+        for f0 in range(0, F2, ft):
+            fs = np.arange(f0, min(f0 + ft, F2))
+            lp = np.zeros((ms.size, R), f32)
+            lpp = np.zeros_like(lp)
+            k = np.zeros_like(lp)
+            seed, k0 = seed_T[ms], k0_T[ms]
+            acc = [np.zeros((fs.size, ms.size, R), f32) for _ in range(2)]
+            lstart = (m0 // lb) * lb
+            next_ck = (max(band_rows, -(-lstart // band_rows) * band_rows)
+                       if nband > 1 else None)
+            for lb0 in range(lstart, L, lb):
+                part = [np.zeros_like(acc[0]) for _ in range(2)]
+                for p in range(min(lb // 2, (L - lb0) // 2)):
+                    l = lb0 + 2 * p
+                    if l == next_ck:
+                        b = l // band_rows
+                        if b < nband:
+                            c0, c1 = ck_T[b, 0][ms], ck_T[b, 1][ms]
+                            use = (np.abs(c0) > 2.0**-20) & (np.abs(c1) > 2.0**-20)
+                            lpp = np.where(use, c0, lpp)
+                            lp = np.where(use, c1, lp)
+                            k = np.where(use, f32(0), k)
+                        next_ck += band_rows
+                    for row, par, alm in ((l, 0, alm0), (l + 1, 1, alm1)):
+                        lam = (rec_a[row, ms][:, None] * (z[None, :] * lp)
+                               + rec_b[row, ms][:, None] * lpp)
+                        at = (ms == row)[:, None]
+                        lam = np.where(at, seed, lam)
+                        k = np.where(at, k0, k)
+                        out = np.where(k == 0, lam, f32(0))
+                        lpp, lp = lp, lam
+                        a = alm[fs][:, row // 2][:, ms]
+                        part[par] += a[:, :, None] * out[None]
+                    grow = (np.abs(lp) > 2.0**30) & (k > 0)
+                    lp = np.where(grow, lp * f32(2.0**-60), lp)
+                    lpp = np.where(grow, lpp * f32(2.0**-60), lpp)
+                    k = np.where(grow, k - 1, k)
+                acc[0] += part[0]
+                acc[1] += part[1]
+            he[np.ix_(fs, np.arange(R), ms)] = acc[0].transpose(0, 2, 1)
+            ho[np.ix_(fs, np.arange(R), ms)] = acc[1].transpose(0, 2, 1)
+    return he, ho
+
+
+@pytest.mark.parametrize("nside,lmax,lc,ke,F2", [
+    (8, 23, 6, 2, 6),     # band_rows 12: cadence does not divide the ℓ-block
+    (16, 47, 8, 2, 18),   # two F tiles, ragged second one
+    (8, 23, 4, 1, 4),
+])
+def test_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2):
+    op = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+                  device="cpu")
+    t = op.tables(False)
+    L = lmax + 1
+    Lk = t["psl_rec_a"].shape[0]
+    rng = np.random.default_rng(F2)
+    planes = rng.standard_normal((F2, Lk, L)).astype(np.float32)
+    planes *= (np.arange(L)[None, :] <= np.arange(Lk)[:, None])
+    A0 = torch.from_numpy(np.ascontiguousarray(planes[:, 0::2]))
+    A1 = torch.from_numpy(np.ascontiguousarray(planes[:, 1::2]))
+    args = [t[k] for k in ("psl_rec_a", "psl_rec_b", "psl_seed", "psl_k0",
+                           "psl_z", "psl_ck")]
+    he_p, ho_p = k1.scan_contract_plain(*args, A0, A1, band_rows=op.band_rows)
+    he_e, ho_e = _emulate_kernel(*[a.numpy() for a in args], A0.numpy(),
+                                 A1.numpy(), op.band_rows)
+    sc = float(he_p.abs().max())
+    assert np.abs(he_e - he_p.numpy()).max() <= 2e-6 * sc
+    assert np.abs(ho_e - ho_p.numpy()).max() <= 2e-6 * sc
+
+
+def test_plain_f32_vs_f64_accuracy_class():
+    """The f32 plain version sits in the scan accuracy class of its own f64
+    run (the reference chip_smoke holds the kernel against)."""
+    op = tsht.SHT(32, 95, l_chunk=16, scan_ckpt=True, device="cpu")
+    t = op.tables(False)
+    L, Lk = 96, t["psl_rec_a"].shape[0]
+    planes = np.random.default_rng(1).standard_normal((4, Lk, L))
+    planes *= (np.arange(L)[None, :] <= np.arange(Lk)[:, None])
+    args = [t[k] for k in ("psl_rec_a", "psl_rec_b", "psl_seed", "psl_k0",
+                           "psl_z", "psl_ck")]
+    A0 = torch.from_numpy(np.ascontiguousarray(planes[:, 0::2]))
+    A1 = torch.from_numpy(np.ascontiguousarray(planes[:, 1::2]))
+    he32, _ = k1.scan_contract_plain(*args, A0.float(), A1.float(),
+                                     band_rows=op.band_rows)
+    he64, _ = k1.scan_contract_plain(*[a.double() for a in args], A0, A1,
+                                     band_rows=op.band_rows)
+    assert he64.dtype == torch.float64
+    sc = float(he64.abs().max())
+    assert float((he32.double() - he64).abs().max()) <= 2e-6 * sc
+
+
+@pytest.mark.slow
+def test_plain_matches_pallas_interpret():
+    """Against the Pallas kernel itself (interpret mode), same tables."""
+    from cora_tpu.ops.pallas_scan_legendre import fused_GeGo
+
+    nside, lmax = 16, 47
+    L = lmax + 1
+    jop = jsht.SHT(nside, lmax, fft_mode="mm", legendre_mode="scan",
+                   l_chunk=8, scan_ckpt=True, ckpt_every=2)
+    jt = jop.tables(False)
+    alm = _triangle_alm(np.random.default_rng(4), 2, L)
+    Ge_r, Go_r = fused_GeGo(jop, jt, jnp.asarray(alm), interpret=True,
+                            mt=8, rt=8, lb=8)
+    top = tsht.SHT(nside, lmax, l_chunk=8, scan_ckpt=True, ckpt_every=2,
+                   device="cpu")
+    Ge, Go = tsht.fused_GeGo(top, top.tables(False), torch.from_numpy(alm))
+    sc = float(np.abs(np.asarray(Ge_r)).max())
+    assert np.abs(Ge.numpy() - np.asarray(Ge_r)).max() <= 5e-6 * sc
+    assert np.abs(Go.numpy() - np.asarray(Go_r)).max() <= 5e-6 * sc
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
+    from cora_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nside,lmax,lc,ke", [(16, 47, 8, 2), (64, 191, 64, 1)])
+def test_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
+    op = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+                  device=cuda_device)
+    alm = torch.from_numpy(_triangle_alm(np.random.default_rng(2), 9, lmax + 1))
+    Ge, Go = tsht.fused_GeGo(op, op.tables(False), alm.to(cuda_device))
+    op_c = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+                    device="cpu")
+    Ge_c, Go_c = tsht.fused_GeGo(op_c, op_c.tables(False), alm)
+    sc = float(Ge_c.abs().max())
+    assert float((Ge.cpu() - Ge_c).abs().max()) <= 1e-4 * sc
+    assert float((Go.cpu() - Go_c).abs().max()) <= 1e-4 * sc
