@@ -1,7 +1,8 @@
-"""Scan-mode spherical harmonic synthesis on HEALPix grids.
+"""Scan-mode spherical harmonic transforms on HEALPix grids.
 
 Port of the Λ-free, checkpointed "scan" mode of ``cora_tpu/healpix/sht.py``
-— the configuration whose Legendre stage is the fused recurrence kernel:
+— the configuration whose Legendre stages are the fused recurrence
+kernels, K1 for synthesis and K2 for its adjoint (analysis):
 
 * **Host tables** (numpy float64, built once per operator): recurrence
   coefficients ``rec_a``/``rec_b``, the λ_mm seeds built in log space and
@@ -16,7 +17,14 @@ Port of the Λ-free, checkpointed "scan" mode of ``cora_tpu/healpix/sht.py``
   polar caps as a Bluestein convolution, both on the half-size even/odd
   accumulators (the south follows by N/S parity).
 * :meth:`SHT.grid_to_map`: ring grid → HEALPix RING pixels as one device
-  gather.
+  gather; :meth:`SHT.map_to_grid`, its inverse, as one device scatter.
+* **Analysis**: :func:`grid_to_rings_parity` (the adjoint ring stage: N/S
+  fold of the grid, forward DFT at W on the equatorial band,
+  conjugate-chirp Bluestein on the caps) and :func:`fused_project` (even/odd
+  spectra → alm through
+  :func:`cora_tpu_torch.ops.scan_legendre.scan_project`), refined by Jacobi
+  steps or conjugate gradients; ``map2alm``, ``anafast`` and the smoothing
+  functions on top.
 
 The TPU-only knobs of the JAX operator (matmul FFTs, conv and precision
 modes, the cached-Λ mode, the banded cap) are not part of this port.
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.scan_legendre import SCALE_BETA, SCALE_S, scan_contract
+from ..ops.scan_legendre import scale_for, scan_contract, scan_project
 from ..util.profiling import stage
 from . import pixel
 
@@ -52,7 +60,8 @@ def _band_mw(L, lc, c_lo, nc):
 
 
 class SHT:
-    """Scan-mode synthesis operator for one (nside, lmax) pair.
+    """Scan-mode transform operator (synthesis and analysis) for one
+    (nside, lmax) pair.
 
     Parameters
     ----------
@@ -215,11 +224,13 @@ class SHT:
                     ck[c, 1] = lam_p.astype(np.float32)
         return ck
 
-    def _scaled_seeds(self):
-        """(seeds, k0) [nh, L] for the f32 scaled recurrence (S=60, β=30)."""
-        k0 = np.ceil(np.maximum(0.0, -(self._log2_lam_mm + SCALE_BETA) / SCALE_S))
+    def _scaled_seeds(self, double=False):
+        """(seeds, k0) [nh, L] for the scaled recurrence at the requested
+        precision (S=60, β=30 in f32; S=512, β=256 in f64)."""
+        S, beta = scale_for(torch.float64 if double else torch.float32)
+        k0 = np.ceil(np.maximum(0.0, -(self._log2_lam_mm + beta) / S))
         with np.errstate(under="ignore"):
-            seeds = self._lam_sign * np.exp2(self._log2_lam_mm + SCALE_S * k0)
+            seeds = self._lam_sign * np.exp2(self._log2_lam_mm + S * k0)
         return seeds, k0
 
     def tables(self, double: bool = False):
@@ -227,16 +238,17 @@ class SHT:
 
         Keys mirror the JAX operator's ``tables()``: recurrence rows
         ``rec_a``/``rec_b``, seeds ``lam_mm``/``lam_k0`` (scaled for the
-        f32 recurrence at either precision — the kernel's contract),
-        ``z_half``, checkpoints ``lam_ck``, and the ring tables; plus the
-        derived kernel layout (``psl_*``).
+        recurrence at this precision), ``z_half``, checkpoints ``lam_ck``
+        (f32 only: re-seeding an f64 recurrence from f32-cast rows would
+        cost it its precision), and the ring tables; plus the derived
+        kernel layout (``psl_*``).
         """
         key = bool(double)
         if key in self._tables:
             return self._tables[key]
         fdt = np.float64 if double else np.float32
         cdt = np.complex128 if double else np.complex64
-        seeds, k0 = self._scaled_seeds()
+        seeds, k0 = self._scaled_seeds(double)
         t = dict(
             rec_a=self._rec_a.astype(fdt),
             rec_b=self._rec_b.astype(fdt),
@@ -249,7 +261,7 @@ class SHT:
             bl_C_cap=self._bl_C_cap.astype(cdt),
             bl_Bf_cap=self._bl_Bf_cap.astype(cdt),
         )
-        if self._ck_host is not None:
+        if self._ck_host is not None and not double:
             t["lam_ck"] = self._ck_host
         t = {k_: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
              for k_, v in t.items()}
@@ -291,25 +303,72 @@ class SHT:
         """alm[..., lmax+1, lmax+1] (complex, m ≥ 0) → ring grid
         [..., nring, nq_max] (real)."""
         alm = torch.as_tensor(alm, device=self.device)
-        t = self.tables(alm.dtype == torch.complex128)
-        with stage("legendre", self.device):
-            Ge, Go = fused_GeGo(self, t, alm)
-        with stage("ring", self.device):
-            return rings_to_grid_parity(self, t, Ge, Go)
+        return _synthesis_grid(self, self.tables(alm.dtype == torch.complex128),
+                               alm)
 
     def synthesis(self, alm):
         """alm2map: dense alm[..., lmax+1, lmax+1] → map[..., 12·nside²]."""
         return self.grid_to_map(self.synthesis_grid(alm))
 
-    def grid_to_map(self, fgrid):
-        """Ring grid [..., nring, nq_max] → HEALPix RING pixels [..., npix]."""
-        if self._pix_index is None:  # flat ring-grid index of each pixel
+    def analysis_grid(self, fgrid, iter: int = 3, method: str = "jacobi"):
+        """map2alm from the ring grid [..., nring, nq_max] (real) → alm
+        [..., lmax+1, lmax+1] (complex).
+
+        Pixel-area quadrature (weight 4π/npix) refined by ``iter`` steps:
+        method="jacobi" is healpy's map2alm(iter=N) class; method="cg"
+        solves the quadrature normal equations by conjugate gradients at
+        the same cost per step (one synthesis + one projection).
+        """
+        fgrid = torch.as_tensor(fgrid, device=self.device)
+        t = self.tables(fgrid.dtype == torch.float64)
+        if method == "cg":
+            return _analysis_cg_grid(self, t, fgrid, iter)
+        if method != "jacobi":
+            raise ValueError(f"unknown analysis method {method!r}")
+        return _analysis_grid(self, t, fgrid, iter)
+
+    def analysis(self, fmap, iter: int = 3, method: str = "jacobi"):
+        """map2alm: HEALPix RING map [..., 12·nside²] → alm
+        [..., lmax+1, lmax+1] (see :meth:`analysis_grid`)."""
+        return self.analysis_grid(self.map_to_grid(fmap), iter, method)
+
+    def _pixel_index(self):
+        """Flat ring-grid index of each pixel (on the device, cached)."""
+        if self._pix_index is None:
             self._pix_index = torch.from_numpy(
                 self._r_of_pix.astype(np.int64) * self.nq_max + self._j_of_pix
             ).to(self.device)
+        return self._pix_index
+
+    def grid_to_map(self, fgrid):
+        """Ring grid [..., nring, nq_max] → HEALPix RING pixels [..., npix]."""
         flat = fgrid.reshape(fgrid.shape[:-2] + (-1,))
         with stage("pixel_gather", self.device):
-            return flat.index_select(-1, self._pix_index)
+            return flat.index_select(-1, self._pixel_index())
+
+    def map_to_grid(self, fmap):
+        """HEALPix RING pixels [..., npix] → ring grid [..., nring, nq_max],
+        zero beyond each ring's n_r pixels (the inverse of
+        :meth:`grid_to_map`)."""
+        fmap = torch.as_tensor(fmap, device=self.device)
+        batch = tuple(fmap.shape[:-1])
+        flat = fmap.new_zeros(batch + (self.nring * self.nq_max,))
+        with stage("pixel_scatter", self.device):
+            flat.index_copy_(-1, self._pixel_index(), fmap)
+        return flat.reshape(batch + (self.nring, self.nq_max))
+
+    # --- the Legendre stages on full ring spectra G [..., nring, lmax+1],
+    # as the JAX operator's hooks (the transforms themselves stay folded)
+
+    def _legendre_contract(self, alm):
+        alm = torch.as_tensor(alm, device=self.device)
+        t = self.tables(alm.dtype == torch.complex128)
+        return _unfold_rows(self, *fused_GeGo(self, t, alm))
+
+    def _legendre_project(self, G):
+        G = torch.as_tensor(G, device=self.device)
+        t = self.tables(G.dtype == torch.complex128)
+        return fused_project(self, t, *_fold_rows(self, G))
 
 
 @lru_cache(maxsize=8)
@@ -332,6 +391,104 @@ def alm2map(alm, nside: int, device="cuda"):
     return get_sht(nside, alm.shape[-2] - 1, device=device).synthesis(alm)
 
 
+def map2alm(fmap, lmax: int | None = None, iter: int = 3,
+            method: str = "jacobi", solve_lmax: int | None = None,
+            device="cuda"):
+    """Analysis of a HEALPix map [..., npix] into dense alm[..., l, m].
+
+    ``method`` as :meth:`SHT.analysis`.  ``solve_lmax`` (recommended
+    2·nside) is the two-stage banded solve: the band ℓ ≤ solve_lmax by CG
+    on its own well-conditioned system, the rows above it completed by one
+    quadrature projection of the residual at full lmax (the grid fixes
+    alm uniquely only to ℓ ≲ 2·nside).
+    """
+    fmap = torch.as_tensor(fmap)
+    nside = pixel.npix2nside(fmap.shape[-1])
+    if lmax is None:
+        lmax = 3 * nside - 1
+    if solve_lmax is None or solve_lmax >= lmax:
+        return get_sht(nside, lmax, device=device).analysis(fmap, iter, method)
+
+    op_b = get_sht(nside, int(solve_lmax), device=device)
+    fmap = fmap.to(op_b.device)
+    alm_b = op_b.analysis(fmap, iter, method="cg")
+    resid = fmap - op_b.synthesis(alm_b)
+    # corner completion: plain quadrature projection of the residual
+    alm_f = get_sht(nside, lmax, device=device).analysis(resid, 0)
+    pad = lmax - int(solve_lmax)
+    out = torch.nn.functional.pad(alm_b, (0, pad, 0, pad))
+    keep = torch.arange(lmax + 1, device=out.device)[:, None] > solve_lmax
+    return out + torch.where(keep, alm_f, 0)
+
+
+def anafast(map1, map2=None, lmax: int | None = None, iter: int = 3,
+            method: str = "jacobi", solve_lmax: int | None = None,
+            device="cuda"):
+    """Angular power spectrum C_ℓ [..., lmax+1] of one map, or the cross
+    spectrum of two."""
+    map1 = torch.as_tensor(map1)
+    nside = pixel.npix2nside(map1.shape[-1])
+    if lmax is None:
+        lmax = 3 * nside - 1
+    alm1 = map2alm(map1, lmax, iter, method, solve_lmax, device)
+    alm2 = alm1 if map2 is None else map2alm(map2, lmax, iter, method,
+                                             solve_lmax, device)
+    prod = alm1 * alm2.conj()
+    s = prod[..., 0].real + 2 * prod[..., 1:].sum(dim=-1).real
+    return s / (2.0 * torch.arange(lmax + 1, device=s.device) + 1.0)
+
+
+def _sigma(fwhm, sigma):
+    """Gaussian beam σ from its FWHM (radians), or σ itself."""
+    return sigma if fwhm is None else fwhm / np.sqrt(8.0 * np.log(2.0))
+
+
+def _beam(lmax, sigma, like):
+    """b_ℓ = exp(-ℓ(ℓ+1)σ²/2), ℓ ≤ lmax, in the real dtype of ``like``."""
+    l = np.arange(lmax + 1, dtype=np.float64)
+    return torch.from_numpy(np.exp(-0.5 * l * (l + 1.0) * sigma**2)).to(
+        device=like.device, dtype=like.real.dtype)
+
+
+def smoothalm(alm, fwhm: float):
+    """Gaussian beam smoothing of alm[..., l, m] (fwhm in radians)."""
+    return alm * _beam(alm.shape[-2] - 1, _sigma(fwhm, None), alm)[:, None]
+
+
+def smoothing(fmap, fwhm: float = None, iter: int = 3, sigma: float = None,
+              device="cuda"):
+    """Gaussian beam smoothing of a map (healpy.smoothing equivalent):
+    analysis and synthesis at lmax = 3·nside − 1."""
+    fmap = torch.as_tensor(fmap)
+    nside = pixel.npix2nside(fmap.shape[-1])
+    alm = map2alm(fmap, 3 * nside - 1, iter, device=device)
+    alm = alm * _beam(3 * nside - 1, _sigma(fwhm, sigma), alm)[:, None]
+    return alm2map(alm, nside, device=device)
+
+
+def smoothing_grid(fmap, fwhm: float = None, iter: int = 3,
+                   sigma: float = None, lmax: int | None = None,
+                   device="cuda"):
+    """Gaussian beam smoothing through the ring-grid layout, in float32.
+
+    Same math as :func:`smoothing`, but by default the analysis band is
+    beam-limited: the beam is < 4e-6 of its peak beyond ℓ = 5/σ, so the
+    default lmax is min(3·nside − 1, max(64, ⌈5/σ⌉)).  Map power above
+    that band aliases into the fit (a few % for white-spectrum inputs at
+    small nside); pass ``lmax=3·nside−1`` for :func:`smoothing`'s band.
+    Accepts leading batch axes; returns float32 maps on ``device``.
+    """
+    sig = _sigma(fwhm, sigma)
+    fmap = torch.as_tensor(fmap).to(device=resolve_device(device),
+                                    dtype=torch.float32)
+    nside = pixel.npix2nside(fmap.shape[-1])
+    if lmax is None:
+        lmax = min(3 * nside - 1, max(64, int(np.ceil(5.0 / max(sig, 1e-12)))))
+    op = get_sht(nside, lmax, device=device)
+    alm = op.analysis_grid(op.map_to_grid(fmap), iter=iter)
+    return op.grid_to_map(op.synthesis_grid(alm * _beam(lmax, sig, fmap)[:, None]))
+
+
 # ===========================================================================
 # Legendre stage
 # ===========================================================================
@@ -346,11 +503,15 @@ def _route(H0c, H1c, L):
     return Ge, Go
 
 
+def _kernel_tables(t):
+    return (t["psl_rec_a"], t["psl_rec_b"], t["psl_seed"], t["psl_k0"],
+            t["psl_z"], t["psl_ck"])
+
+
 def _contract(op, t, A0, A1):
-    return scan_contract(
-        t["psl_rec_a"], t["psl_rec_b"], t["psl_seed"], t["psl_k0"],
-        t["psl_z"], t["psl_ck"], A0, A1, band_rows=op.band_rows,
-    )
+    # tables of each precision are scaled for it (SHT._scaled_seeds)
+    return scan_contract(*_kernel_tables(t), A0, A1, band_rows=op.band_rows,
+                         scale=scale_for(t["psl_rec_a"].dtype))
 
 
 def fused_GeGo(op, t, alm):
@@ -374,6 +535,55 @@ def fused_GeGo(op, t, alm):
     H0c = torch.complex(He[:B], He[B:]).reshape(batch + (nh, L))
     H1c = torch.complex(Ho[:B], Ho[B:]).reshape(batch + (nh, L))
     return _route(H0c, H1c, L)
+
+
+def fused_project(op, t, Ge, Go):
+    """alm [..., L, L] (complex) from even/odd ring spectra (Ge, Go)
+    [..., nh, L] — the adjoint of :func:`fused_GeGo`, the counterpart of
+    ``cora_tpu``'s ``_fused_scan_project``.
+
+    Even-ℓ rows see Ge on even m and Go on odd m, odd-ℓ rows the
+    complement (:func:`_route`); the batch is flattened into the kernel's
+    plane axis as ``[all real; all imag]``.
+    """
+    L = op.lmax + 1
+    nh = op.nhalf
+    rdt = t["psl_rec_a"].dtype
+    batch = tuple(Ge.shape[:-2])
+    B = int(np.prod(batch, dtype=np.int64)) if batch else 1
+    Ge = Ge.reshape(B, nh, L)
+    Go = Go.reshape(B, nh, L)
+    ge = torch.cat([Ge.real, Ge.imag], dim=0).to(rdt)
+    go = torch.cat([Go.real, Go.imag], dim=0).to(rdt)
+    src0, src1 = _route(ge, go, L)
+    A0, A1 = scan_project(*_kernel_tables(t), src0.contiguous(),
+                          src1.contiguous(), band_rows=op.band_rows,
+                          scale=scale_for(rdt))
+    # interleave the even/odd ℓ rows, trim the padded rows
+    alm = torch.stack([A0, A1], dim=2).reshape(2 * B, -1, L)[:, :L]
+    return torch.complex(alm[:B], alm[B:]).reshape(batch + (L, L))
+
+
+def _fold_rows(op, x):
+    """Ring rows [..., nring, n] → N/S even/odd sums (xe, xo) [..., nh, n].
+
+    Northern row r (equator included, nh = 2·nside rows) plus / minus its
+    southern mirror nring−1−r; the equator is its own mirror and enters
+    once.  The adjoint of :func:`_unfold_rows`.
+    """
+    nh = op.nhalf
+    north = x[..., :nh, :]
+    south = torch.nn.functional.pad(torch.flip(x[..., nh:, :], dims=[-2]),
+                                    (0, 0, 0, 1))
+    return north + south, north - south
+
+
+def _unfold_rows(op, xe, xo):
+    """Even/odd accumulators [..., nh, n] → all rings [..., nring, n]:
+    north rows xe + xo, southern mirrors xe − xo (equator excluded)."""
+    nh = op.nhalf
+    return torch.cat([xe + xo, torch.flip((xe - xo)[..., :nh - 1, :],
+                                          dims=[-2])], dim=-2)
 
 
 def xi_from_array(xi):
@@ -470,11 +680,13 @@ def synthesis_grid_correlated(op, t, roots, xi_chunk, z_lo, nz_chunk):
 # ===========================================================================
 
 
-def _conv2(op, t, a, kkey, rows, stack2):
+def _conv2(op, t, a, kkey, rows, stack2, conj=False):
     """Circular convolution IDFT(DFT(a) ∘ K) at the foldless size nfft2
     (``a`` zero-padded by the transform; K = t[kkey][rows], doubled for
-    the parity paths)."""
+    the parity paths, conjugated for the adjoint direction)."""
     K = t[kkey][rows].to(a.dtype)
+    if conj:
+        K = K.conj()
     if stack2:
         K = torch.cat([K, K], dim=0)
     return torch.fft.ifft(torch.fft.fft(a, n=op.nfft2, dim=-1) * K, dim=-1)
@@ -558,3 +770,120 @@ def rings_to_grid_parity(op, t, Ge, Go):
     if nq_max > nq_cap:
         fcap = torch.nn.functional.pad(fcap, (0, nq_max - nq_cap))
     return torch.cat([fcap[..., :lo, :], feq, fcap[..., lo:, :]], dim=-2)
+
+
+def grid_to_rings_parity(op, t, fgrid):
+    """Even/odd ring spectra (Ge, Go) [..., nh, L] (complex) from the ring
+    grid [..., nring, nq_max] (real): the adjoint of
+    :func:`rings_to_grid_parity`, G[r, m] = Σ_j f[r, j] e^{-imφ_j} folded
+    N/S.
+
+    The grid is folded first (the mirror tables are bitwise equal), so
+    each transform runs once on the stacked [fe; fo] northern rows: a
+    forward DFT at W = 4·nside on the equatorial band (bins tiled to L,
+    times conj(eq_phase)) and the conjugate-chirp Bluestein convolution on
+    the dense caps.
+    """
+    lo = op._eq_lo
+    nh = op.nhalf
+    W = 4 * op.nside
+    L = op.lmax + 1
+    n_eq = nh - lo
+    fe, fo = _fold_rows(op, fgrid)
+
+    F = torch.fft.fft(torch.cat([fe[..., lo:, :W], fo[..., lo:, :W]], dim=-2),
+                      dim=-1)
+    phase = t["eq_phase"][:n_eq].conj().to(F.dtype)
+    Geq = F[..., torch.arange(L, device=F.device) % W] * torch.cat([phase, phase])
+    if lo == 0:
+        return Geq[..., :n_eq, :], Geq[..., n_eq:, :]
+
+    nq_cap = t["bl_C_cap"].shape[-1]
+    C = t["bl_C_cap"][:lo].conj().to(F.dtype)
+    A = t["bl_A_cap"][:lo].conj().to(F.dtype)
+    a = torch.cat([fe[..., :lo, :nq_cap], fo[..., :lo, :nq_cap]], dim=-2)
+    conv = _conv2(op, t, a * torch.cat([C, C]), "bl_Bf_cap", slice(0, lo),
+                  True, conj=True)
+    Gcap = conv[..., :L] * torch.cat([A, A])
+    Ge = torch.cat([Gcap[..., :lo, :], Geq[..., :n_eq, :]], dim=-2)
+    Go = torch.cat([Gcap[..., lo:, :], Geq[..., n_eq:, :]], dim=-2)
+    return Ge, Go
+
+
+# ===========================================================================
+# Synthesis and the analysis iterations (Jacobi, CG)
+# ===========================================================================
+
+
+def _synthesis_grid(op, t, alm):
+    with stage("legendre", op.device):
+        Ge, Go = fused_GeGo(op, t, alm)
+    with stage("ring", op.device):
+        return rings_to_grid_parity(op, t, Ge, Go)
+
+
+def _analysis_once_grid(op, t, fgrid):
+    """One quadrature projection (pixel weight 4π/npix) of a ring grid."""
+    with stage("ring_fwd", op.device):
+        Ge, Go = grid_to_rings_parity(op, t, fgrid)
+        w = 4.0 * np.pi / op.npix
+    with stage("projection", op.device):
+        return fused_project(op, t, Ge * w, Go * w)
+
+
+def _analysis_grid(op, t, fgrid, iter):
+    """Jacobi-refined analysis: alm += project(f − synth(alm)), ``iter``
+    times."""
+    alm = _analysis_once_grid(op, t, fgrid)
+    for _ in range(iter):
+        resid = fgrid - _synthesis_grid(op, t, alm)
+        alm = alm + _analysis_once_grid(op, t, resid)
+    return alm
+
+
+def _analysis_cg_grid(op, t, f, niter):
+    """Conjugate-gradient analysis on the quadrature normal equations
+    (AᵀWA) x = AᵀW f, A = synthesis; ``niter`` CG steps, one synthesis and
+    one projection each.
+
+    The m ≥ 0 packed alm weight m > 0 modes twice in the real map inner
+    product, so CG runs in y = s_m·x (s = √2 for m > 0), where the normal
+    operator is self-adjoint under the plain complex dot.  One CG runs
+    over the whole batch.  Unguarded CG diverges once the residual reaches
+    rounding level, so an iteration freezes when ‖r‖² falls to (50·eps)²
+    of its start or grows 1e6 past its best, and the lowest-residual
+    iterate is returned.  The guard is tensor arithmetic: no host sync
+    per iteration.
+    """
+    L = op.lmax + 1
+    s = torch.where(torch.arange(L, device=f.device) > 0, np.sqrt(2.0),
+                    1.0).to(f.dtype)
+
+    def N(y):
+        return _analysis_once_grid(op, t, _synthesis_grid(op, t, y / s)) * s
+
+    def dot(u, v):
+        return torch.vdot(u.reshape(-1), v.reshape(-1)).real
+
+    b = _analysis_once_grid(op, t, f) * s
+    x = b
+    r = b - N(x)
+    p = r
+    rs = dot(r, r)
+    xb, rs_min = x, rs
+    tol2 = rs * (50.0 * torch.finfo(f.dtype).eps) ** 2
+    for _ in range(niter):
+        live = (rs > tol2) & (rs < 1e6 * rs_min)
+        Np = N(p)
+        denom = dot(p, Np)
+        alpha = torch.where(live & (denom > 0), rs / denom.clamp_min(1e-300), 0.0)
+        x = x + alpha * p
+        r = r - alpha * Np
+        rs_new = torch.where(live, dot(r, r), rs)
+        beta = torch.where(live & (rs > 0), rs_new / rs.clamp_min(1e-300), 0.0)
+        p = torch.where(live, r + beta * p, p)
+        better = rs_new < rs_min
+        xb = torch.where(better, x, xb)
+        rs_min = torch.where(better, rs_new, rs_min)
+        rs = rs_new
+    return xb / s

@@ -8,7 +8,8 @@ compiled on first use with
 
 into ``cora_tpu_torch/_build/`` (listed in ``.gitignore``).  The library
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and a current one is reused.  Nothing is compiled or imported at
+rebuilt and a current one is reused; :func:`build` compiles several
+sources at once.  Nothing is compiled or imported at
 module import time: the CPU-only tests import every module.
 """
 
@@ -45,32 +46,47 @@ def nvcc_path() -> str:
     return p
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
+def _lib_path(name: str) -> str:
     src = os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build(names) -> None:
+    """Compile every library in ``names`` that is not built yet, with one
+    nvcc process per source, all started together."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-    if not os.path.exists(so):
+    jobs = []
+    for name in names:
+        so = _lib_path(name)
+        if os.path.exists(so):
+            continue
         tmp = f"{so}.tmp{os.getpid()}"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
+        src = os.path.join(CSRC, name + ".cu")
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs.append((name, src, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, so, tmp, proc, t0 in jobs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {src}:\n{proc.stdout}\n{proc.stderr}"
-            )
+            failed.append(f"nvcc failed building {src}:\n{out}\n{err}")
+            continue
         os.replace(tmp, so)
         build_log[name] = dict(seconds=time.perf_counter() - t0,
-                               ptxas=proc.stderr.strip())
-    lib = ctypes.CDLL(so)
-    _LIBS[name] = lib
+                               ptxas=err.strip())
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(_lib_path(name))
     return lib

@@ -101,6 +101,38 @@ def test_wrapper_other_device_raises():
         k1.scan_contract(*args, band_rows=4)
 
 
+def _tiny_project_inputs(device, F2=3, L=8, M=6, R=5):
+    args = _tiny_inputs(device, F2, L, M, R)
+    g = torch.Generator().manual_seed(1)
+    src = [torch.randn(F2, R, M, generator=g).to(device) for _ in range(2)]
+    return args[:6] + tuple(src)
+
+
+def test_project_wrapper_cpu_runs_plain_without_launch():
+    args = _tiny_project_inputs("cpu")
+    before = (k1.launches, k1.project_launches)
+    a0, a1 = k1.scan_project(*args, band_rows=4)
+    p0, p1 = k1.scan_project_plain(*args, band_rows=4)
+    assert (k1.launches, k1.project_launches) == before
+    assert torch.equal(a0, p0) and torch.equal(a1, p1)
+    assert a0.shape == (3, 4, 6)
+
+
+def test_project_wrapper_other_device_raises():
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1.scan_project(*_tiny_project_inputs("meta"), band_rows=4)
+
+
+def test_kernels_refuse_f64_scaled_tables():
+    """The CUDA kernels hard-code the f32 scaling (S=60, β=30); tables
+    scaled for f64 never reach them (checked before anything launches)."""
+    args = _tiny_project_inputs("meta")
+    with pytest.raises(ValueError, match="f32-scaled"):
+        k1.scan_project(*args, band_rows=4, scale=k1.SCALE_F64)
+    assert k1.scale_for(torch.float64) == k1.SCALE_F64
+    assert k1.scale_for(torch.float32) == (k1.SCALE_S, k1.SCALE_BETA)
+
+
 def test_build_targets_hopper_into_ignored_dir():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert os.path.exists(os.path.join(_build.CSRC, "scan_legendre.cu"))
@@ -109,6 +141,8 @@ def test_build_targets_hopper_into_ignored_dir():
     assert rel + "/" in ignored
     src = open(os.path.join(_build.CSRC, "scan_legendre.cu")).read()
     assert "pallas_scan_legendre.py" in src and "scan_contract_fused" in src
+    src = open(os.path.join(_build.CSRC, "scan_project.cu")).read()
+    assert "pallas_scan_legendre.py" in src and "scan_project_fused" in src
 
 
 @pytest.fixture
@@ -131,6 +165,30 @@ def test_wrapper_cuda_rejects_bad_inputs(cuda_device):
         k1.scan_contract(*bad, band_rows=4)
     with pytest.raises(ValueError):
         k1.scan_contract(*args, band_rows=3)
+
+
+@pytest.mark.cuda
+def test_project_wrapper_cuda_rejects_bad_inputs(cuda_device):
+    args = list(_tiny_project_inputs(cuda_device))
+    bad = list(args)
+    bad[6] = bad[6].double()
+    with pytest.raises(TypeError):
+        k1.scan_project(*bad, band_rows=4)
+    with pytest.raises(ValueError):
+        k1.scan_project(*args, band_rows=3)
+
+
+@pytest.mark.cuda
+def test_project_kernel_matches_plain_on_gpu(cuda_device):
+    args = _tiny_project_inputs(cuda_device, F2=20, L=40, M=37, R=300)
+    before = k1.project_launches
+    a0, a1 = k1.scan_project(*args, band_rows=4)
+    torch.cuda.synchronize()
+    assert k1.project_launches == before + 1
+    p0, p1 = k1.scan_project_plain(*args, band_rows=4)
+    sc = float(p0.abs().max())
+    assert float((a0 - p0).abs().max()) < 1e-4 * sc
+    assert float((a1 - p1).abs().max()) < 1e-4 * sc
 
 
 @pytest.mark.cuda

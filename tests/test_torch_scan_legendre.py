@@ -1,4 +1,4 @@
-"""The scan-Legendre contraction (kernel K1) of the port.
+"""The scan-Legendre contraction (kernel K1) and projection (K2) of the port.
 
 On the CPU the wrapper runs the plain PyTorch version, held here to the
 JAX package's XLA scan formulation on identical tables (the oracle that
@@ -6,7 +6,11 @@ JAX package's XLA scan formulation on identical tables (the oracle that
 level, to a numpy emulation of the CUDA kernel's loop structure (ℓ-block
 start per m tile, band counter, F tiling, two-level sums), which pins the
 kernel's design to the plain version's semantics without a GPU.  The
-CUDA kernel itself is compared on the card (``cuda`` marker).
+projection is held the same way: its plain version to JAX
+``_legendre_project_scan`` (XLA route), to K1-plain by adjointness, and a
+numpy replay of csrc/scan_project.cu's block structure to the plain
+version.  The CUDA kernels themselves are compared on the card (``cuda``
+marker).
 """
 
 import numpy as np
@@ -246,3 +250,179 @@ def test_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
     sc = float(Ge_c.abs().max())
     assert float((Ge.cpu() - Ge_c).abs().max()) <= 1e-4 * sc
     assert float((Go.cpu() - Go_c).abs().max()) <= 1e-4 * sc
+
+
+# --- K2: the projection (analysis adjoint) --------------------------------
+
+
+@pytest.mark.parametrize("double,tol", [(True, 1e-12), (False, 1e-5)])
+def test_project_plain_matches_jax_xla(double, tol):
+    """The port's projection (fold + parity mixes + scan_project_plain)
+    against JAX _legendre_project_scan on its XLA route, driven by the JAX
+    operator's own tables carried across (SHT(16, 47, l_chunk=8,
+    ckpt_every=2): re-seeded in f32, exact in f64)."""
+    nside, lmax = 16, 47
+    L = lmax + 1
+    jop = jsht.SHT(nside, lmax, legendre_mode="scan", l_chunk=8,
+                   scan_ckpt=True, ckpt_every=2)
+    jt = jop.tables(double)
+    assert "psl_rec_a" not in jt  # the XLA route
+    rng = np.random.default_rng(11)
+    G = rng.standard_normal((3, 4 * nside - 1, L)) + 1j * rng.standard_normal(
+        (3, 4 * nside - 1, L))
+    G = G.astype(np.complex128 if double else np.complex64)
+    ref = np.asarray(jsht._legendre_project_scan(jop, jt, jnp.asarray(G)))
+
+    top = tsht.SHT(nside, lmax, l_chunk=8, scan_ckpt=True, ckpt_every=2,
+                   device="cpu")
+    t = top.load_tables(convert.sht_tables_from_numpy(
+        {k: np.asarray(v) for k, v in jt.items()}, "cpu"), double)
+    assert ("psl_ck" in t) and (t["psl_ck"].shape[0] > 1) != double
+    got = tsht.fused_project(top, t, *tsht._fold_rows(top, torch.from_numpy(G)))
+    assert got.dtype == (torch.complex128 if double else torch.complex64)
+    assert np.abs(got.numpy() - ref).max() <= tol * np.abs(ref).max()
+
+
+def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1,
+                            band_rows, rpt=4, max_threads=256, ft=8, pb=16):
+    """numpy float32 replay of csrc/scan_project.cu: one block per (m, plane
+    tile), rings in chunks of threads·rpt (thread t holds rings
+    chunk + i·threads + t), per-thread sums over its rpt rings, the warp's
+    butterfly (lane bit 4 first, then 3, 2, 1, 0), warp sums in order once
+    per ℓ-block of pb row pairs, chunks added in order."""
+    f32 = np.float32
+    L, M = rec_a.shape
+    R = z.size
+    F2 = src0.shape[0]
+    nband = ck_T.shape[0]
+    nthr = min(max_threads, -(-(-(-R // rpt)) // 32) * 32)
+    nw = nthr // 32
+    out = [np.zeros((F2, L // 2, M), f32) for _ in range(2)]
+    for m in range(M):
+        lstart = m & ~1
+        for f0 in range(0, F2, ft):
+            fs = np.arange(f0, min(f0 + ft, F2))
+            for rc in range(0, R, nthr * rpt):
+                rr = rc + np.arange(rpt)[:, None] * nthr + np.arange(nthr)[None, :]
+                live = rr < R
+                ri = np.minimum(rr, R - 1)
+                zr = np.where(live, z[ri], f32(0))
+                lp = np.zeros((rpt, nthr), f32)
+                lpp = np.zeros_like(lp)
+                k = np.zeros_like(lp)
+                S = [np.where(live[None], s[fs][:, ri, m], f32(0)) for s in (src0, src1)]
+                next_ck = (max(band_rows, -(-lstart // band_rows) * band_rows)
+                           if nband > 1 else None)
+                for lb0 in range(lstart, L, 2 * pb):
+                    npair = min(pb, (L - lb0) // 2)
+                    red = np.zeros((nw, npair, 2, fs.size), f32)
+                    for p in range(npair):
+                        l = lb0 + 2 * p
+                        if l == next_ck:
+                            b = l // band_rows
+                            if b < nband:
+                                c0 = np.where(live, ck_T[b, 0, m][ri], f32(0))
+                                c1 = np.where(live, ck_T[b, 1, m][ri], f32(0))
+                                use = (np.abs(c0) > 2.0**-20) & (np.abs(c1) > 2.0**-20)
+                                lpp = np.where(use, c0, lpp)
+                                lp = np.where(use, c1, lp)
+                                k = np.where(use, f32(0), k)
+                            next_ck += band_rows
+                        for par in (0, 1):
+                            row = l + par
+                            lam = rec_a[row, m] * (zr * lp) + rec_b[row, m] * lpp
+                            if m == row:
+                                lam = np.where(live, seed_T[m][ri], f32(0))
+                                k = np.where(live, k0_T[m][ri], f32(1))
+                            o = np.where(k == 0, lam, f32(0))
+                            lpp, lp = lp, lam
+                            acc = o[0] * S[par][:, 0]
+                            for i in range(1, rpt):
+                                acc = acc + o[i] * S[par][:, i]
+                            v = acc.reshape((fs.size, nw) + (2,) * 5)
+                            for _ in range(5):  # lane bits 4, 3, 2, 1, 0
+                                v = v[:, :, 0] + v[:, :, 1]
+                            red[:, p, par] = v.T
+                        grow = (np.abs(lp) > 2.0**30) & (k > 0)
+                        lp = np.where(grow, lp * f32(2.0**-60), lp)
+                        lpp = np.where(grow, lpp * f32(2.0**-60), lpp)
+                        k = np.where(grow, k - 1, k)
+                    tot = red[0]
+                    for w in range(1, nw):
+                        tot = tot + red[w]
+                    for par in (0, 1):
+                        out[par][fs, lb0 // 2:lb0 // 2 + npair, m] += tot[:, par].T
+    return out
+
+
+@pytest.mark.parametrize("nside,lmax,lc,ke,F2,rpt,threads", [
+    (8, 23, 6, 2, 6, 4, 256),     # band_rows 12: cadence does not divide the ℓ-block
+    (16, 47, 8, 2, 10, 4, 256),   # two plane tiles, ragged second one
+    (128, 15, 4, 1, 3, 4, 256),   # 256 rings: two warps
+    (64, 31, 8, 1, 4, 2, 32),     # 128 rings over 32 threads·2: two ring chunks
+])
+def test_project_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2,
+                                                      rpt, threads):
+    op = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+                  device="cpu")
+    t = op.tables(False)
+    R, L = op.nhalf, lmax + 1
+    rng = np.random.default_rng(F2)
+    s0 = torch.from_numpy(rng.standard_normal((F2, R, L)).astype(np.float32))
+    s1 = torch.from_numpy(rng.standard_normal((F2, R, L)).astype(np.float32))
+    args = tsht._kernel_tables(t)
+    a0_p, a1_p = k1.scan_project_plain(*args, s0, s1, band_rows=op.band_rows)
+    a0_e, a1_e = _emulate_project_kernel(*[a.numpy() for a in args], s0.numpy(),
+                                         s1.numpy(), op.band_rows, rpt=rpt,
+                                         max_threads=threads)
+    sc = float(a0_p.abs().max())
+    assert np.abs(a0_e - a0_p.numpy()).max() <= 2e-6 * sc
+    assert np.abs(a1_e - a1_p.numpy()).max() <= 2e-6 * sc
+
+
+def test_contract_project_adjoint_f64():
+    """K1-plain and K2-plain are exact adjoints in f64 (as
+    tests/test_sht.py::test_adjointness): on ring spectra G through the
+    operator hooks (f64 tables), and on kernel planes with the f32 tables
+    (checkpoints included) cast to f64."""
+    nside, lmax = 16, 20
+    L = lmax + 1
+    op = tsht.SHT(nside, lmax, l_chunk=8, ckpt_every=1, device="cpu")
+    rng = np.random.default_rng(1)
+    alm = rng.standard_normal((L, L)) + 1j * rng.standard_normal((L, L))
+    G = rng.standard_normal((4 * nside - 1, L)) + 1j * rng.standard_normal((4 * nside - 1, L))
+    lhs = np.vdot(op._legendre_contract(torch.from_numpy(alm)).numpy(), G)
+    rhs = np.vdot(alm, op._legendre_project(torch.from_numpy(G)).numpy())
+    assert abs(lhs - rhs) / abs(lhs) < 1e-13
+
+    t = op.tables(False)
+    assert t["psl_ck"].shape[0] > 1
+    args = [a.double() for a in tsht._kernel_tables(t)]
+    Lk = args[0].shape[0]
+    A0, A1 = (torch.from_numpy(rng.standard_normal((3, Lk // 2, L))) for _ in range(2))
+    S0, S1 = (torch.from_numpy(rng.standard_normal((3, op.nhalf, L))) for _ in range(2))
+    He, Ho = k1.scan_contract_plain(*args, A0, A1, band_rows=op.band_rows)
+    P0, P1 = k1.scan_project_plain(*args, S0, S1, band_rows=op.band_rows)
+    lhs = float((He * S0).sum() + (Ho * S1).sum())
+    rhs = float((A0 * P0).sum() + (A1 * P1).sum())
+    assert abs(lhs - rhs) <= 1e-13 * abs(lhs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nside,lmax,lc,ke", [(16, 47, 8, 2), (64, 191, 64, 1)])
+def test_project_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
+    op = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+                  device=cuda_device)
+    rng = np.random.default_rng(3)
+    shape = (5, op.nhalf, lmax + 1)
+    Ge, Go = (torch.from_numpy(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+              .to(torch.complex64) for _ in range(2))
+    before = k1.project_launches
+    alm = tsht.fused_project(op, op.tables(False), Ge.to(cuda_device), Go.to(cuda_device))
+    torch.cuda.synchronize()
+    assert k1.project_launches == before + 1
+    op_c = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+                    device="cpu")
+    alm_c = tsht.fused_project(op_c, op_c.tables(False), Ge, Go)
+    sc = float(alm_c.abs().max())
+    assert float((alm.cpu() - alm_c).abs().max()) <= 1e-4 * sc
