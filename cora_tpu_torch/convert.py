@@ -7,6 +7,8 @@ tables (isolating the kernel and the ring stage from table construction).
 
     d = {k: np.asarray(v) for k, v in jax_op.tables(False).items()}
     op.load_tables(sht_tables_from_numpy(d, op.device))
+
+    spin_op.load_wigner_tables(wigner_tables_from_numpy(jax_spin_op._tab))
 """
 
 from __future__ import annotations
@@ -48,3 +50,25 @@ def roots_from_numpy(roots, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(roots)).to(
         device=resolve_device(device), dtype=dtype
     )
+
+
+def wigner_tables_from_numpy(tab: dict) -> dict:
+    """Host Wigner tables for :meth:`cora_tpu_torch.healpix.spin.SpinSHT.
+    load_wigner_tables` from a JAX spin operator's ``_tab``.
+
+    ``tab[sp] = (A, B, C, seed, l0)`` per spin family: recurrence rows
+    A/B/C [L, L], seeds [nh, L] and seed rows l0 [L].  Returned as float64
+    numpy copies (l0 as int64), shapes checked; the port derives its kernel
+    layout (coefficient stack, transposed seeds, int32 l0) from these.
+    """
+    out = {}
+    for sp, (A, B, C, seed, l0) in tab.items():
+        A, B, C, seed = (np.array(x, dtype=np.float64) for x in (A, B, C, seed))
+        l0 = np.array(l0, dtype=np.int64)
+        L = A.shape[0]
+        if (A.shape != (L, L) or B.shape != (L, L) or C.shape != (L, L)
+                or seed.shape[1:] != (L,) or l0.shape != (L,)):
+            raise ValueError(f"Wigner tables for spin {sp} have inconsistent "
+                             "shapes")
+        out[int(sp)] = (A, B, C, seed, l0)
+    return out

@@ -7,7 +7,9 @@ frequency chunks so the a_lm cube never exists in full.
 
 White noise comes from an explicit ``torch.Generator``; passing ``xi``
 instead hands the draw a given standard-normal array (tests feed the same
-numpy noise to this package and to the JAX reference).
+numpy noise to this package and to the JAX reference).  With
+``alms=True`` :func:`mkfullsky` returns the correlated a_lm draw itself
+(:func:`draw_alm_from_roots`) instead of maps.
 """
 
 from __future__ import annotations
@@ -148,10 +150,54 @@ def mkfullsky_streamed(corr, nside, *, device="cuda", generator=None, xi=None,
         yield z_lo, op.grid_to_map(grid)
 
 
-def mkfullsky(corr, nside, *, device="cuda", generator=None, xi=None,
-              roots=None, fchunk=16, op=None):
+def draw_alm_from_roots(roots, xi=None, generator=None,
+                        dtype=torch.complex64):
+    """Correlated a_lm [nz, L, L] from per-ℓ roots [L, nz, nz]:
+    alm[z, l, m] = Σ_y roots[l, z, y]·ξ[l, y, m], zero for m > l.
+
+    ``xi`` is the complex standard normal ξ [L, nz, L] of the draw (for
+    example the reference's ``complex_std_normal(key, (L, nz, L))``);
+    without it ξ is drawn from ``generator`` on the roots' device
+    (:func:`cora_tpu_torch.util.linalg.complex_std_normal`).  The draw runs
+    in ``dtype`` (complex64 or complex128).
+    """
+    roots = torch.as_tensor(roots)
+    L, nz, _ = roots.shape
+    dev = roots.device
+    if xi is None:
+        rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+        xi = linalg.complex_std_normal((L, nz, L), generator, dtype=rdt,
+                                       device=dev)
+    xi = torch.as_tensor(xi).to(device=dev, dtype=dtype)
+    alm = torch.bmm(roots.to(dtype), xi)  # [L, nz, L]
+    alm *= torch.arange(L, device=dev)[None, None, :] <= torch.arange(
+        L, device=dev)[:, None, None]
+    return alm.movedim(0, 1)
+
+
+def mkfullsky(corr, nside, *, alms=False, device="cuda", generator=None,
+              xi=None, roots=None, fchunk=16, op=None):
     """Correlated HEALPix maps [numz, npix] (float32, on ``device``) from
-    C_l(z, z') [lmax+1, numz, numz] — see :func:`mkfullsky_streamed`."""
+    C_l(z, z') [lmax+1, numz, numz] — see :func:`mkfullsky_streamed`.
+
+    With ``alms=True`` the dense a_lm draw [numz, lmax+1, lmax+1] is
+    returned instead (:func:`draw_alm_from_roots`, ``xi`` then the complex
+    ξ [lmax+1, numz, lmax+1]): float64 roots, drawn in complex64 on CUDA —
+    what the reference returns on an accelerator — and in complex128 on
+    the CPU.
+    """
+    if alms:
+        dev = resolve_device(device)
+        if roots is None:
+            with stage("roots", dev):
+                roots = covariance_roots(corr, dev)
+        if xi is None and generator is None:
+            generator = torch.Generator(device=dev)
+            generator.seed()
+        dtype = torch.complex64 if dev.type == "cuda" else torch.complex128
+        with stage("draw", dev):
+            return draw_alm_from_roots(torch.as_tensor(roots).to(dev), xi=xi,
+                                       generator=generator, dtype=dtype)
     if roots is None:
         corr = np.asarray(corr)
         if corr.ndim != 3 or corr.shape[1] != corr.shape[2]:

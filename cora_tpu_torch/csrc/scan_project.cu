@@ -6,7 +6,7 @@
 // layout at the wrapper (cora_tpu_torch/ops/scan_legendre.py):
 //
 //   rec_a, rec_b [L, M]     recurrence rows a_lm, b_lm
-//   seed_T, k0_T [M, R]     pre-scaled λ_mm seeds and their 2^60 scale counts
+//   seed_T, k0_T [M, R]     pre-scaled λ_mm seeds and their 2^S scale counts
 //   z            [R]        cosθ of the northern rings
 //   ck_T [nband, 2, M, R]   checkpoint rows (λ_{l0-2}, λ_{l0-1}) per band
 //   src0, src1 [F2, R, M]   sources of the even-ℓ / odd-ℓ rows
@@ -15,14 +15,16 @@
 //                           caller, accumulated here
 //
 // The λ recurrence is that of scan_legendre.cu (K1): seed and scale count
-// injected at ℓ = m, a row emitted only where k == 0, one 2^-60 rescale per
+// injected at ℓ = m, a row emitted only where k == 0, one 2^-S rescale per
 // row pair, re-seed from checkpoint rows at band starts.  λ never leaves
-// registers.
+// registers.  Two instantiations, as K1's: float (S=60, β=30) and double
+// (S=512, β=256).
 //
 // What bounds it on an H100: per (f, ℓ, ring, m) one FMA and ~6
 // instructions of recurrence per (ℓ, ring, m) and plane tile, plus the
-// cross-lane reduction, all f32 on the CUDA cores; sources are read once
-// per block and alm written once, so it is bound by instruction issue.
+// cross-lane reduction, all on the CUDA cores; sources are read once per
+// block and alm written once, so it is bound by instruction issue in f32
+// and by the f64 FMA rate in double.
 //
 // Design, against what the TPU version relied on:
 //  * The Pallas kernel made rings the innermost (sequential) grid axis,
@@ -31,7 +33,8 @@
 //    here one block owns all the rings of one m (for kFT planes): the ring
 //    sum is finished inside the block, with no atomics and a fixed order,
 //    so the output is the same from run to run.
-//  * Each thread carries the recurrence for kRPT rings and holds their
+//  * Each thread carries the recurrence for RPT rings (4 in f32, 2 in
+//    f64, so the double sources stay in registers) and holds their
 //    sources for both row parities in registers (they do not depend on ℓ).
 //    Per row pair it sums its rings' products (2·kFT values), then a
 //    transpose-reduction across the warp (each shuffle step halves the
@@ -39,10 +42,10 @@
 //    over the warp's 32 lanes: 16 shuffles for 16 values.  The warps'
 //    sums go to shared memory and are added in warp order once per
 //    ℓ-block of kPB row pairs.
-//  * More rings than the block's threads·kRPT are walked in chunks, in
+//  * More rings than the block's threads·RPT are walked in chunks, in
 //    order, each adding into the output.  Rows below the first pair that
 //    holds m are skipped (λ is zero there and leaves the carry at zero).
-//  * Pure f32 FMA: no tensor cores, no TF32.
+//  * Plain FMA on the CUDA cores: no tensor cores, no TF32.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -50,43 +53,57 @@
 
 namespace {
 
-constexpr int kRPT = 4;                   // rings per thread
 constexpr int kMaxWarps = 8;
 constexpr int kMaxThreads = kMaxWarps * 32;
 constexpr int kFT = 8;                    // planes per block
 constexpr int kNV = 2 * kFT;              // values per row pair (even, odd)
 constexpr int kPB = 16;                   // row pairs per ℓ-block
 
-constexpr float kThresh = 1073741824.0f;           // 2^30
-constexpr float kDown = 8.6736173798840355e-19f;   // 2^-60
-constexpr float kCkUse = 9.5367431640625e-07f;     // 2^-20
+// Scaling constants, rings per thread and blocks per SM per real type.
+template <typename T> struct Proj;
+template <> struct Proj<float> {
+  static constexpr int RPT = 4;
+  static constexpr int min_blocks = 2;
+  static constexpr float thresh = 0x1p30f;
+  static constexpr float down = 0x1p-60f;
+  static constexpr float ck_use = 0x1p-20f;
+};
+template <> struct Proj<double> {
+  static constexpr int RPT = 2;
+  static constexpr int min_blocks = 1;
+  static constexpr double thresh = 0x1p256;
+  static constexpr double down = 0x1p-512;
+  static constexpr double ck_use = 0x1p-20;
+};
 
 // One transpose-reduction step: lanes whose `off` bit is set keep the upper
 // half of v, the others the lower half; each adds its partner's copy.
-template <int N>
-__device__ __forceinline__ void fold(float* v, int lane, int off) {
+template <int N, typename T>
+__device__ __forceinline__ void fold(T* v, int lane, int off) {
   const bool hi = (lane & off) != 0;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
-    const float send = hi ? v[i] : v[i + N / 2];
-    const float keep = hi ? v[i + N / 2] : v[i];
+    const T send = hi ? v[i] : v[i + N / 2];
+    const T keep = hi ? v[i + N / 2] : v[i];
     v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 2)
-scan_project_kernel(const float* __restrict__ rec_a,
-                    const float* __restrict__ rec_b,
-                    const float* __restrict__ seed_T,
-                    const float* __restrict__ k0_T,
-                    const float* __restrict__ z,
-                    const float* __restrict__ ck_T, int nband,
-                    const float* __restrict__ src0,
-                    const float* __restrict__ src1,
-                    float* __restrict__ alm0, float* __restrict__ alm1,
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, Proj<T>::min_blocks)
+scan_project_kernel(const T* __restrict__ rec_a,
+                    const T* __restrict__ rec_b,
+                    const T* __restrict__ seed_T,
+                    const T* __restrict__ k0_T,
+                    const T* __restrict__ z,
+                    const T* __restrict__ ck_T, int nband,
+                    const T* __restrict__ src0,
+                    const T* __restrict__ src1,
+                    T* __restrict__ alm0, T* __restrict__ alm1,
                     int L, int M, int R, int F2, int band_rows) {
-  __shared__ float s_red[kMaxWarps][kPB][kNV];
-  __shared__ float s_rec[2][2 * kPB];
+  constexpr int kRPT = Proj<T>::RPT;
+  __shared__ T s_red[kMaxWarps][kPB][kNV];
+  __shared__ T s_rec[2][2 * kPB];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -101,22 +118,22 @@ scan_project_kernel(const float* __restrict__ rec_a,
 
   for (int rc = 0; rc < R; rc += nthr * kRPT) {  // ring chunks, in order
     int rr[kRPT];
-    float zr[kRPT], lp[kRPT], lpp[kRPT], k[kRPT];
-    float s0[kRPT][kFT], s1[kRPT][kFT];
+    T zr[kRPT], lp[kRPT], lpp[kRPT], k[kRPT];
+    T s0[kRPT][kFT], s1[kRPT][kFT];
 #pragma unroll
     for (int i = 0; i < kRPT; ++i) {
       rr[i] = rc + i * nthr + tid;
       const bool live = rr[i] < R;
-      zr[i] = live ? z[rr[i]] : 0.f;
-      lp[i] = 0.f;
-      lpp[i] = 0.f;
-      k[i] = 0.f;
+      zr[i] = live ? z[rr[i]] : T(0);
+      lp[i] = 0;
+      lpp[i] = 0;
+      k[i] = 0;
 #pragma unroll
       for (int f = 0; f < kFT; ++f) {
         const bool ok = live && (f0 + f < F2);
         const size_t o = ((size_t)(f0 + f) * R + rr[i]) * M + m;
-        s0[i][f] = ok ? src0[o] : 0.f;
-        s1[i][f] = ok ? src1[o] : 0.f;
+        s0[i][f] = ok ? src0[o] : T(0);
+        s1[i][f] = ok ? src1[o] : T(0);
       }
     }
 
@@ -132,7 +149,7 @@ scan_project_kernel(const float* __restrict__ rec_a,
         const int row = i % (2 * kPB);
         const int gl = lb0 + row;
         s_rec[i / (2 * kPB)][row] =
-            gl < L ? (i < 2 * kPB ? rec_a : rec_b)[(size_t)gl * M + m] : 0.f;
+            gl < L ? (i < 2 * kPB ? rec_a : rec_b)[(size_t)gl * M + m] : T(0);
       }
       __syncthreads();
 
@@ -146,12 +163,12 @@ scan_project_kernel(const float* __restrict__ rec_a,
             for (int i = 0; i < kRPT; ++i) {
               if (rr[i] < R) {
                 const size_t off = (size_t)b * 2 * MR + (size_t)m * R + rr[i];
-                const float c0 = ck_T[off];
-                const float c1 = ck_T[off + MR];
-                if (fabsf(c0) > kCkUse && fabsf(c1) > kCkUse) {
+                const T c0 = ck_T[off];
+                const T c1 = ck_T[off + MR];
+                if (fabs(c0) > Proj<T>::ck_use && fabs(c1) > Proj<T>::ck_use) {
                   lpp[i] = c0;
                   lp[i] = c1;
-                  k[i] = 0.f;
+                  k[i] = 0;
                 }
               }
             }
@@ -159,41 +176,41 @@ scan_project_kernel(const float* __restrict__ rec_a,
           next_ck += band_rows;
         }
 
-        float v[kNV];
+        T v[kNV];
 #pragma unroll
         for (int par = 0; par < 2; ++par) {
           const int row = l + par;
-          const float a = s_rec[0][2 * p + par];
-          const float bb = s_rec[1][2 * p + par];
-          float out[kRPT];
+          const T a = s_rec[0][2 * p + par];
+          const T bb = s_rec[1][2 * p + par];
+          T out[kRPT];
 #pragma unroll
           for (int i = 0; i < kRPT; ++i) {
-            float lam = a * (zr[i] * lp[i]) + bb * lpp[i];
+            T lam = a * (zr[i] * lp[i]) + bb * lpp[i];
             if (m == row) {  // block-uniform: seed row of this m
               const bool live = rr[i] < R;
-              lam = live ? seed_T[(size_t)m * R + rr[i]] : 0.f;
-              k[i] = live ? k0_T[(size_t)m * R + rr[i]] : 1.f;
+              lam = live ? seed_T[(size_t)m * R + rr[i]] : T(0);
+              k[i] = live ? k0_T[(size_t)m * R + rr[i]] : T(1);
             }
-            out[i] = (k[i] == 0.f) ? lam : 0.f;
+            out[i] = (k[i] == 0) ? lam : T(0);
             lpp[i] = lp[i];
             lp[i] = lam;
           }
 #pragma unroll
           for (int f = 0; f < kFT; ++f) {  // par is a constant once unrolled
-            float acc = out[0] * (par ? s1[0][f] : s0[0][f]);
+            T acc = out[0] * (par ? s1[0][f] : s0[0][f]);
 #pragma unroll
             for (int i = 1; i < kRPT; ++i)
-              acc = fmaf(out[i], par ? s1[i][f] : s0[i][f], acc);
+              acc = fma(out[i], par ? s1[i][f] : s0[i][f], acc);
             v[par * kFT + f] = acc;
           }
         }
         // rescale once per row pair
 #pragma unroll
         for (int i = 0; i < kRPT; ++i) {
-          if (fabsf(lp[i]) > kThresh && k[i] > 0.f) {
-            lp[i] *= kDown;
-            lpp[i] *= kDown;
-            k[i] -= 1.f;
+          if (fabs(lp[i]) > Proj<T>::thresh && k[i] > 0) {
+            lp[i] *= Proj<T>::down;
+            lpp[i] *= Proj<T>::down;
+            k[i] -= 1;
           }
         }
 
@@ -212,15 +229,34 @@ scan_project_kernel(const float* __restrict__ rec_a,
         const int q = i % kNV;
         const int f = q % kFT;
         if (f0 + f < F2) {
-          float s = s_red[0][p][q];
+          T s = s_red[0][p][q];
           for (int ww = 1; ww < nw; ++ww) s += s_red[ww][p][q];
-          float* o = (q < kFT ? alm0 : alm1) +
+          T* o = (q < kFT ? alm0 : alm1) +
                      ((size_t)(f0 + f) * Lh + lb0 / 2 + p) * M + m;
           *o += s;
         }
       }
     }
   }
+}
+
+template <typename T>
+int launch(const void* rec_a, const void* rec_b, const void* seed_T,
+           const void* k0_T, const void* z, const void* ck_T, int nband,
+           const void* src0, const void* src1, void* alm0, void* alm1, int L,
+           int M, int R, int F2, int band_rows, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (L <= 0 || M <= 0 || R <= 0 || F2 <= 0) return 0;
+  constexpr int kRPT = Proj<T>::RPT;
+  int threads = ((R + kRPT - 1) / kRPT + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  const dim3 grid(M, (F2 + kFT - 1) / kFT);
+  scan_project_kernel<T><<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const T*)rec_a, (const T*)rec_b, (const T*)seed_T, (const T*)k0_T,
+      (const T*)z, (const T*)ck_T, nband, (const T*)src0, (const T*)src1,
+      (T*)alm0, (T*)alm1, L, M, R, F2, band_rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -236,18 +272,21 @@ int cora_scan_project(const void* rec_a, const void* rec_b,
                       const void* src1, void* alm0, void* alm1, int L, int M,
                       int R, int F2, int band_rows, int device,
                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (L <= 0 || M <= 0 || R <= 0 || F2 <= 0) return 0;
-  int threads = ((R + kRPT - 1) / kRPT + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const dim3 grid(M, (F2 + kFT - 1) / kFT);
-  scan_project_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)rec_a, (const float*)rec_b, (const float*)seed_T,
-      (const float*)k0_T, (const float*)z, (const float*)ck_T, nband,
-      (const float*)src0, (const float*)src1, (float*)alm0, (float*)alm1, L,
-      M, R, F2, band_rows);
-  return (int)cudaGetLastError();
+  return launch<float>(rec_a, rec_b, seed_T, k0_T, z, ck_T, nband, src0,
+                       src1, alm0, alm1, L, M, R, F2, band_rows, device,
+                       stream);
+}
+
+// The same on double tables (S=512, β=256) and sources.
+int cora_scan_project_f64(const void* rec_a, const void* rec_b,
+                          const void* seed_T, const void* k0_T,
+                          const void* z, const void* ck_T, int nband,
+                          const void* src0, const void* src1, void* alm0,
+                          void* alm1, int L, int M, int R, int F2,
+                          int band_rows, int device, void* stream) {
+  return launch<double>(rec_a, rec_b, seed_T, k0_T, z, ck_T, nband, src0,
+                        src1, alm0, alm1, L, M, R, F2, band_rows, device,
+                        stream);
 }
 
 }  // extern "C"

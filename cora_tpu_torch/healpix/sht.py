@@ -25,6 +25,14 @@ kernels, K1 for synthesis and K2 for its adjoint (analysis):
   :func:`cora_tpu_torch.ops.scan_legendre.scan_project`), refined by Jacobi
   steps or conjugate gradients; ``map2alm``, ``anafast`` and the smoothing
   functions on top.
+* **Complex ring stage** for the spin transforms
+  (:mod:`cora_tpu_torch.healpix.spin`): :func:`rings_to_grid_complex` and
+  its adjoint :func:`grid_to_rings_complex`, on all rings with no N/S
+  fold; ``alm2map_der1`` (one batched spin-1 synthesis) on top.
+
+Both precisions run on the card: complex64/float32 inputs take the f32
+tables and kernels, complex128/float64 inputs the f64 tables (no
+checkpoints, S=512, β=256) and the kernels' double instantiations.
 
 The TPU-only knobs of the JAX operator (matmul FFTs, conv and precision
 modes, the cached-Λ mode, the banded cap) are not part of this port.
@@ -68,10 +76,9 @@ class SHT:
     nside, lmax : int
     l_chunk : int (even)
         ℓ rows per draw chunk; with ``ckpt_every`` it sets the re-seed
-        cadence ``band_rows = l_chunk·ckpt_every``.
-    scan_ckpt : bool
-        Re-seed the f32 recurrence from exact f64 checkpoint rows at every
-        band start (bounds the error growth to O(band_rows·ε)).
+        cadence ``band_rows = l_chunk·ckpt_every``: the f32 recurrence is
+        re-seeded from exact f64 checkpoint rows at every band start
+        (bounds the error growth to O(band_rows·ε)).
     ckpt_every : int
         Chunks per checkpoint band.
     device : str or torch.device
@@ -79,8 +86,7 @@ class SHT:
     """
 
     def __init__(self, nside: int, lmax: int, l_chunk: int = 64,
-                 scan_ckpt: bool = True, ckpt_every: int = 1,
-                 device="cuda"):
+                 ckpt_every: int = 1, device="cuda"):
         self.device = resolve_device(device)
         self.nside = int(nside)
         self.lmax = int(lmax)
@@ -88,7 +94,6 @@ class SHT:
         self.l_chunk = int(l_chunk)
         if self.l_chunk <= 0 or self.l_chunk % 2:
             raise ValueError("l_chunk must be a positive even number")
-        self.scan_ckpt = bool(scan_ckpt)
         self.ckpt_every = max(1, int(ckpt_every))
         self.band_rows = self.l_chunk * self.ckpt_every
 
@@ -181,9 +186,17 @@ class SHT:
                 and np.array_equal(self._phi0, self._phi0[::-1])):
             raise ValueError("ring geometry is not N/S symmetric")
 
-        self._ck_host = self._build_scan_checkpoints() if self.scan_ckpt else None
+        self._ck = None
         self._tables = {}
         self._pix_index = None
+
+    @property
+    def _ck_host(self):
+        """The f32 tables' checkpoint rows, built at first use (seconds of
+        host recurrence at nside=512, which float64-only callers skip)."""
+        if self._ck is None:
+            self._ck = self._build_scan_checkpoints()
+        return self._ck
 
     # ------------------------------------------------------------------
 
@@ -247,7 +260,6 @@ class SHT:
         if key in self._tables:
             return self._tables[key]
         fdt = np.float64 if double else np.float32
-        cdt = np.complex128 if double else np.complex64
         seeds, k0 = self._scaled_seeds(double)
         t = dict(
             rec_a=self._rec_a.astype(fdt),
@@ -255,17 +267,28 @@ class SHT:
             lam_mm=seeds.astype(fdt),
             lam_k0=k0.astype(fdt),
             z_half=self._z_half.astype(fdt),
-            eq_phase=self._eq_phase.astype(cdt),
-            eq_twid=self._eq_twid.astype(cdt),
-            bl_A_cap=self._bl_A_cap.astype(cdt),
-            bl_C_cap=self._bl_C_cap.astype(cdt),
-            bl_Bf_cap=self._bl_Bf_cap.astype(cdt),
         )
-        if self._ck_host is not None and not double:
+        if not double:
             t["lam_ck"] = self._ck_host
         t = {k_: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
              for k_, v in t.items()}
+        t.update(self.ring_tables(double))
         return self.load_tables(t, double)
+
+    def ring_tables(self, double: bool = False):
+        """The ring stage's tables alone (``eq_phase``, ``eq_twid``,
+        ``bl_A_cap``, ``bl_C_cap``, ``bl_Bf_cap``) at the requested
+        precision, cached: what the spin transforms need of this operator,
+        without the Legendre tables or their checkpoint rows."""
+        key = ("ring", bool(double))
+        if key not in self._tables:
+            cdt = np.complex128 if double else np.complex64
+            self._tables[key] = {
+                k_: torch.from_numpy(np.ascontiguousarray(
+                    getattr(self, "_" + k_).astype(cdt))).to(self.device)
+                for k_ in ("eq_phase", "eq_twid", "bl_A_cap", "bl_C_cap",
+                           "bl_Bf_cap")}
+        return self._tables[key]
 
     def load_tables(self, t, double: bool = False):
         """Install base tables ``t`` (tensors on this operator's device) and
@@ -374,13 +397,13 @@ class SHT:
 @lru_cache(maxsize=8)
 def _get_sht_cached(nside, lmax, l_chunk, device):
     ke = max(1, (nside // 512) ** 2)
-    return SHT(nside, lmax, l_chunk=l_chunk, scan_ckpt=True, ckpt_every=ke,
-               device=device)
+    return SHT(nside, lmax, l_chunk=l_chunk, ckpt_every=ke, device=device)
 
 
 def get_sht(nside: int, lmax: int, l_chunk: int = 64, device="cuda") -> SHT:
     """Cached operator with the JAX factory's scan-mode defaults:
-    checkpoints on, ``ckpt_every = max(1, (nside // 512)²)``."""
+    checkpoints on (the only mode here), ``ckpt_every = max(1,
+    (nside // 512)²)``."""
     return _get_sht_cached(int(nside), int(lmax), int(l_chunk),
                            str(resolve_device(device)))
 
@@ -436,6 +459,24 @@ def anafast(map1, map2=None, lmax: int | None = None, iter: int = 3,
     prod = alm1 * alm2.conj()
     s = prod[..., 0].real + 2 * prod[..., 1:].sum(dim=-1).real
     return s / (2.0 * torch.arange(lmax + 1, device=s.device) + 1.0)
+
+
+def alm2map_der1(alm, nside: int, device="cuda"):
+    """Map and its first derivatives [f, ∂f/∂θ, ∂f/∂φ/sinθ] [3, ..., npix]
+    (healpy.alm2map_der1 equivalent): the scalar synthesis plus one
+    batched spin-1 synthesis of √(l(l+1))·alm, with the reference's signs
+    (its spin-1 B component is the negative of ∂φ/sinθ)."""
+    from . import spin as _spin
+
+    alm = torch.as_tensor(alm)
+    lmax = alm.shape[-2] - 1
+    f = alm2map(alm, nside, device=device)
+    l = np.arange(lmax + 1, dtype=np.float64)[:, None]
+    almE = alm.to(f.device) * torch.from_numpy(np.sqrt(l * (l + 1.0))).to(
+        device=f.device, dtype=alm.real.dtype)
+    op = _spin.get_spin_sht(nside, lmax, 1, device=device)
+    dth, dph = op.synthesis(-almE, torch.zeros_like(almE))
+    return torch.stack([f, dth, -dph])
 
 
 def _sigma(fwhm, sigma):
@@ -808,6 +849,63 @@ def grid_to_rings_parity(op, t, fgrid):
     Ge = torch.cat([Gcap[..., :lo, :], Geq[..., :n_eq, :]], dim=-2)
     Go = torch.cat([Gcap[..., lo:, :], Geq[..., n_eq:, :]], dim=-2)
     return Ge, Go
+
+
+def rings_to_grid_complex(op, t, G):
+    """Complex ring evaluation S[..., r, j] = Σ_{m≥0} G[r, m] e^{imφ_rj} on
+    the dense ring grid [..., nring, nq_max], zero beyond each ring's n_r
+    pixels — no real-field assembly and no N/S fold (the spin maps Q ± iU
+    are complex on all rings; :mod:`cora_tpu_torch.healpix.spin`).
+
+    The equatorial band is one inverse DFT at W = 4·nside of the m-aliased
+    spectrum (phases e^{imφ0}); the dense caps go through the Bluestein
+    convolution at nfft2.
+    """
+    lo, hi = op._eq_lo, op._eq_hi
+    W = 4 * op.nside
+    nq_max = op.nq_max
+    A = G[..., lo:hi, :] * t["eq_phase"].to(G.dtype)
+    Lp = A.shape[-1]
+    if Lp % W:
+        A = torch.nn.functional.pad(A, (0, W - Lp % W))
+    A = A.reshape(A.shape[:-1] + (-1, W)).sum(dim=-2)  # alias m mod W
+    Seq = torch.fft.ifft(A, dim=-1) * W
+    if nq_max > W:
+        Seq = torch.nn.functional.pad(Seq, (0, nq_max - W))
+    if lo == 0 and hi == op.nring:
+        return Seq
+
+    Gcap = torch.cat([G[..., :lo, :], G[..., hi:, :]], dim=-2)
+    nq_cap = t["bl_C_cap"].shape[-1]
+    conv = _conv2(op, t, Gcap * t["bl_A_cap"].to(G.dtype), "bl_Bf_cap",
+                  slice(None), False)
+    Scap = conv[..., :nq_cap] * t["bl_C_cap"].to(G.dtype)
+    if nq_max > nq_cap:
+        Scap = torch.nn.functional.pad(Scap, (0, nq_max - nq_cap))
+    return torch.cat([Scap[..., :lo, :], Seq, Scap[..., lo:, :]], dim=-2)
+
+
+def grid_to_rings_complex(op, t, fgrid):
+    """G[..., r, m] = Σ_j f[r, j] e^{−imφ_rj} [..., nring, L] from a complex
+    ring grid [..., nring, nq_max]: the adjoint of
+    :func:`rings_to_grid_complex`, on all rings with no N/S fold (a forward
+    DFT at W on the equatorial band, bins tiled to L; the conjugate-chirp
+    Bluestein convolution on the caps)."""
+    lo, hi = op._eq_lo, op._eq_hi
+    W = 4 * op.nside
+    L = op.lmax + 1
+    F = torch.fft.fft(fgrid[..., lo:hi, :W], dim=-1)
+    Geq = (F[..., torch.arange(L, device=F.device) % W]
+           * t["eq_phase"].conj().to(F.dtype))
+    if lo == 0 and hi == op.nring:
+        return Geq
+
+    nq_cap = t["bl_C_cap"].shape[-1]
+    fcap = torch.cat([fgrid[..., :lo, :], fgrid[..., hi:, :]], dim=-2)[..., :nq_cap]
+    conv = _conv2(op, t, fcap * t["bl_C_cap"].conj().to(F.dtype), "bl_Bf_cap",
+                  slice(None), False, conj=True)
+    Gcap = conv[..., :L] * t["bl_A_cap"].conj().to(F.dtype)
+    return torch.cat([Gcap[..., :lo, :], Geq, Gcap[..., lo:, :]], dim=-2)
 
 
 # ===========================================================================

@@ -18,8 +18,13 @@ triangle never reaches device memory:
 
 Each wrapper launches its CUDA kernel (``csrc/scan_legendre.cu``,
 ``csrc/scan_project.cu``) for CUDA tensors and takes the plain version only
-for CPU tensors.  ``launches`` counts K1 launches, ``project_launches`` K2
-launches.
+for CPU tensors.  Both kernels come in float32 (tables scaled with S=60,
+β=30) and float64 (S=512, β=256); the tensors' dtype picks the entry
+point and must match the tables' scaling.  ``launches`` counts K1
+launches, ``project_launches`` K2 launches, in either precision;
+``entry_launches`` counts them per C entry point (``cora_scan_contract``,
+``cora_scan_contract_f64``, ``cora_scan_project``,
+``cora_scan_project_f64``), so each precision's launches are read apart.
 """
 
 from __future__ import annotations
@@ -40,10 +45,14 @@ SCALE_F64 = (512.0, 256.0)
 
 launches = 0
 project_launches = 0
+entry_launches = {}
 
 _PLAIN_L_BLOCK = 64  # ℓ rows per einsum in the plain versions
-_WARPS, _FT = 8, 16  # K1: m values and planes per block (csrc/scan_legendre.cu)
-_P_FT = 8            # K2: planes per block (csrc/scan_project.cu)
+_WARPS = 8           # K1: m values per block (csrc/scan_legendre.cu)
+# planes per block of K1 by dtype (the f64 accumulators take twice the
+# registers); K2 takes 8 planes a block in both (csrc/scan_project.cu)
+_FT = {torch.float32: 16, torch.float64: 8}
+_P_FT = 8
 _FNS = {}
 
 
@@ -85,7 +94,7 @@ def scan_contract(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1, *,
     scale : (S, β) the seed tables were scaled for (:func:`scale_for`).
 
     CPU tensors run :func:`scan_contract_plain`; CUDA tensors launch the
-    kernel (float32 only) or raise.
+    kernel (float32 or float64, matching ``scale``) or raise.
     """
     tabs = (rec_a, rec_b, seed_T, k0_T, z, ck_T)
     dev = alm0.device
@@ -94,10 +103,11 @@ def scan_contract(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1, *,
                                    scale=scale)
     global launches
     L, M = rec_a.shape
+    ft = _FT.get(alm0.dtype, 16)
     out = _launch("scan_contract", "scan_legendre", tabs, alm0, alm1,
                   (alm0.shape[0], L // 2, M), (alm0.shape[0], z.shape[0], M),
                   band_rows, scale,
-                  (-(-z.shape[0] // 32), -(-M // _WARPS), -(-alm0.shape[0] // _FT)))
+                  (-(-z.shape[0] // 32), -(-M // _WARPS), -(-alm0.shape[0] // ft)))
     launches += 1
     return out
 
@@ -109,7 +119,7 @@ def scan_project(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1, *,
     ``src0``/``src1`` [F2, R, M] are the sources of the even-ℓ / odd-ℓ rows;
     the tables, ``band_rows`` and ``scale`` are those of
     :func:`scan_contract`.  CPU tensors run :func:`scan_project_plain`;
-    CUDA tensors launch the kernel (float32 only) or raise.
+    CUDA tensors launch the kernel (float32 or float64) or raise.
     """
     tabs = (rec_a, rec_b, seed_T, k0_T, z, ck_T)
     dev = src0.device
@@ -128,8 +138,6 @@ def scan_project(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1, *,
 def _check(name, x, shape, dev):
     if x.device != dev:
         raise ValueError(f"{name} on {x.device}, expected {dev}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(
             f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}"
@@ -141,9 +149,22 @@ def _check(name, x, shape, dev):
 def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
             band_rows, scale, grid):
     """Check every argument of a kernel, allocate its outputs (zeroed: K2
-    accumulates into them) and launch it on the current stream."""
-    if tuple(scale) != (SCALE_S, SCALE_BETA):
-        raise ValueError(f"{fn_name}: the kernel takes f32-scaled tables only")
+    accumulates into them) and launch it on the current stream.
+
+    The dtype of ``in0`` picks the float32 or the float64 entry point; the
+    tables must have been scaled for that dtype (:func:`scale_for`).
+    """
+    dt = in0.dtype
+    if dt not in _FT:
+        raise TypeError(f"{fn_name}: float32 or float64 planes, got {dt}")
+    for name, x in zip(("rec_a", "rec_b", "seed_T", "k0_T", "z", "ck_T",
+                        "in0", "in1"), tabs + (in0, in1)):
+        if x.dtype != dt:
+            raise TypeError(f"{fn_name}: {name} must be {dt}, got {x.dtype}")
+    if tuple(scale) != scale_for(dt):
+        raise ValueError(f"{fn_name}: tables scaled with (S, β) = "
+                         f"{tuple(scale)} do not match {dt} planes, which "
+                         f"take {scale_for(dt)}")
     dev = in0.device
     if dev.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {dev}")
@@ -163,15 +184,17 @@ def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
     if grid[0] >= 2**31 or max(grid[1:]) > 65535:
         raise ValueError(f"{fn_name}: shape exceeds the kernel's grid")
 
-    out0 = torch.zeros(out_shape, dtype=torch.float32, device=dev)
+    out0 = torch.zeros(out_shape, dtype=dt, device=dev)
     out1 = torch.zeros_like(out0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel_fn(lib_name, "cora_" + fn_name)(
+    entry = "cora_" + fn_name + ("_f64" if dt == torch.float64 else "")
+    err = _kernel_fn(lib_name, entry)(
         *(x.data_ptr() for x in tabs), int(nband), in0.data_ptr(),
         in1.data_ptr(), out0.data_ptr(), out1.data_ptr(), int(L), int(M),
         int(R), int(in0.shape[0]), int(band_rows), int(dev.index), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
+    entry_launches[entry] = entry_launches.get(entry, 0) + 1
     return out0, out1
 
 

@@ -1,12 +1,15 @@
-"""cora-makesky for the PyTorch port: the ``21cm`` subcommand.
+"""cora-makesky for the PyTorch port: the ``21cm`` and ``gaussianfg``
+subcommands.
 
-Same CLI surface as ``cora_tpu/scripts/makesky.py`` for this command (the
-CHIME-style frequency specification with centre / centre_nyquist / edge
-modes, channel binning and selection) and the same memh5-compatible HDF5
-map schema, plus ``--device`` (default ``cuda``).
+Same CLI surface as ``cora_tpu/scripts/makesky.py`` for these commands
+(the CHIME-style frequency specification with centre / centre_nyquist /
+edge modes, channel binning and selection) and the same memh5-compatible
+HDF5 map schema, plus ``--device`` (default ``cuda``).
 
     python -m cora_tpu_torch.scripts.makesky 21cm --nside 128 \\
         --freq 400 500 64 --filename map.h5
+    python -m cora_tpu_torch.scripts.makesky gaussianfg --nside 512 \\
+        --freq 400 800 64 --pol full --filename fg.h5
 """
 
 from __future__ import annotations
@@ -174,6 +177,59 @@ def _21cm(fstate, nside, pol, filename, seed, device, eor, oversample):
     sg_map = (cr.getpolsky(device=device) if pol == "full"
               else cr.getsky(device=device))
     write_map(filename, sg_map.cpu().numpy(), cr.frequencies,
+              fstate.freq_width, pol != "none")
+
+
+@cli.command()
+@map_options
+def gaussianfg(fstate, nside, pol, filename, seed, device):
+    """Generate a full-sky Gaussian random synchrotron field."""
+    import torch
+
+    from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.device import resolve_device
+    from cora_tpu_torch.foreground import galaxy as galaxy_mod
+    from cora_tpu_torch.healpix import transforms as hputil
+    from cora_tpu_torch.util.profiling import stage
+
+    device = resolve_device(device)  # fail before the model build
+    fsyn = galaxy_mod.FullSkySynchrotron()
+    fpol = galaxy_mod.FullSkyPolarisedSynchrotron()
+    fsyn.frequencies = fstate.frequencies
+    nfreq = len(fsyn.frequencies)
+
+    lmax = 3 * nside
+    npol = 4 if pol == "full" else 1
+    # [T, Q, U, V] blocks of C_l(p ν, p' ν'): T from the synchrotron, Q and
+    # U from its polarised twin, no cross-pol terms, V zero
+    with stage("cl_tables"):
+        blocks = [skysim.clarray(fsyn.angular_powerspectrum, lmax,
+                                 fsyn.nu_pixels)]
+        if pol == "full":
+            cl_pol = skysim.clarray(fpol.angular_powerspectrum, lmax,
+                                    fsyn.nu_pixels)
+            blocks += [cl_pol, cl_pol]
+    # the draw covers the pols with non-zero covariance; V's block is zero,
+    # so its alms stay zero (the reference's V holds only its jitter)
+    nlive = len(blocks)
+    cv_fg = np.zeros((lmax + 1, nlive, nfreq, nlive, nfreq))
+    for p, cl in enumerate(blocks):
+        cv_fg[:, p, :, p, :] = cl
+    cv_fg = cv_fg.reshape(lmax + 1, nlive * nfreq, nlive * nfreq)
+
+    gen = torch.Generator(device=device)
+    if seed is not None:
+        gen.manual_seed(seed)
+    else:
+        gen.seed()
+    drawn = skysim.mkfullsky(cv_fg, nside, alms=True, device=device,
+                             generator=gen)
+    alms = drawn.new_zeros((nfreq, npol, lmax + 1, lmax + 1))
+    alms[:, :nlive] = drawn.reshape(nlive, nfreq, lmax + 1, lmax + 1).transpose(0, 1)
+    del drawn
+
+    maps = hputil.sphtrans_inv_sky(alms, nside, device=device)
+    write_map(filename, maps.cpu().numpy(), fsyn.frequencies,
               fstate.freq_width, pol != "none")
 
 

@@ -1,4 +1,5 @@
-"""Matrix roots for covariance matrices (port of ``cora_tpu/util/linalg.py``).
+"""Matrix roots and complex normal variates (port of
+``cora_tpu/util/linalg.py``).
 
 ``batch_matrix_root`` is one batched ``torch.linalg.eigh`` with eigenvalue
 clipping; on a GPU it runs in float64 on the card (an H100 has full-rate
@@ -42,3 +43,15 @@ def batch_matrix_root(mats, threshold=1e-16):
     emax = evals.max(dim=-1, keepdim=True).values
     evals = torch.where(evals > emax * threshold, evals, torch.zeros_like(evals))
     return evecs * evals.sqrt()[..., None, :]
+
+
+def complex_std_normal(shape, generator=None, dtype=torch.float64,
+                       device=None):
+    """Complex standard normal variates with unit total variance per
+    element: (re + i·im)/√2, re and im drawn in that order from
+    ``generator`` at real ``dtype`` (the reference's statistics; a torch
+    generator gives another stream than a JAX key)."""
+    dev = generator.device if generator is not None else device
+    re = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
+    im = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
+    return torch.complex(re, im) / torch.sqrt(torch.tensor(2.0, dtype=dtype))

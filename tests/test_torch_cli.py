@@ -1,9 +1,11 @@
-"""The port's ``makesky 21cm`` command and its HDF5 output.
+"""The port's ``makesky 21cm`` and ``gaussianfg`` commands and their HDF5
+output.
 
-The command runs on the CPU (``--device cpu``); its file must carry the
+The commands run on the CPU (``--device cpu``); each file must carry the
 same datasets, dtypes, shapes and attributes as the JAX package's
 ``write_map`` writes for the same data.  The frequency specification must
-match the JAX ``FreqState`` in every mode.
+match the JAX ``FreqState`` in every mode, and the foreground models the
+JAX package's closed forms.
 """
 
 import subprocess
@@ -103,3 +105,57 @@ def test_cli_default_device_is_cuda():
     )
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+@pytest.mark.parametrize("pol,npol", [("full", 4), ("zero", 1)])
+def test_cli_gaussianfg(tmp_path, pol, npol):
+    """gaussianfg at nside=16 × 4 channels: the reference's schema (one pol
+    unless --pol full, makesky.py:312), finite Stokes maps with power in
+    T (and Q, U), V exactly zero (its covariance block is zero)."""
+    fname = tmp_path / "fg.h5"
+    res = CliRunner().invoke(
+        tmk.cli,
+        ["gaussianfg", "--nside", "16", "--freq", "400", "416", "4", "--pol",
+         pol, "--seed", "2", "--device", "cpu", "--filename", str(fname)],
+        catch_exceptions=False,
+    )
+    assert res.exit_code == 0, res.output
+    with h5py.File(fname, "r") as f:
+        data = f["map"][:]
+        freq = f["index_map/freq"]["centre"][:]
+        width = f["index_map/freq"]["width"][0]
+    assert data.shape == (4, npol, 12 * 16**2) and np.isfinite(data).all()
+    np.testing.assert_allclose(freq, [400.0, 404.0, 408.0, 412.0])
+    assert data[:, 0].std() > 0
+    if npol == 4:
+        assert data[:, 1].std() > 0 and data[:, 2].std() > 0
+        assert not data[:, 3].any()
+    ref = tmp_path / "jax.h5"
+    jmk.write_map(str(ref), data, freq, width, True)
+    assert _describe(fname) == _describe(ref)
+
+
+def test_sck_foregrounds_match_jax():
+    """The SCK classes' closed forms against the JAX package's (and the
+    upstream golden constants of tests/test_foregrounds.py)."""
+    from cora_tpu.foreground import galaxy as jgal
+    from cora_tpu.foreground import gaussianfg as jfg
+    from cora_tpu_torch.foreground import galaxy as tgal
+    from cora_tpu_torch.foreground import gaussianfg as tfg
+
+    cr = tgal.FullSkySynchrotron()
+    assert np.allclose(cr.angular_powerspectrum(np.arange(1000), 800.0, 800.0).sum(),
+                       75.47681191093129, rtol=1e-7)
+    fa = np.linspace(400.0, 800.0, 64)
+    l = np.arange(0, 1000, 7)[:, None, None]
+    pairs = [(tgal.FullSkySynchrotron, jgal.FullSkySynchrotron),
+             (tgal.FullSkyPolarisedSynchrotron, jgal.FullSkyPolarisedSynchrotron)]
+    pairs += [(getattr(tfg, n), getattr(jfg, n)) for n in (
+        "Synchrotron", "ExtraGalacticFreeFree", "GalacticFreeFree", "PointSources")]
+    for tcls, jcls in pairs:
+        t, j = tcls(), jcls()
+        np.testing.assert_array_equal(
+            t.angular_powerspectrum(l, fa[None, :, None], fa[None, None, :]),
+            j.angular_powerspectrum(l, fa[None, :, None], fa[None, None, :]))
+        np.testing.assert_array_equal(t.frequency_correlation_dlog(fa / 800.0),
+                                      j.frequency_correlation_dlog(fa / 800.0))

@@ -17,6 +17,7 @@ import cora_tpu_torch
 from cora_tpu_torch.device import resolve_device
 from cora_tpu_torch.ops import _build
 from cora_tpu_torch.ops import scan_legendre as k1
+from cora_tpu_torch.ops import wigner as k3
 
 torch.set_num_threads(1)
 
@@ -123,14 +124,50 @@ def test_project_wrapper_other_device_raises():
         k1.scan_project(*_tiny_project_inputs("meta"), band_rows=4)
 
 
-def test_kernels_refuse_f64_scaled_tables():
-    """The CUDA kernels hard-code the f32 scaling (S=60, β=30); tables
-    scaled for f64 never reach them (checked before anything launches)."""
+@pytest.mark.parametrize("kernel", ["scan_contract", "scan_project"])
+def test_kernels_take_f64_tables_and_refuse_mismatch(kernel):
+    """float64 tensors with tables scaled for float64 (S=512, β=256) pass
+    the wrapper's checks and reach the launch (on a non-CUDA device: the
+    device check, which comes last); a dtype/scale mismatch is refused
+    before anything launches."""
+    fn = getattr(k1, kernel)
     args = _tiny_project_inputs("meta")
-    with pytest.raises(ValueError, match="f32-scaled"):
-        k1.scan_project(*args, band_rows=4, scale=k1.SCALE_F64)
+    args64 = [a.double() for a in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fn(*args64, band_rows=4, scale=k1.SCALE_F64)
+    with pytest.raises(ValueError, match="do not match"):
+        fn(*args, band_rows=4, scale=k1.SCALE_F64)
+    with pytest.raises(ValueError, match="do not match"):
+        fn(*args64, band_rows=4)
     assert k1.scale_for(torch.float64) == k1.SCALE_F64
     assert k1.scale_for(torch.float32) == (k1.SCALE_S, k1.SCALE_BETA)
+
+
+def _tiny_wigner_inputs(device, F2=3, L=9, M=7, R=5, adjoint=False):
+    g = torch.Generator().manual_seed(2)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(device)
+    l0 = torch.maximum(torch.arange(M), torch.tensor(2)).to(torch.int32).to(device)
+    x = rnd(F2, R, M) if adjoint else rnd(F2, L, M)
+    return rnd(3, L, M), rnd(M, R), l0, rnd(R), x
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_wigner_wrapper_cpu_runs_plain_without_launch(adjoint):
+    args = _tiny_wigner_inputs("cpu", adjoint=adjoint)
+    fn, plain = ((k3.wigner_project, k3.wigner_project_plain) if adjoint
+                 else (k3.wigner_contract, k3.wigner_contract_plain))
+    before = (k3.launches, k3.project_launches)
+    out = fn(*args)
+    assert (k3.launches, k3.project_launches) == before
+    assert torch.equal(out, plain(*args))
+    assert out.shape == ((3, 9, 7) if adjoint else (3, 5, 7))
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_wigner_wrapper_other_device_raises(adjoint):
+    fn = k3.wigner_project if adjoint else k3.wigner_contract
+    with pytest.raises(ValueError, match="unsupported device"):
+        fn(*_tiny_wigner_inputs("meta", adjoint=adjoint))
 
 
 def test_build_targets_hopper_into_ignored_dir():
@@ -143,6 +180,9 @@ def test_build_targets_hopper_into_ignored_dir():
     assert "pallas_scan_legendre.py" in src and "scan_contract_fused" in src
     src = open(os.path.join(_build.CSRC, "scan_project.cu")).read()
     assert "pallas_scan_legendre.py" in src and "scan_project_fused" in src
+    src = open(os.path.join(_build.CSRC, "wigner_apply.cu")).read()
+    assert "pallas_scan_legendre.py" in src and "wigner_apply_fused" in src
+    assert "--use_fast_math" not in _build.NVCC_FLAGS  # subnormal seeds kept
 
 
 @pytest.fixture
@@ -220,3 +260,20 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
                               capture_output=True, text=True)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.cuda
+def test_wigner_wrapper_cuda_rejects_bad_inputs(cuda_device):
+    args = list(_tiny_wigner_inputs(cuda_device))
+    bad = list(args)
+    bad[2] = bad[2].long()
+    with pytest.raises(TypeError):
+        k3.wigner_contract(*bad)
+    bad = list(args)
+    bad[4] = bad[4].double()
+    with pytest.raises(TypeError):
+        k3.wigner_contract(*bad)
+    bad = list(args)
+    bad[1] = bad[1][:, :-1].contiguous()
+    with pytest.raises(ValueError):
+        k3.wigner_contract(*bad)

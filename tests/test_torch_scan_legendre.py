@@ -54,7 +54,7 @@ def test_plain_matches_jax_scan_streamed():
     Ge_r = np.asarray(jsht._join_planes(Ge_r))
     Go_r = np.asarray(jsht._join_planes(Go_r))
 
-    top = tsht.SHT(nside, lmax, l_chunk=8, scan_ckpt=True, ckpt_every=2,
+    top = tsht.SHT(nside, lmax, l_chunk=8, ckpt_every=2,
                    device="cpu")
     t = top.load_tables(convert.sht_tables_from_numpy(
         {k: np.asarray(v) for k, v in jt.items()}, "cpu"))
@@ -94,7 +94,7 @@ def test_correlated_path_matches_jax_xla():
     Ge_r = np.asarray(jsht._join_planes(Ge_r))
     Go_r = np.asarray(jsht._join_planes(Go_r))
 
-    top = tsht.SHT(nside, lmax, l_chunk=128, scan_ckpt=True, ckpt_every=1,
+    top = tsht.SHT(nside, lmax, l_chunk=128, ckpt_every=1,
                    device="cpu")
     Ge, Go = tsht._fused_scan_GeGo(top, top.tables(False),
                                    convert.roots_from_numpy(roots, "cpu"),
@@ -105,9 +105,10 @@ def test_correlated_path_matches_jax_xla():
 
 
 def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
-                    band_rows, warps=8, ft=16, lb=32):
-    """numpy float32 replay of csrc/scan_legendre.cu's block loop."""
-    f32 = np.float32
+                    band_rows, warps=8, ft=16, lb=32, scale=(60, 30)):
+    """numpy replay of csrc/scan_legendre.cu's block loop, in the dtype of
+    the planes (scaled with ``scale`` = (S, β))."""
+    f32 = alm0.dtype.type
     L, M = rec_a.shape
     R = z.size
     F2 = alm0.shape[0]
@@ -149,9 +150,9 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
                         lpp, lp = lp, lam
                         a = alm[fs][:, row // 2][:, ms]
                         part[par] += a[:, :, None] * out[None]
-                    grow = (np.abs(lp) > 2.0**30) & (k > 0)
-                    lp = np.where(grow, lp * f32(2.0**-60), lp)
-                    lpp = np.where(grow, lpp * f32(2.0**-60), lpp)
+                    grow = (np.abs(lp) > 2.0**scale[1]) & (k > 0)
+                    lp = np.where(grow, lp * f32(2.0**-scale[0]), lp)
+                    lpp = np.where(grow, lpp * f32(2.0**-scale[0]), lpp)
                     k = np.where(grow, k - 1, k)
                 acc[0] += part[0]
                 acc[1] += part[1]
@@ -166,7 +167,7 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
     (8, 23, 4, 1, 4),
 ])
 def test_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2):
-    op = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+    op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                   device="cpu")
     t = op.tables(False)
     L = lmax + 1
@@ -186,10 +187,56 @@ def test_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2):
     assert np.abs(ho_e - ho_p.numpy()).max() <= 2e-6 * sc
 
 
+def _f64_scaled_inputs(F2, seed):
+    """SHT(8, 111) float64 tables — no checkpoints, S=512, β=256; the polar
+    seeds λ_mm drop below 2^-256 for m ≳ 80, so the scale counts and the
+    rescale step are exercised — and random planes of both kinds."""
+    op = tsht.SHT(8, 111, l_chunk=16, device="cpu")
+    t = op.tables(True)
+    args = tsht._kernel_tables(t)
+    assert args[0].dtype == torch.float64 and args[5].shape[0] == 1
+    assert float(args[3].max()) >= 1  # some seeds carry a scale count
+    L, Lk = op.lmax + 1, args[0].shape[0]
+    rng = np.random.default_rng(seed)
+    planes = rng.standard_normal((F2, Lk, L))
+    planes *= (np.arange(L)[None, :] <= np.arange(Lk)[:, None])
+    A = [torch.from_numpy(np.ascontiguousarray(planes[:, p::2])) for p in (0, 1)]
+    S = [torch.from_numpy(rng.standard_normal((F2, op.nhalf, L))) for _ in (0, 1)]
+    return op, args, A, S
+
+
+def test_kernel_block_structure_matches_plain_f64():
+    """The double instantiation of K1 (8 planes a block, S=512, β=256)
+    replayed in numpy float64 against the f64 plain version."""
+    op, args, A, _ = _f64_scaled_inputs(11, 3)
+    he_p, ho_p = k1.scan_contract_plain(*args, *A, band_rows=op.band_rows,
+                                        scale=k1.SCALE_F64)
+    he_e, ho_e = _emulate_kernel(*[a.numpy() for a in args], A[0].numpy(),
+                                 A[1].numpy(), op.band_rows, ft=8,
+                                 scale=k1.SCALE_F64)
+    sc = float(he_p.abs().max())
+    assert np.abs(he_e - he_p.numpy()).max() <= 1e-13 * sc
+    assert np.abs(ho_e - ho_p.numpy()).max() <= 1e-13 * sc
+
+
+def test_project_kernel_block_structure_matches_plain_f64():
+    """The double instantiation of K2 (2 rings a thread) replayed in numpy
+    float64 against the f64 plain version."""
+    op, args, _, S = _f64_scaled_inputs(10, 4)
+    a0_p, a1_p = k1.scan_project_plain(*args, *S, band_rows=op.band_rows,
+                                       scale=k1.SCALE_F64)
+    a0_e, a1_e = _emulate_project_kernel(*[a.numpy() for a in args], S[0].numpy(),
+                                         S[1].numpy(), op.band_rows, rpt=2,
+                                         scale=k1.SCALE_F64)
+    sc = float(a0_p.abs().max())
+    assert np.abs(a0_e - a0_p.numpy()).max() <= 1e-13 * sc
+    assert np.abs(a1_e - a1_p.numpy()).max() <= 1e-13 * sc
+
+
 def test_plain_f32_vs_f64_accuracy_class():
     """The f32 plain version sits in the scan accuracy class of its own f64
     run (the reference chip_smoke holds the kernel against)."""
-    op = tsht.SHT(32, 95, l_chunk=16, scan_ckpt=True, device="cpu")
+    op = tsht.SHT(32, 95, l_chunk=16, device="cpu")
     t = op.tables(False)
     L, Lk = 96, t["psl_rec_a"].shape[0]
     planes = np.random.default_rng(1).standard_normal((4, Lk, L))
@@ -220,7 +267,7 @@ def test_plain_matches_pallas_interpret():
     alm = _triangle_alm(np.random.default_rng(4), 2, L)
     Ge_r, Go_r = fused_GeGo(jop, jt, jnp.asarray(alm), interpret=True,
                             mt=8, rt=8, lb=8)
-    top = tsht.SHT(nside, lmax, l_chunk=8, scan_ckpt=True, ckpt_every=2,
+    top = tsht.SHT(nside, lmax, l_chunk=8, ckpt_every=2,
                    device="cpu")
     Ge, Go = tsht.fused_GeGo(top, top.tables(False), torch.from_numpy(alm))
     sc = float(np.abs(np.asarray(Ge_r)).max())
@@ -240,11 +287,11 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("nside,lmax,lc,ke", [(16, 47, 8, 2), (64, 191, 64, 1)])
 def test_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
-    op = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+    op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                   device=cuda_device)
     alm = torch.from_numpy(_triangle_alm(np.random.default_rng(2), 9, lmax + 1))
     Ge, Go = tsht.fused_GeGo(op, op.tables(False), alm.to(cuda_device))
-    op_c = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+    op_c = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                     device="cpu")
     Ge_c, Go_c = tsht.fused_GeGo(op_c, op_c.tables(False), alm)
     sc = float(Ge_c.abs().max())
@@ -273,7 +320,7 @@ def test_project_plain_matches_jax_xla(double, tol):
     G = G.astype(np.complex128 if double else np.complex64)
     ref = np.asarray(jsht._legendre_project_scan(jop, jt, jnp.asarray(G)))
 
-    top = tsht.SHT(nside, lmax, l_chunk=8, scan_ckpt=True, ckpt_every=2,
+    top = tsht.SHT(nside, lmax, l_chunk=8, ckpt_every=2,
                    device="cpu")
     t = top.load_tables(convert.sht_tables_from_numpy(
         {k: np.asarray(v) for k, v in jt.items()}, "cpu"), double)
@@ -284,13 +331,14 @@ def test_project_plain_matches_jax_xla(double, tol):
 
 
 def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1,
-                            band_rows, rpt=4, max_threads=256, ft=8, pb=16):
-    """numpy float32 replay of csrc/scan_project.cu: one block per (m, plane
-    tile), rings in chunks of threads·rpt (thread t holds rings
-    chunk + i·threads + t), per-thread sums over its rpt rings, the warp's
-    butterfly (lane bit 4 first, then 3, 2, 1, 0), warp sums in order once
-    per ℓ-block of pb row pairs, chunks added in order."""
-    f32 = np.float32
+                            band_rows, rpt=4, max_threads=256, ft=8, pb=16,
+                            scale=(60, 30)):
+    """numpy replay of csrc/scan_project.cu, in the dtype of the sources:
+    one block per (m, plane tile), rings in chunks of threads·rpt (thread t
+    holds rings chunk + i·threads + t), per-thread sums over its rpt rings,
+    the warp's butterfly (lane bit 4 first, then 3, 2, 1, 0), warp sums in
+    order once per ℓ-block of pb row pairs, chunks added in order."""
+    f32 = src0.dtype.type
     L, M = rec_a.shape
     R = z.size
     F2 = src0.shape[0]
@@ -343,9 +391,9 @@ def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1,
                             for _ in range(5):  # lane bits 4, 3, 2, 1, 0
                                 v = v[:, :, 0] + v[:, :, 1]
                             red[:, p, par] = v.T
-                        grow = (np.abs(lp) > 2.0**30) & (k > 0)
-                        lp = np.where(grow, lp * f32(2.0**-60), lp)
-                        lpp = np.where(grow, lpp * f32(2.0**-60), lpp)
+                        grow = (np.abs(lp) > 2.0**scale[1]) & (k > 0)
+                        lp = np.where(grow, lp * f32(2.0**-scale[0]), lp)
+                        lpp = np.where(grow, lpp * f32(2.0**-scale[0]), lpp)
                         k = np.where(grow, k - 1, k)
                     tot = red[0]
                     for w in range(1, nw):
@@ -363,7 +411,7 @@ def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1,
 ])
 def test_project_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2,
                                                       rpt, threads):
-    op = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+    op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                   device="cpu")
     t = op.tables(False)
     R, L = op.nhalf, lmax + 1
@@ -411,7 +459,7 @@ def test_contract_project_adjoint_f64():
 @pytest.mark.cuda
 @pytest.mark.parametrize("nside,lmax,lc,ke", [(16, 47, 8, 2), (64, 191, 64, 1)])
 def test_project_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
-    op = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+    op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                   device=cuda_device)
     rng = np.random.default_rng(3)
     shape = (5, op.nhalf, lmax + 1)
@@ -421,8 +469,33 @@ def test_project_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
     alm = tsht.fused_project(op, op.tables(False), Ge.to(cuda_device), Go.to(cuda_device))
     torch.cuda.synchronize()
     assert k1.project_launches == before + 1
-    op_c = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+    op_c = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                     device="cpu")
     alm_c = tsht.fused_project(op_c, op_c.tables(False), Ge, Go)
     sc = float(alm_c.abs().max())
     assert float((alm.cpu() - alm_c).abs().max()) <= 1e-4 * sc
+
+
+@pytest.mark.cuda
+def test_f64_kernels_match_plain_on_card(cuda_device):
+    """K1 and K2 in float64 (S=512, β=256) against their f64 plain
+    versions: 1e-10 relative."""
+    op, args, A, S = _f64_scaled_inputs(11, 5)
+    args = [a.to(cuda_device) for a in args]
+    A = [a.to(cuda_device) for a in A]
+    S = [s.to(cuda_device) for s in S]
+    before = (k1.launches, k1.project_launches)
+    names = ("cora_scan_contract_f64", "cora_scan_project_f64")
+    before_f64 = [k1.entry_launches.get(n, 0) for n in names]
+    he, ho = k1.scan_contract(*args, *A, band_rows=op.band_rows, scale=k1.SCALE_F64)
+    a0, a1 = k1.scan_project(*args, *S, band_rows=op.band_rows, scale=k1.SCALE_F64)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.project_launches) == (before[0] + 1, before[1] + 1)
+    assert [k1.entry_launches.get(n, 0) for n in names] == [b + 1 for b in before_f64]
+    assert he.dtype == torch.float64
+    for got, ref in zip((he, ho, a0, a1),
+                        k1.scan_contract_plain(*args, *A, band_rows=op.band_rows,
+                                               scale=k1.SCALE_F64)
+                        + k1.scan_project_plain(*args, *S, band_rows=op.band_rows,
+                                                scale=k1.SCALE_F64)):
+        assert float((got - ref).abs().max()) <= 1e-10 * float(ref.abs().max())

@@ -23,7 +23,7 @@ CONFIGS = [(16, 47, 8, 2), (64, 191, 64, 1)]
 def _pair(nside, lmax, lc, ke):
     jop = jsht.SHT(nside, lmax, legendre_mode="scan", l_chunk=lc,
                    scan_ckpt=True, ckpt_every=ke)
-    top = tsht.SHT(nside, lmax, l_chunk=lc, scan_ckpt=True, ckpt_every=ke,
+    top = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                    device="cpu")
     return jop, top
 
