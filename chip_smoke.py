@@ -7,48 +7,61 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device   — CUDA must be available; prints the card's name and power limit
               (nvidia-smi) and pins true f32 (TF32 off).
-2. build    — builds the three CUDA sources with nvcc (one process per
+2. build    — builds the four CUDA sources with nvcc (one process per
               source, started together), prints the build time and ptxas's
               register and shared-memory report.
-3. kernels  — each kernel (K1 scan_contract, K2 scan_project) against its
-              plain PyTorch version on the same inputs at nside=128 and at
-              the flagship shape (nside=512, L=1536, F2=32): max|Δ| ≤
-              1e-4·max|ref| against the f32 plain version, and error
-              against an f64 plain run ≤ 1.5× the f32 plain version's own;
-              CUDA-event times.  Then the adjoint identity at the flagship
-              shape: |⟨K1(a), G⟩ − ⟨a, K2(G)⟩| ≤ 1e-7·‖K1(a)‖·‖G‖, both
-              dot products in f64.  The float64 K1/K2 against their f64
-              plain versions (≤ 1e-10·max) at the F64_SHAPES: nside=128
-              with even and odd L, nside=512 at L=1536, F2=32 and at
-              gaussianfg's own L=1537 (odd), F2=64, with times.
-              K3 (wigner_contract, wigner_project), both spin-2 families:
-              float32 against its plain version (≤ 1e-4·max) at nside=128
-              (even and odd L) and at F2=32, L=1536, R=1024, its error
-              against an f64 plain run ≤ max(1.5× the plain f32 version's,
-              1e-5 RMS); the adjoint identity at the full shape; float64
-              against its f64 plain version (≤ 1e-10·max) at the
-              F64_SHAPES; CUDA-event times throughout.
-4. parity   — mkfullsky at nside=64, nz=8 on cuda (kernels) against cpu
-              (plain versions), same roots and white noise, then map2alm
-              (iter=3) of the same f32 maps on each device: RMS ratios
-              ≤ 1e-5.  alm2map_spin, map2alm_spin (iter=3) and
-              alm2map_der1 on the same alms/maps, cuda against cpu: RMS
-              ratios ≤ 1e-5; float64 map2alm cuda against cpu ≤ 1e-10.
+3. kernels  — K1 scan_contract and K2 scan_project (scan-mode operators)
+              against their plain versions at nside=128 and at the flagship
+              shape (nside=512, L=1536, F2=32): max|Δ| ≤ 1e-4·max|ref|,
+              error against an f64 plain run ≤ 1.5× the plain f32
+              version's; the K1/K2 adjoint identity at the flagship
+              (≤ 1e-7·‖K1(a)‖·‖G‖, f64 dot products).
+3b.         — float64 K1/K2 against their f64 plain versions (≤ 1e-10·max)
+              at the F64_SHAPES: nside=128 with even and odd L, nside=512 at
+              L=1536, F2=32 and at gaussianfg's L=1537, F2=64.
+3c.         — K3 (wigner_contract, wigner_project), both spin-2 families:
+              f32 against its plain version (≤ 1e-4·max, error against f64
+              ≤ max(1.5× the plain f32 version's, 1e-5 RMS)) at nside=128
+              (even and odd L) and at L=1536, R=1024; the adjoint identity;
+              f64 (≤ 1e-10·max) at the F64_SHAPES.
+3d.         — K4 (legendre_contract) on the default operators' device-built
+              Λ: f32 against its plain version (≤ 1e-5·max; error against
+              an f64 plain run ≤ 1.5× the plain f32 version's) at nside=128
+              (L=384, 385) and at the flagship call; f64 (≤ 1e-12·max) at the
+              F64_SHAPES; the adjoint identity with the per-chunk bmm
+              projection at the flagship; the per-chunk torch.bmm timed as
+              the yardstick (library_ms).  Every kernel of phase 3 has
+              CUDA-event times and its bound (bytes or operations).
+4. parity   — in each Legendre mode, the same operator kind on cuda
+              (kernels) and on cpu (plain versions; in cached mode a
+              device-built Λ on both): mkfullsky at nside=64, nz=8 with the
+              same roots and white noise (K1 or K4 launched), then map2alm
+              (iter=3) of the same f32 maps (K2 or K4) and of their f64 copy
+              (f64 K2 or K4): RMS ratios ≤ 1e-5, f64 ≤ 1e-10.
+              alm2map_spin and map2alm_spin (iter=3) in scan (K3) and cached
+              (K4) mode, and alm2map_der1 (each device's default mode), on
+              the same alms/maps, cuda against cpu: RMS ratios ≤ 1e-5.
 5. main, synthesis — Corr21cm().getsky(device="cuda") at nside=512 × 256
-              channels (400–800 MHz) with the launch counters reset just
-              before: K1 launches > 0, every pixel finite, each channel's
-              map variance within 5% of Σ_ℓ (2ℓ+1) C_ℓ(ν,ν)/4π; stage
-              times and peak device memory.
+              channels (400–800 MHz) through the default operator (cached
+              Λ built on the device) with the launch counters reset just
+              before: K4 launches > 0 and no K1 launch, every pixel finite,
+              each channel's map variance within 5% of Σ_ℓ (2ℓ+1)
+              C_ℓ(ν,ν)/4π; stage times (Λ build included) and peak device
+              memory.  Then the same roots and generator seed through
+              legendre_mode="scan" (K1 launches, no K4): cube RMS(cached −
+              scan)/RMS ≤ 1e-5; and 16 channels through a host-built Λ
+              against the device-built one (≤ 1e-5 RMS, host build timed).
 6. main, analysis — anafast (iter=3 Jacobi, lmax=1535) over that whole
-              cube in 16-channel slices, counters reset just before: K2
-              launches > 0; each channel's Ĉ_ℓ against its C_ℓ(ν,ν) in
-              bins of 64 over ℓ ∈ [2, 767], max |r − 1|/σ ≤ 5 (r the
-              (2ℓ+1)-weighted ratio, σ its cosmic variance); stage times
-              and peak device memory.
+              cube in 16-channel slices through the default (cached)
+              operator, counters reset just before: K4 launches > 0 (the
+              Jacobi syntheses), no K1/K2; each channel's Ĉ_ℓ against its
+              C_ℓ(ν,ν) in bins of 64 over ℓ ∈ [2, 767], max |r − 1|/σ ≤ 5;
+              stage times and peak device memory.
 7. round trip — a band-limited alm (ℓ ≤ 2·nside) at nside=512 through
-              alm2map and map2alm(lmax=1535, solve_lmax=1024, iter=20):
-              band error ≤ max(1.5× that of the same round trip through
-              the plain versions on the card, 1e-5).
+              alm2map and map2alm(lmax=1535, solve_lmax=1024, iter=20) in
+              scan mode: K1 and K2 launches, no K4; band error ≤ max(1.5×
+              that of the same round trip through the plain versions on the
+              card, 1e-5).
 8. cli      — python -m cora_tpu_torch.scripts.makesky 21cm at nside=128 ×
               64 channels; reads the HDF5 file back (where h5py is not
               installed: the command runs in-process and the array it hands
@@ -62,20 +75,26 @@ Phases (each prints its own lines; any failure exits non-zero):
               kernels and through the plain versions (recovered alms within
               1e-10·max of each other, band error ≤ 2e-2, its Jacobi
               floor), and in float32 (printed).
+9b. cached spin — the same 16 pairs through legendre_mode="cached" (spin Λ
+              build timed): K4 launches, no K3; f32 maps against the f64
+              scan maps ≤ 1e-5 RMS; an f32 cached map2alm_spin(iter=3)
+              round trip: band error ≤ 2e-2.
 10. gaussianfg — the gaussianfg command at nside=512 × 64 channels
               (400–800 MHz), --pol full, in-process with the array handed
               to write_map captured (the GPU host has no h5py), counters
               reset just before: shape [64, 4, npix], float64 as the
-              reference's, finite, V exactly 0, launches of the f64 K1 and
-              K3 synthesis entry points and none of the f32 ones; time and
-              peak device memory.
-11. polarised analysis — sphtrans_sky (float64: the f64 K1, K2 and K3
-              kernels) of 4 channels of that cube, counters reset just
-              before: every f64 entry point launched and no f32 one; each
-              channel's EE and BB within 5σ of its model C_ℓ in bins of 64
-              over ℓ ∈ [64, 1023].
+              reference's, finite, V exactly 0, launches of the f64 K4 (T,
+              cached Λ in float64) and K3 synthesis entry points and none of
+              the f32 ones; time and peak device memory.
+11. polarised analysis — sphtrans_sky (float64) of 4 channels of that
+              cube, counters reset just before: the f64 K4, K3 and K3
+              adjoint launched and no f32 kernel; each channel's EE and BB
+              within 5σ of its model C_ℓ in bins of 64 over ℓ ∈ [64, 1023];
+              then the T analysis in scan mode (the f64 K1 and K2 only),
+              within 1e-10·max of the cached one.
 
-Launch counts are read per C entry point (``entry_launches`` of each
+The Λ disk cache is off (``CORA_TPU_TORCH_CACHE=""``): nothing survives a
+call.  Launch counts are read per C entry point (``entry_launches`` of each
 wrapper module), so the f32 and f64 launches are counted apart.
 
 The line before the last is the kernel report (JSON); the last line is
@@ -130,9 +149,47 @@ def device_phase():
     return dev
 
 
-KERNELS = ("scan_legendre", "scan_project", "wigner_apply")
+KERNELS = ("scan_legendre", "scan_project", "wigner_apply", "legendre_contract")
 K3_SRC = "cora_tpu_torch/csrc/wigner_apply.cu"
 K3_REPLACES = "cora_tpu/ops/pallas_scan_legendre.py:615"
+K4_SRC = "cora_tpu_torch/csrc/legendre_contract.cu"
+K4_REPLACES = "cora_tpu/ops/pallas_legendre.py:81"
+
+# one H100 SXM (NVIDIA's data sheet, 700 W): 3.35 TB/s of device memory;
+# float32 67 TFLOP/s outside the tensor cores (no f32-exact tensor-core
+# path); float64 67 TFLOP/s on the tensor cores (DMMA, IEEE f64 products)
+# and 34 TFLOP/s outside them
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+F64_MMA_FLOP_S = 67e12
+F64_FLOP_S = 34e12
+
+
+def _bound(products, other, nbytes, itemsize):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rates of their type.  ``products`` are the
+    flops of the contraction (a matrix product), ``other`` those of the
+    recurrence that generates its rows.  In f32 both run on the same
+    units; in f64 the products can run on the tensor cores beside the
+    recurrence on the FP64 units, so the operations take at least the
+    longer of the two."""
+    t_b = nbytes / HBM_BYTES_S * 1e3
+    if itemsize == 4:
+        t_o = (products + other) / F32_FLOP_S * 1e3
+    else:
+        t_o = max(products / F64_MMA_FLOP_S, other / F64_FLOP_S) * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def _with_bound(report, flops, nbytes, itemsize, library_ms=None):
+    """``flops`` = (products, other), as :func:`_bound` takes them."""
+    bound_ms, bound_by = _bound(*flops, nbytes, itemsize)
+    report.update(bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return report
 
 
 def build_phase():
@@ -190,7 +247,8 @@ def _cuda_time_ms(fn, reps):
     return statistics.median(times)
 
 
-def _compare(name, nside, run_k, run_p, run_64, reps=(7, 3), rms_floor=None):
+def _compare(name, nside, run_k, run_p, run_64, reps=(7, 3), rms_floor=None,
+             tol=1e-4):
     """One kernel against its plain version: agreement, error against an
     f64 plain run, CUDA-event medians.  Returns (max|Δ|, ms, plain_ms).
 
@@ -214,7 +272,7 @@ def _compare(name, nside, run_k, run_p, run_64, reps=(7, 3), rms_floor=None):
     print(f"   {name} nside={nside}: max|ref|={sc:.6g} |kernel-plain32|={d_kp:.6g} "
           f"({d_kp / sc:.3e} rel) |kernel-f64|={d_k64:.6g} "
           f"|plain32-f64|={d_p64:.6g} (ratio {d_k64 / d_p64:.3f})")
-    check(d_kp <= 1e-4 * sc, f"{name} nside={nside}: kernel vs plain ≤ 1e-4·max")
+    check(d_kp <= tol * sc, f"{name} nside={nside}: kernel vs plain ≤ {tol:g}·max")
     if rms_floor is None:
         check(d_k64 <= 1.5 * d_p64,
               f"{name} nside={nside}: kernel error vs f64 ≤ 1.5× plain f32 error")
@@ -232,6 +290,11 @@ def _compare(name, nside, run_k, run_p, run_64, reps=(7, 3), rms_floor=None):
     return d_kp, ms, plain_ms
 
 
+# float32 K1/K2 shapes (nside, lmax) at F2=32: nside=128 and the flagship,
+# whose times the kernel report carries
+F32_SHAPES = [(128, 383), (512, 1535)]
+
+
 def kernel_phase(dev):
     import torch
 
@@ -240,9 +303,9 @@ def kernel_phase(dev):
 
     phase("3 kernels vs plain (K1 scan_contract, K2 scan_project)")
     reports = {}
-    for nside, lmax in [(128, 383), (512, 1535)]:
+    for nside, lmax in F32_SHAPES:
         t0 = time.perf_counter()
-        op = sht.get_sht(nside, lmax, device=dev)
+        op = sht.get_sht(nside, lmax, legendre_mode="scan", device=dev)
         args, A, S = _kernel_inputs(op, 32, seed=nside)
         br = op.band_rows
         args64 = tuple(a.double() for a in args)
@@ -264,12 +327,17 @@ def kernel_phase(dev):
             print(f"   {name} nside={nside}: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms (CUDA events, median); kernel "
                   f"{useful / ms / 1e9:.2f} TFLOP/s useful f32")
-            reports[name] = dict(
+            # each (ℓ, m ≤ ℓ, ring): one FMA per plane and the recurrence
+            # step (two products and an FMA); the tables, planes in, planes out
+            out = (S if name == "scan_contract" else A)
+            reports[name] = _with_bound(dict(
                 name=name, route="cuda", source=src,
                 replaces="cora_tpu/ops/pallas_scan_legendre.py:"
                          + ("155" if name == "scan_contract" else "431"),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        if nside == 512:  # adjoint identity: only the contraction rounding differs
+                max_abs_err=err, ms=ms, plain_ms=plain_ms),
+                (useful, 4.0 * op.nhalf * (lmax + 1) * (lmax + 2) / 2),
+                _nbytes(*args, *x, *out), 4)
+        if (nside, lmax) == F32_SHAPES[-1]:  # adjoint: only the contraction rounding differs
             He, Ho = k.scan_contract(*args, *A, band_rows=br)
             P0, P1 = k.scan_project(*args, *S, band_rows=br)
             dot = lambda xs, ys: sum(float((a.double() * b.double()).sum())
@@ -278,7 +346,7 @@ def kernel_phase(dev):
             lhs = dot((He, Ho), S)
             rhs = dot(A, (P0, P1))
             gap = abs(lhs - rhs) / (norm((He, Ho)) * norm(S))
-            print(f"   adjoint at nside=512: <K1(a),G>={lhs:.9e} "
+            print(f"   adjoint at nside={nside}: <K1(a),G>={lhs:.9e} "
                   f"<a,K2(G)>={rhs:.9e} gap/(|K1 a||G|)={gap:.3e}")
             check(gap <= 1e-7, "adjoint identity K1/K2 ≤ 1e-7")
             del He, Ho, P0, P1
@@ -287,8 +355,8 @@ def kernel_phase(dev):
     return reports
 
 
-def _compare64(name, nside, run_k, run_p, reps=(5, 2)):
-    """A float64 kernel against its f64 plain version: max|Δ| ≤ 1e-10·max;
+def _compare64(name, nside, run_k, run_p, reps=(5, 2), tol=1e-10):
+    """A float64 kernel against its f64 plain version: max|Δ| ≤ tol·max;
     CUDA-event medians.  Returns (max|Δ|, ms, plain_ms)."""
     import torch
 
@@ -301,7 +369,7 @@ def _compare64(name, nside, run_k, run_p, reps=(5, 2)):
     d = max(float((a - b).abs().max()) for a, b in zip(k, p))
     print(f"   {name} nside={nside}: max|ref|={sc:.6g} |kernel-plain64|={d:.6g} "
           f"({d / sc:.3e} rel)")
-    check(d <= 1e-10 * sc, f"{name} nside={nside}: f64 kernel vs f64 plain ≤ 1e-10·max")
+    check(d <= tol * sc, f"{name} nside={nside}: f64 kernel vs f64 plain ≤ {tol:g}·max")
     del k, p
     return d, _cuda_time_ms(run_k, reps[0]), _cuda_time_ms(run_p, reps[1])
 
@@ -323,7 +391,7 @@ def kernel64_phase(dev, reports):
 
     phase("3b float64 K1/K2 vs their f64 plain versions")
     for nside, lmax, F2 in F64_SHAPES:
-        op = sht.get_sht(nside, lmax, device=dev)
+        op = sht.get_sht(nside, lmax, legendre_mode="scan", device=dev)
         t = op.tables(True)
         args = tuple(t[key] for key in ("psl_rec_a", "psl_rec_b", "psl_seed",
                                         "psl_k0", "psl_z", "psl_ck"))
@@ -340,10 +408,14 @@ def kernel64_phase(dev, reports):
             print(f"   {name} nside={nside} L={lmax + 1} F2={F2}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, median)")
             base = name[:-4]
-            reports[name] = dict(
+            npairs = (lmax + 1) * (lmax + 2) / 2
+            out = S if base == "scan_contract" else A
+            reports[name] = _with_bound(dict(
                 name=name, route="cuda", source=reports[base]["source"],
                 replaces=reports[base]["replaces"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms),
+                (2.0 * F2 * op.nhalf * npairs, 4.0 * op.nhalf * npairs),
+                _nbytes(*args, *x, *out), 8)
         del A, S, args
         torch.cuda.empty_cache()
 
@@ -366,6 +438,17 @@ def _wigner_inputs(op, F2, seed, dtype):
 # float32 K3 shapes (nside, lmax, F2): even and odd L at nside=128, the
 # full spin shape (L=1536, R=1024), whose times the kernel report carries
 F32_WIGNER_SHAPES = [(128, 383, 32), (128, 384, 32), (512, 1535, 32)]
+
+
+def _k3_work(op, tabs, inp, F2):
+    """((products, other) flops, bytes) of one K3 call: per (ℓ, m ≤ ℓ,
+    ring) one FMA per plane and the recurrence step (a difference, two
+    products, an FMA, the norm); the tables and the planes read, the other
+    side's planes written."""
+    L, R = op.lmax + 1, 2 * op.nside
+    npairs = L * (L + 1) / 2
+    out = F2 * (R if inp.shape[1] == L else L) * L * inp.element_size()
+    return (2.0 * F2 * R * npairs, 6.0 * R * npairs), _nbytes(*tabs, inp) + out
 
 
 def wigner_phase(dev, reports):
@@ -400,9 +483,11 @@ def wigner_phase(dev, reports):
                           f"{ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, "
                           f"median); kernel {useful / ms / 1e9:.2f} TFLOP/s useful f32")
                     if sp == 2:
-                        reports[name] = dict(name=name, route="cuda", source=K3_SRC,
-                                             replaces=K3_REPLACES, max_abs_err=err,
-                                             ms=ms, plain_ms=plain_ms)
+                        reports[name] = _with_bound(
+                            dict(name=name, route="cuda", source=K3_SRC,
+                                 replaces=K3_REPLACES, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms),
+                            *_k3_work(op, t32[sp], inp, F2), 4)
                 if (nside, lmax, F2) in F64_SHAPES:
                     err64, ms64, plain64 = _compare64(
                         f"{name}_f64 s={sp} L={lmax + 1} F2={F2}", nside,
@@ -412,10 +497,11 @@ def wigner_phase(dev, reports):
                           f"kernel {ms64:.3f} ms, plain {plain64:.3f} ms (CUDA "
                           f"events, median)")
                     if sp == 2:
-                        reports[name + "_f64"] = dict(
+                        reports[name + "_f64"] = _with_bound(dict(
                             name=name + "_f64", route="cuda", source=K3_SRC,
                             replaces=K3_REPLACES, max_abs_err=err64, ms=ms64,
-                            plain_ms=plain64)
+                            plain_ms=plain64),
+                            *_k3_work(op, t64[sp], inp.double(), F2), 8)
         if (nside, lmax) == (512, 1535):  # adjoint identity: λ rows shared bit for bit
             for sp in (2, -2):
                 g = k3.wigner_contract(*t32[sp], x)
@@ -431,6 +517,127 @@ def wigner_phase(dev, reports):
         torch.cuda.empty_cache()
 
 
+def _k4_inputs(op, F2, seed, dtype):
+    """The operator's device-built Λ at ``dtype``, random parity-packed
+    a_lm planes [F2, L, L] (K4's input) and random ring planes S0, S1
+    [F2, nh, L] (the adjoint's)."""
+    import torch
+
+    t = op.tables(dtype == torch.float64)
+    L = op.lmax + 1
+    g = torch.Generator(device=op.device).manual_seed(seed)
+    A = torch.randn((F2, L, L), generator=g, device=op.device, dtype=dtype)
+    S = tuple(torch.randn((F2, op.nhalf, L), generator=g, device=op.device,
+                          dtype=dtype) for _ in range(2))
+    return t["lam"], t["lam_desc"], A, S
+
+
+def _k4_run(fn, lam, desc, A, R):
+    import torch
+
+    H = [torch.zeros((A.shape[0], R, A.shape[2]), dtype=A.dtype, device=A.device)
+         for _ in range(2)]
+    fn(lam, desc, A, *H)
+    return tuple(H)
+
+
+def _k4_library(lam, desc, A, R):
+    """The yardstick: the same contraction as one ``torch.bmm`` per chunk
+    (cuBLAS, TF32 off), timed only — the port never calls it."""
+    import torch
+
+    from cora_tpu_torch.ops import legendre as k4
+
+    AT = A.permute(2, 0, 1).contiguous()  # [M, F2, LA]
+    H = A.new_zeros((2, A.shape[2], A.shape[0], R))
+    for (_, nrows, mw, row0, tgt), lam_c in zip(desc.tolist(),
+                                                k4.chunk_views(lam, desc, R)):
+        H[tgt, :mw] += torch.bmm(AT[:mw, :, row0:row0 + nrows], lam_c)
+    return tuple(h.permute(1, 2, 0) for h in H)
+
+
+def _k4_work(lam, desc, A, R):
+    """((products, other) flops, bytes) of one K4 call: one FMA per stored
+    Λ entry and plane, all of it a product; Λ and the planes read once, H0
+    and H1 written once."""
+    F2, M = A.shape[0], A.shape[2]
+    ent = sum(nrows * mw for _, nrows, mw, _, _ in desc.tolist()) * R
+    return ((2.0 * F2 * ent, 0.0),
+            _nbytes(lam, A) + 2 * F2 * R * M * A.element_size())
+
+
+# K4 shapes (nside, lmax, F2): float32 at nside=128 with even and odd L and
+# at the flagship call; float64 at the F64_SHAPES
+F32_K4_SHAPES = [(128, 383, 32), (128, 384, 32), (512, 1535, 32)]
+
+
+def legendre_phase(dev, reports):
+    """K4 on device-built Λ chunks against its plain version: float32 at the
+    F32_K4_SHAPES (≤ 1e-5·max; error against an f64 plain run ≤ 1.5× the
+    f32 plain version's), float64 at the F64_SHAPES (≤ 1e-12·max); the
+    adjoint identity with the bmm projection at the flagship; CUDA-event
+    times for the kernel, its plain version and the per-chunk bmm."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.ops import legendre as k4
+
+    phase("3d kernels vs plain (K4 legendre_contract, cached Λ)")
+    for nside, lmax, F2 in sorted(set(F32_K4_SHAPES) | set(F64_SHAPES)):
+        sht._get_sht_cached.cache_clear()
+        torch.cuda.empty_cache()
+        op = sht.get_sht(nside, lmax, device=dev)
+        check(op.legendre_mode == "cached" and op.lambda_build == "device",
+              f"get_sht({nside}, {lmax}) on cuda: cached mode, device-built Λ")
+        R = op.nhalf
+        for dtype in (torch.float32, torch.float64):
+            f64 = dtype == torch.float64
+            if (nside, lmax, F2) not in (F64_SHAPES if f64 else F32_K4_SHAPES):
+                continue
+            t0 = time.perf_counter()
+            lam, desc, A, S = _k4_inputs(op, F2, nside + lmax, dtype)
+            torch.cuda.synchronize(dev)
+            print(f"   nside={nside} L={lmax + 1} F2={F2} {dtype}: Λ "
+                  f"{lam.numel() * lam.element_size() / 1e9:.3f} GB built in "
+                  f"{time.perf_counter() - t0:.2f} s ({desc.shape[0]} chunks)")
+            name = "legendre_contract" + ("_f64" if f64 else "")
+            run_k = lambda: _k4_run(k4.legendre_contract, lam, desc, A, R)
+            run_p = lambda: _k4_run(k4.legendre_contract_plain, lam, desc, A, R)
+            if f64:
+                err, ms, plain_ms = _compare64(f"{name} L={lmax + 1} F2={F2}", nside,
+                                               run_k, run_p, tol=1e-12)
+            else:
+                err, ms, plain_ms = _compare(
+                    f"{name} L={lmax + 1}", nside, run_k, run_p,
+                    lambda: _k4_run(k4.legendre_contract_plain, lam.double(), desc,
+                                    A.double(), R), tol=1e-5)
+            lib_ms = _cuda_time_ms(lambda: _k4_library(lam, desc, A, R), 3)
+            flops, nbytes = _k4_work(lam, desc, A, R)
+            print(f"   {name} nside={nside} L={lmax + 1} F2={F2}: kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, per-chunk bmm {lib_ms:.3f} ms (CUDA "
+                  f"events, median); {nbytes / 1e9:.3f} GB, {flops[0] / 1e9:.1f} GFLOP: "
+                  f"{nbytes / ms / 1e6:.0f} GB/s")
+            reports[name] = _with_bound(dict(
+                name=name, route="cuda", source=K4_SRC, replaces=K4_REPLACES,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms), flops, nbytes,
+                A.element_size(), lib_ms)
+            if (nside, lmax, F2) == F32_K4_SHAPES[-1] and not f64:
+                H0, H1 = run_k()
+                P = k4.legendre_project(lam, desc, *S, LA=lmax + 1)
+                dot = lambda xs, ys: sum(float((a.double() * b.double()).sum())
+                                         for a, b in zip(xs, ys))
+                lhs, rhs = dot((H0, H1), S), dot((A,), (P,))
+                gap = abs(lhs - rhs) / np.sqrt(dot((H0, H1), (H0, H1)) * dot(S, S))
+                print(f"   K4 adjoint at nside={nside}: <K4(a),S>={lhs:.9e} "
+                      f"<a,P(S)>={rhs:.9e} gap/(|K4 a||S|)={gap:.3e}")
+                check(gap <= 1e-7, "adjoint identity K4 / per-chunk bmm ≤ 1e-7")
+                del H0, H1, P
+            del lam, A, S
+            op._tables.clear()
+            torch.cuda.empty_cache()
+    sht._get_sht_cached.cache_clear()
+
+
 def _random_roots(L, nz, seed):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((L, nz, nz))
@@ -442,69 +649,85 @@ def parity_phase(dev):
     import torch
 
     from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.healpix import sht
 
-    phase("4 end-to-end parity cuda vs cpu")
+    phase("4 end-to-end parity cuda vs cpu, scan and cached mode")
     nside, nz = 64, 8
     L = 3 * nside
     cl, rng = _random_roots(L, nz, 7)
     roots = skysim.covariance_roots(cl, "cpu").numpy()
     xi = rng.standard_normal((L, nz, 2, L)).astype(np.float32)
-    t0 = time.perf_counter()
-    m_gpu = skysim.mkfullsky(None, nside, device=dev, roots=roots, xi=xi,
-                             fchunk=nz).cpu().numpy()
-    t1 = time.perf_counter()
-    m_cpu = skysim.mkfullsky(None, nside, device="cpu", roots=roots, xi=xi,
-                             fchunk=nz).numpy()
-    t2 = time.perf_counter()
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x.astype(np.complex128)) ** 2)))
-    rel = rms(m_gpu - m_cpu) / rms(m_cpu)
-    print(f"   nside={nside} nz={nz}: RMS(cuda-cpu)/RMS = {rel:.3e} "
-          f"(cuda {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
-    check(np.isfinite(m_gpu).all(), "cuda maps finite")
-    check(rel <= 1e-5, "cuda vs cpu map RMS ≤ 1e-5")
+    # per mode: the kernels its cuda run must launch (synthesis, analysis,
+    # f64 analysis); the Λ is device-built on both devices, so the cached
+    # runs differ only by K4 against its plain version
+    kernels = {"scan": ("scan_contract", "scan_project", "scan_project_f64"),
+               "cached": ("legendre_contract", "legendre_contract",
+                          "legendre_contract_f64")}
+    for mode, (k_syn, k_ana, k_ana64) in kernels.items():
+        ops = {d: sht.get_sht(nside, L - 1, legendre_mode=mode,
+                              lambda_build="device", device=d) for d in (dev, "cpu")}
+        _reset_counts()
+        t0 = time.perf_counter()
+        m_gpu = skysim.mkfullsky(None, nside, device=dev, roots=roots, xi=xi,
+                                 fchunk=nz, op=ops[dev]).cpu().numpy()
+        t1 = time.perf_counter()
+        check(_counts()[k_syn] > 0, f"{mode}: mkfullsky on cuda launched {k_syn}")
+        m_cpu = skysim.mkfullsky(None, nside, device="cpu", roots=roots, xi=xi,
+                                 fchunk=nz, op=ops["cpu"]).numpy()
+        t2 = time.perf_counter()
+        rel = rms(m_gpu - m_cpu) / rms(m_cpu)
+        print(f"   {mode} nside={nside} nz={nz}: RMS(cuda-cpu)/RMS = {rel:.3e} "
+              f"(cuda {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
+        check(np.isfinite(m_gpu).all(), f"{mode}: cuda maps finite")
+        check(rel <= 1e-5, f"{mode}: cuda vs cpu map RMS ≤ 1e-5")
 
-    from cora_tpu_torch.healpix import sht
+        maps = torch.from_numpy(m_cpu)  # the same f32 maps on both devices
+        _reset_counts()
+        a_gpu = ops[dev].analysis(maps.to(dev), 3).cpu().numpy()
+        check(_counts()[k_ana] > 0, f"{mode}: map2alm on cuda launched {k_ana}")
+        a_cpu = ops["cpu"].analysis(maps, 3).numpy()
+        rel = rms(a_gpu - a_cpu) / rms(a_cpu)
+        print(f"   {mode} map2alm(iter=3) nside={nside} nz={nz}: RMS(cuda-cpu)/RMS "
+              f"= {rel:.3e}")
+        check(np.isfinite(a_gpu).all(), f"{mode}: cuda alm finite")
+        check(rel <= 1e-5, f"{mode}: cuda vs cpu alm RMS ≤ 1e-5")
 
-    maps = torch.from_numpy(m_cpu)  # the same f32 maps on both devices
-    t0 = time.perf_counter()
-    a_gpu = sht.map2alm(maps.to(dev), iter=3, device=dev).cpu().numpy()
-    t1 = time.perf_counter()
-    a_cpu = sht.map2alm(maps, iter=3, device="cpu").numpy()
-    t2 = time.perf_counter()
-    rel = rms(a_gpu - a_cpu) / rms(a_cpu)
-    print(f"   map2alm(iter=3) nside={nside} nz={nz}: RMS(cuda-cpu)/RMS = "
-          f"{rel:.3e} (cuda {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
-    check(np.isfinite(a_gpu).all(), "cuda alm finite")
-    check(rel <= 1e-5, "cuda vs cpu alm RMS ≤ 1e-5")
-
-    maps64 = torch.from_numpy(m_cpu.astype(np.float64))
-    a_gpu = sht.map2alm(maps64.to(dev), iter=3, device=dev)
-    check(a_gpu.dtype == torch.complex128, "float64 map2alm on cuda is complex128")
-    a_gpu = a_gpu.cpu().numpy()
-    a_cpu = sht.map2alm(maps64, iter=3, device="cpu").numpy()
-    rel = rms(a_gpu - a_cpu) / rms(a_cpu)
-    print(f"   float64 map2alm(iter=3) nside={nside} nz={nz}: RMS(cuda-cpu)/RMS = "
-          f"{rel:.3e}")
-    check(rel <= 1e-10, "float64 cuda vs cpu alm RMS ≤ 1e-10")
+        maps64 = torch.from_numpy(m_cpu.astype(np.float64))
+        _reset_counts()
+        a_gpu = ops[dev].analysis(maps64.to(dev), 3)
+        check(a_gpu.dtype == torch.complex128 and _counts()[k_ana64] > 0,
+              f"{mode}: float64 map2alm on cuda is complex128, launched {k_ana64}")
+        a_gpu = a_gpu.cpu().numpy()
+        a_cpu = ops["cpu"].analysis(maps64, 3).numpy()
+        rel = rms(a_gpu - a_cpu) / rms(a_cpu)
+        print(f"   {mode} float64 map2alm(iter=3) nside={nside} nz={nz}: "
+              f"RMS(cuda-cpu)/RMS = {rel:.3e}")
+        check(rel <= 1e-10, f"{mode}: float64 cuda vs cpu alm RMS ≤ 1e-10")
 
     from cora_tpu_torch.healpix import spin
 
     lmax = L - 1
     E = torch.from_numpy(_triangle(rng, (2, L, L)))
     B = torch.from_numpy(_triangle(rng, (2, L, L)))
-    QU = [[x.cpu().numpy() for x in spin.alm2map_spin(E.to(d), B.to(d), 2, nside,
-                                                      device=d)]
-          for d in (dev, "cpu")]
-    rel = max(rms(g - c) / rms(c) for g, c in zip(*QU))
-    print(f"   alm2map_spin nside={nside}, 2 pairs: RMS(cuda-cpu)/RMS = {rel:.3e}")
-    check(rel <= 1e-5, "alm2map_spin cuda vs cpu RMS ≤ 1e-5")
-    Q, U = (torch.from_numpy(x) for x in QU[1])
-    EB = [[x.cpu().numpy() for x in spin.map2alm_spin(Q.to(d), U.to(d), 2, lmax,
-                                                      iter=3, device=d)]
-          for d in (dev, "cpu")]
-    rel = max(rms(g - c) / rms(c) for g, c in zip(*EB))
-    print(f"   map2alm_spin(iter=3) nside={nside}: RMS(cuda-cpu)/RMS = {rel:.3e}")
-    check(rel <= 1e-5, "map2alm_spin cuda vs cpu RMS ≤ 1e-5")
+    for mode, kern in (("scan", "wigner_contract"), ("cached", "legendre_contract")):
+        _reset_counts()
+        QU = [[x.cpu().numpy() for x in spin.alm2map_spin(
+                   E.to(d), B.to(d), 2, nside, device=d, legendre_mode=mode)]
+              for d in (dev, "cpu")]
+        check(_counts()[kern] > 0, f"{mode}: alm2map_spin on cuda launched {kern}")
+        rel = max(rms(g - c) / rms(c) for g, c in zip(*QU))
+        print(f"   {mode} alm2map_spin nside={nside}, 2 pairs: RMS(cuda-cpu)/RMS = "
+              f"{rel:.3e}")
+        check(rel <= 1e-5, f"{mode}: alm2map_spin cuda vs cpu RMS ≤ 1e-5")
+        Q, U = (torch.from_numpy(x) for x in QU[1])
+        EB = [[x.cpu().numpy() for x in spin.map2alm_spin(
+                   Q.to(d), U.to(d), 2, lmax, iter=3, device=d, legendre_mode=mode)]
+              for d in (dev, "cpu")]
+        rel = max(rms(g - c) / rms(c) for g, c in zip(*EB))
+        print(f"   {mode} map2alm_spin(iter=3) nside={nside}: RMS(cuda-cpu)/RMS = "
+              f"{rel:.3e}")
+        check(rel <= 1e-5, f"{mode}: map2alm_spin cuda vs cpu RMS ≤ 1e-5")
     der = [sht.alm2map_der1(E[0].to(d), nside, device=d).cpu().numpy()
            for d in (dev, "cpu")]
     rel = max(rms(der[0][i] - der[1][i]) / rms(der[1][i]) for i in range(3))
@@ -526,6 +749,7 @@ def _triangle(rng, shape, lmin=2):
 
 
 def _reset_counts():
+    from cora_tpu_torch.ops import legendre as k4
     from cora_tpu_torch.ops import scan_legendre as k
     from cora_tpu_torch.ops import wigner as k3
 
@@ -533,59 +757,89 @@ def _reset_counts():
         mod.launches = 0
         mod.project_launches = 0
         mod.entry_launches.clear()
+    k4.launches = 0
+    k4.entry_launches.clear()
 
 
 def _counts():
     """Launches per C entry point since the last :func:`_reset_counts`, by
-    report name (``scan_contract``, ``scan_contract_f64``, …)."""
+    report name (``scan_contract``, ``scan_contract_f64``, …,
+    ``legendre_contract``, ``legendre_contract_f64``)."""
+    from cora_tpu_torch.ops import legendre as k4
     from cora_tpu_torch.ops import scan_legendre as k
     from cora_tpu_torch.ops import wigner as k3
 
-    return {name: mod.entry_launches.get("cora_" + name, 0)
-            for mod, base in ((k, ("scan_contract", "scan_project")),
-                              (k3, ("wigner_contract", "wigner_project")))
-            for b in base for name in (b, b + "_f64")}
+    n = {name: mod.entry_launches.get("cora_" + name, 0)
+         for mod, base in ((k, ("scan_contract", "scan_project")),
+                           (k3, ("wigner_contract", "wigner_project")))
+         for b in base for name in (b, b + "_f64")}
+    n["legendre_contract"] = k4.entry_launches.get("cora_legendre_contract_f32", 0)
+    n["legendre_contract_f64"] = k4.entry_launches.get("cora_legendre_contract_f64", 0)
+    return n
+
+
+def _clear_operators():
+    """Drop the cached transform operators (and their tables) so the next
+    phase builds its own, as a user's process would."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht, spin
+
+    spin._get_spin_sht_cached.cache_clear()
+    sht._get_sht_cached.cache_clear()
+    torch.cuda.empty_cache()
 
 
 def main_phase(dev, reports, cfg=FLAGSHIP):
     """Returns the cube [nfreq, npix] and each channel's C_ℓ(ν,ν) [L, nfreq]."""
     import torch
 
+    from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.healpix import sht
     from cora_tpu_torch.signal import clfast
     from cora_tpu_torch.signal.corr21cm import Corr21cm
     from cora_tpu_torch.util import profiling
 
     phase(f"5 main path, synthesis: Corr21cm().getsky() nside={cfg['nside']} × "
-          f"{cfg['nfreq']} channels")
-    from cora_tpu_torch.healpix import sht
-
-    sht._get_sht_cached.cache_clear()  # the user path builds its own operator
-    torch.cuda.empty_cache()
+          f"{cfg['nfreq']} channels (default: cached Λ, K4)")
+    _clear_operators()  # the user path builds its own operator
     cr = Corr21cm()
     cr.nside = cfg["nside"]
     cr.frequencies = np.linspace(cfg["flo"], cfg["fhi"], cfg["nfreq"],
                                  endpoint=False)
     gen = torch.Generator(device=dev).manual_seed(2024)
+    seen = {}
+    roots_fn = skysim.covariance_roots
+
+    def keep_roots(*a, **kw):  # the same roots for the scan-mode run below
+        seen["roots"] = roots_fn(*a, **kw)
+        return seen["roots"]
 
     profiling.enable(True)
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
+    skysim.covariance_roots = keep_roots
     t0 = time.perf_counter()
-    sky = cr.getsky(device=dev, generator=gen)
-    torch.cuda.synchronize(dev)
+    try:
+        sky = cr.getsky(device=dev, generator=gen)
+        torch.cuda.synchronize(dev)
+    finally:
+        skysim.covariance_roots = roots_fn
     total = time.perf_counter() - t0
-    launches = _counts()["scan_contract"]
+    n = _counts()
     st = dict(profiling.stage_times)
     profiling.enable(False)
     peak = torch.cuda.max_memory_allocated(dev)
-    reports["scan_contract"]["launches"] = launches
+    reports["legendre_contract"]["launches"] = n["legendre_contract"]
 
-    for key in ("cl_tables", "roots", "sht_setup", "draw", "legendre", "ring",
-                "pixel_gather"):
+    for key in ("cl_tables", "roots", "sht_setup", "checkpoints", "lambda_build",
+                "draw", "legendre", "ring", "pixel_gather"):
         print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s")
     print(f"   total getsky    {total:9.3f} s; peak device memory "
-          f"{peak / 2**30:.2f} GiB; scan_contract launches {launches}")
-    check(launches > 0, "main path launched the scan_contract kernel")
+          f"{peak / 2**30:.2f} GiB; legendre_contract launches "
+          f"{n['legendre_contract']}, scan_contract launches {n['scan_contract']}")
+    check(n["legendre_contract"] > 0 and n["scan_contract"] == 0,
+          "main path launched the legendre_contract kernel (K4) and no K1")
     npix = 12 * cfg["nside"] ** 2
     check(tuple(sky.shape) == (cfg["nfreq"], npix), f"sky shape {tuple(sky.shape)}")
     check(bool(torch.isfinite(sky).all()), "every pixel finite")
@@ -609,12 +863,63 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
           f"max {ratio.max():.4f} (channel 0: {got[0]:.4e} vs {expect[0]:.4e})")
     check(np.all(np.abs(ratio - 1.0) < 0.05),
           "every channel's variance within 5% of its C_ℓ sum")
+
+    # the same roots and generator seed through the scan mode (K1)
+    roots = seen["roots"]
+    mean = torch.as_tensor(cr.mean_nu(cr.nu_pixels), device=dev)[:, None]
+    op_s = sht.get_sht(cfg["nside"], lmax, legendre_mode="scan", device=dev)
+    profiling.enable(True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    scan = skysim.mkfullsky(None, cfg["nside"], device=dev, roots=roots, op=op_s,
+                            generator=torch.Generator(device=dev).manual_seed(2024))
+    torch.cuda.synchronize(dev)
+    t_scan = time.perf_counter() - t0
+    n = _counts()
+    st = dict(profiling.stage_times)
+    profiling.enable(False)
+    reports["scan_contract"]["launches"] = n["scan_contract"]
+    diff = float((sky - mean - scan).square().mean().sqrt())
+    rel = diff / float(scan.double().square().mean().sqrt())
+    print(f"   scan-mode synthesis of the same roots and seeds: {t_scan:.3f} s "
+          f"(checkpoints {st.get('checkpoints', 0.0):.3f} s, legendre "
+          f"{st.get('legendre', 0.0):.3f} s), scan_contract launches "
+          f"{n['scan_contract']}; RMS(cached − scan)/RMS = {rel:.3e}")
+    check(n["scan_contract"] > 0 and n["legendre_contract"] == 0,
+          "legendre_mode='scan' launched K1 and no K4")
+    check(rel <= 1e-5, "cached vs scan cube RMS ≤ 1e-5 (same roots, same seeds)")
+    del scan, op_s
+
+    # a host-built Λ (the f64 recurrence cast to f32) against the device
+    # build on the first 16 channels, the same white noise
+    seeds = torch.randint(0, 2**62, (-(-(lmax + 1) // 64),),
+                          generator=torch.Generator().manual_seed(7)).tolist()
+    xi = sht.xi_from_seeds(seeds, roots.shape[1])
+    rt = roots.to(torch.float32)
+    op_d = sht.get_sht(cfg["nside"], lmax, device=dev)  # getsky's operator
+    grids = [sht.synthesis_grid_correlated(op_d, op_d.tables(False), rt, xi, 0, 16)]
+    op_h = sht.SHT(cfg["nside"], lmax, device=dev, legendre_mode="cached",
+                   lambda_build="host")
+    t0 = time.perf_counter()
+    t = op_h.tables(False)
+    torch.cuda.synchronize(dev)
+    print(f"   host-built Λ (f64 recurrence → f32, disk cache off): "
+          f"{time.perf_counter() - t0:.3f} s")
+    grids.append(sht.synthesis_grid_correlated(op_h, t, rt, xi, 0, 16))
+    del op_h, t
+    rel = float((grids[0] - grids[1]).double().square().mean().sqrt()
+                / grids[1].double().square().mean().sqrt())
+    print(f"   16 channels, device-built vs host-built Λ: RMS(Δ)/RMS = {rel:.3e}")
+    check(rel <= 1e-5, "device-built vs host-built Λ maps RMS ≤ 1e-5")
+    del grids
+    torch.cuda.empty_cache()
     return sky, cl_diag
 
 
 def analysis_phase(dev, reports, sky, cl_diag):
-    """anafast over the whole cube, 16 channels a call (the K1 stage's
-    plane count), against each channel's C_ℓ(ν,ν) in bins of 64."""
+    """anafast over the whole cube, 16 channels a call, through the default
+    (cached) operator: projection by per-chunk bmm, the Jacobi syntheses
+    through K4; against each channel's C_ℓ(ν,ν) in bins of 64."""
     import torch
 
     from cora_tpu_torch.healpix import sht
@@ -633,18 +938,18 @@ def analysis_phase(dev, reports, sky, cl_diag):
     torch.cuda.synchronize(dev)
     total = time.perf_counter() - t0
     n = _counts()
-    launches = (n["scan_contract"], n["scan_project"])
     st = dict(profiling.stage_times)
     profiling.enable(False)
     peak = torch.cuda.max_memory_allocated(dev)
-    reports["scan_project"]["launches"] = launches[1]
     for key in ("pixel_scatter", "ring_fwd", "projection", "legendre", "ring",
                 "pixel_gather"):
         print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s")
     print(f"   total anafast   {total:9.3f} s; peak device memory "
-          f"{peak / 2**30:.2f} GiB; scan_project launches {launches[1]}, "
-          f"scan_contract launches {launches[0]}")
-    check(launches[1] > 0, "main path launched the scan_project kernel")
+          f"{peak / 2**30:.2f} GiB; legendre_contract launches "
+          f"{n['legendre_contract']}, scan launches {n['scan_contract']} / "
+          f"{n['scan_project']}")
+    check(n["legendre_contract"] > 0 and n["scan_contract"] == n["scan_project"] == 0,
+          "anafast's Jacobi syntheses launched K4 and no scan kernel")
     cl = torch.cat(cls).double().cpu().numpy().T  # [L, nfreq]
     check(cl.shape == cl_diag.shape and np.isfinite(cl).all(),
           f"C_ℓ [{lmax + 1}, {nfreq}] finite")
@@ -669,16 +974,17 @@ def analysis_phase(dev, reports, sky, cl_diag):
     torch.cuda.empty_cache()
 
 
-def roundtrip_phase(dev, nside=512):
-    """alm (ℓ ≤ 2·nside) → alm2map → map2alm(solve_lmax) at nside=512,
-    through the kernels and through the plain versions on the card."""
+def roundtrip_phase(dev, reports, nside=512):
+    """alm (ℓ ≤ 2·nside) → alm2map → map2alm(solve_lmax) at nside=512 in
+    scan mode, through the kernels (K1, K2) and through their plain
+    versions on the card."""
     import torch
 
     from cora_tpu_torch.healpix import sht
     from cora_tpu_torch.ops import scan_legendre as k
 
     lmax, band = 3 * nside - 1, 2 * nside
-    phase(f"7 round trip nside={nside}: alm (ℓ ≤ {band}) → alm2map → "
+    phase(f"7 round trip nside={nside}, scan mode: alm (ℓ ≤ {band}) → alm2map → "
           f"map2alm(lmax={lmax}, solve_lmax={band}, iter=20)")
     rng = np.random.default_rng(512)
     L = band + 1
@@ -689,15 +995,24 @@ def roundtrip_phase(dev, nside=512):
 
     def run():
         t0 = time.perf_counter()
-        m = sht.alm2map(alm, nside, device=dev)
-        out = sht.map2alm(m, lmax, iter=20, solve_lmax=band, device=dev)
+        m = sht.alm2map(alm, nside, device=dev, legendre_mode="scan")
+        out = sht.map2alm(m, lmax, iter=20, solve_lmax=band, device=dev,
+                          legendre_mode="scan")
         torch.cuda.synchronize(dev)
         d = (out[:L, :L].cpu() - alm).abs()
         return (float(d.max()) / float(alm.abs().max()),
                 float(d.square().mean().sqrt()) / float(alm.abs().square().mean().sqrt()),
                 time.perf_counter() - t0)
 
+    _reset_counts()
     e_k, r_k, t_k = run()
+    n = _counts()
+    reports["scan_project"]["launches"] = n["scan_project"]
+    print(f"   scan mode: scan_contract launches {n['scan_contract']}, "
+          f"scan_project launches {n['scan_project']}")
+    check(n["scan_contract"] > 0 and n["scan_project"] > 0
+          and n["legendre_contract"] == 0,
+          "legendre_mode='scan' round trip launched K1 and K2 and no K4")
     saved = sht.scan_contract, sht.scan_project
     sht.scan_contract, sht.scan_project = k.scan_contract_plain, k.scan_project_plain
     try:
@@ -847,7 +1162,33 @@ def spin_phase(dev, reports, nside=512, npair=16):
     print(f"   f32 maps vs f64 kernel maps, worst of Q/U RMS(Δ)/RMS: kernels "
           f"{r_k:.3e}, plain versions {r_p:.3e} (the reference's f32 seed "
           f"truncation)")
-    del Q, U, Q64, U64, Qp, Up, E, B
+    del Q, U, Qp, Up
+    torch.cuda.empty_cache()
+
+    # 9b: the cached spin mode — f32 rows cast from the host f64 recurrence
+    phase(f"9b cached spin: alm2map_spin(legendre_mode='cached') of {npair} "
+          f"pairs at nside={nside}; map2alm_spin(iter=3) round trip in f32")
+    op_c = spin.get_spin_sht(nside, lmax, 2, dev, legendre_mode="cached")
+    t0 = time.perf_counter()
+    tc = op_c.tables(False)
+    torch.cuda.synchronize(dev)
+    gb = sum(lam.numel() * lam.element_size() for lam, _ in tc["sp"].values()) / 1e9
+    print(f"   spin Λ (2 families, {gb:.3f} GB): f64 recurrence on the card "
+          f"→ f32, {time.perf_counter() - t0:.3f} s")
+    _reset_counts()
+    t0 = time.perf_counter()
+    Qc, Uc = spin.alm2map_spin(E, B, 2, nside, device=dev, legendre_mode="cached")
+    torch.cuda.synchronize(dev)
+    t_c = time.perf_counter() - t0
+    n = _counts()
+    r_c = _spin_rms((Qc, Uc), (Q64, U64))
+    print(f"   cached alm2map_spin {t_c:.3f} s, legendre_contract launches "
+          f"{n['legendre_contract']}, wigner_contract {n['wigner_contract']}; f32 "
+          f"cached maps vs f64 scan (K3) maps, worst of Q/U RMS(Δ)/RMS: {r_c:.3e}")
+    check(n["legendre_contract"] > 0 and n["wigner_contract"] == 0,
+          "cached alm2map_spin launched K4 and no K3")
+    check(r_c <= 1e-5, "cached f32 spin maps vs f64 scan maps RMS ≤ 1e-5")
+    del Qc, Uc, Q64, U64, E, B
     torch.cuda.empty_cache()
 
     Eb = torch.from_numpy(_triangle(rng, (2, L, L)))
@@ -903,7 +1244,21 @@ def spin_phase(dev, reports, nside=512, npair=16):
     # iter=3 Jacobi over ℓ ≤ 2·nside at lmax = 3·nside − 1 stops at
     # 1.744e-02 (H100 run of this phase); a wrong row moves it by far more
     check(e_64 <= 2e-2, "float64 spin round-trip band error ≤ 2e-2 (its Jacobi floor)")
-    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    q, u = spin.alm2map_spin(Eb.to(dev), Bb.to(dev), 2, nside, device=dev,
+                             legendre_mode="cached")
+    e, b = spin.map2alm_spin(q, u, 2, lmax, iter=3, device=dev,
+                             legendre_mode="cached")
+    torch.cuda.synchronize(dev)
+    e_c = max(float((x.cpu()[:, keep] - y[:, keep]).abs().max())
+              / float(y[:, keep].abs().max()) for x, y in ((e, Eb), (b, Bb)))
+    print(f"   float32 cached round trip, band max|Δ|/max: {e_c:.6e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(e_c <= 2e-2, "float32 cached spin round-trip band error ≤ 2e-2 "
+          "(the f64 Jacobi floor)")
+    del q, u, e, b
+    _clear_operators()
 
 
 def gaussianfg_phase(dev, reports, nside=512, nfreq=64):
@@ -936,21 +1291,23 @@ def gaussianfg_phase(dev, reports, nside=512, nfreq=64):
             catch_exceptions=False)
     total = time.perf_counter() - t0
     n = _counts()
-    launches = (n["scan_contract_f64"], n["wigner_contract_f64"])
+    launches = (n["legendre_contract_f64"], n["wigner_contract_f64"])
     st = dict(profiling.stage_times)
     profiling.enable(False)
     peak = torch.cuda.max_memory_allocated(dev)
     check(res.exit_code == 0, f"makesky gaussianfg exited 0 ({total:.1f} s)")
-    for key in ("cl_tables", "roots", "draw", "legendre", "ring", "pixel_gather"):
+    for key in ("cl_tables", "roots", "lambda_build", "draw", "legendre", "ring",
+                "pixel_gather"):
         print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s")
     print(f"   total gaussianfg {total:9.3f} s; peak device memory "
-          f"{peak / 2**30:.2f} GiB; scan_contract_f64 launches {launches[0]}, "
+          f"{peak / 2**30:.2f} GiB; legendre_contract_f64 launches {launches[0]}, "
           f"wigner_contract_f64 launches {launches[1]}")
-    reports["scan_contract_f64"]["launches"] = launches[0]
+    reports["legendre_contract_f64"]["launches"] = launches[0]
     reports["wigner_contract_f64"]["launches"] = launches[1]
     check(launches[0] > 0 and launches[1] > 0, "gaussianfg launched "
-          "scan_contract_f64 (T, V) and wigner_contract_f64 (Q, U)")
-    check(n["scan_contract"] == n["wigner_contract"] == 0,
+          "legendre_contract_f64 (T, V; cached Λ in float64) and "
+          "wigner_contract_f64 (Q, U)")
+    check(n["scan_contract"] == n["wigner_contract"] == n["legendre_contract"] == 0,
           "gaussianfg launched no float32 synthesis kernel")
     data = seen["data"]
     check(data.dtype == np.float64, "the polarised sky is float64, as the reference's")
@@ -973,12 +1330,13 @@ def pol_analysis_phase(dev, reports, data, freqs, chans=(0, 21, 42, 63)):
 
     from cora_tpu_torch.core import skysim
     from cora_tpu_torch.foreground import galaxy
-    from cora_tpu_torch.healpix import transforms
+    from cora_tpu_torch.healpix import sht, transforms
 
     nside = int(np.sqrt(data.shape[-1] / 12))
     lmax = 3 * nside - 1
     phase(f"11 polarised analysis: sphtrans_sky (float64, lmax={lmax}) of "
           f"channels {list(chans)}")
+    _clear_operators()
     maps = torch.from_numpy(data[list(chans)]).to(dev)
     _reset_counts()
     t0 = time.perf_counter()
@@ -990,12 +1348,32 @@ def pol_analysis_phase(dev, reports, data, freqs, chans=(0, 21, 42, 63)):
     check(alms.dtype == torch.complex128 and bool(torch.isfinite(alms).all()),
           "alms complex128, finite")
     for name, n in launches.items():
-        if name.endswith("_f64"):
+        if name in ("legendre_contract_f64", "wigner_contract_f64",
+                    "wigner_project_f64"):
             check(n > 0, f"the float64 path launched {name}")
         else:
-            check(n == 0, f"the float64 path launched no {name} (float32)")
-    for name in ("scan_project_f64", "wigner_project_f64"):
-        reports[name]["launches"] = launches[name]
+            check(n == 0, f"the float64 path launched no {name}")
+    reports["wigner_project_f64"]["launches"] = launches["wigner_project_f64"]
+
+    # the T analysis again in scan mode: the f64 K1 and K2
+    _clear_operators()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tlm = sht.map2alm(maps[:, 0], lmax, 3, device=dev, legendre_mode="scan")
+    torch.cuda.synchronize(dev)
+    n = _counts()
+    for name in ("scan_contract_f64", "scan_project_f64"):
+        reports[name]["launches"] = n[name]
+    gap = float((tlm - alms[:, 0]).abs().max() / alms[:, 0].abs().max())
+    print(f"   T map2alm(iter=3) in scan mode {time.perf_counter() - t0:.3f} s: "
+          f"scan_contract_f64 {n['scan_contract_f64']}, scan_project_f64 "
+          f"{n['scan_project_f64']} launches; vs the cached analysis max|Δ|/max "
+          f"{gap:.3e}")
+    check(n["scan_contract_f64"] > 0 and n["scan_project_f64"] > 0
+          and n["scan_contract"] == n["scan_project"] == 0,
+          "the float64 scan-mode analysis launched the f64 K1 and K2 only")
+    check(gap <= 1e-10, "float64 T alms, scan vs cached mode ≤ 1e-10·max")
+    del tlm
 
     fpol = galaxy.FullSkyPolarisedSynchrotron()
     cl_model = skysim.clarray(fpol.angular_powerspectrum, lmax, freqs)
@@ -1028,15 +1406,17 @@ def main():
     dev = device_phase()
     import torch
 
+    os.environ["CORA_TPU_TORCH_CACHE"] = ""  # no Λ disk cache: nothing survives a call
     build_phase()
     reports = kernel_phase(dev)
     kernel64_phase(dev, reports)
     wigner_phase(dev, reports)
+    legendre_phase(dev, reports)
     parity_phase(dev)
     sky, cl_diag = main_phase(dev, reports)
     analysis_phase(dev, reports, sky, cl_diag)
     del sky
-    roundtrip_phase(dev)
+    roundtrip_phase(dev, reports)
     cli_phase()
     spin_phase(dev, reports)
     data, freqs = gaussianfg_phase(dev, reports)
@@ -1045,7 +1425,8 @@ def main():
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",
-             "wigner_project", "wigner_project_f64")
+             "wigner_project", "wigner_project_f64", "legendre_contract",
+             "legendre_contract_f64")
     print(json.dumps({"kernels": [reports[n] for n in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,9 @@ tables (isolating the kernel and the ring stage from table construction).
     op.load_tables(sht_tables_from_numpy(d, op.device))
 
     spin_op.load_wigner_tables(wigner_tables_from_numpy(jax_spin_op._tab))
+
+    desc = op.lambda_desc()[0]                       # cached mode: Λ chunks
+    op.load_lambda(lambda_chunks_from_numpy(d["lam"], desc, op.nhalf))
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ def sht_tables_from_numpy(d: dict, device) -> dict:
 
     ``d`` is a numpy copy of a JAX operator's ``tables(False)`` (scan mode,
     ``ring_mode="split"``).  Entries the port does not read are dropped:
-    the TPU matmul-FFT tables, the cached-Λ chunks, and the ``psl_*``
+    the TPU matmul-FFT tables, the cached-Λ chunks (carried by
+    :func:`lambda_chunks_from_numpy`), and the ``psl_*``
     padded kernel tables (the port derives its kernel layout from the base
     tables).  Complex arrays stay complex.
     """
@@ -71,4 +75,30 @@ def wigner_tables_from_numpy(tab: dict) -> dict:
             raise ValueError(f"Wigner tables for spin {sp} have inconsistent "
                              "shapes")
         out[int(sp)] = (A, B, C, seed, l0)
+    return out
+
+
+def lambda_chunks_from_numpy(chunks, desc, nh: int) -> list:
+    """Λ chunks for :meth:`cora_tpu_torch.healpix.sht.SHT.load_lambda` (or,
+    per spin family, ``SpinSHT.load_lambda``) from a JAX operator's cached
+    tables (``tables()["lam"]``, or ``["sp"][str(sp)]``).
+
+    JAX chunks are [mw, n, nh] (m-major, rings minor), as the port's;
+    shapes are checked against the port's descriptor ``desc`` (``op.
+    lambda_desc()[0]``).  The spin chunks carry ``l_chunk`` rows even where
+    fewer remain below lmax: those rows are zero and are dropped.  Returned
+    as numpy copies [mw, nrows, nh] in the chunks' own dtype.
+    """
+    rows = np.asarray(desc).reshape(-1, 5)
+    chunks = [np.array(c) for c in chunks]
+    if len(chunks) != len(rows):
+        raise ValueError(f"{len(chunks)} Λ chunks, the port's layout has {len(rows)}")
+    out = []
+    for c, (_, nrows, mw, _, _) in zip(chunks, rows):
+        if c.ndim != 3 or c.shape[0] != mw or c.shape[2] != nh or c.shape[1] < nrows:
+            raise ValueError(f"Λ chunk of shape {c.shape}, expected "
+                             f"[{mw}, {nrows}, {nh}]")
+        if np.any(c[:, nrows:]):
+            raise ValueError("Λ chunk has non-zero rows beyond the port's chunk")
+        out.append(np.ascontiguousarray(c[:, :nrows]))
     return out

@@ -1,8 +1,22 @@
-"""Scan-mode spherical harmonic transforms on HEALPix grids.
+"""Spherical harmonic transforms on HEALPix grids (port of
+``cora_tpu/healpix/sht.py``), in its two Legendre modes.
 
-Port of the Λ-free, checkpointed "scan" mode of ``cora_tpu/healpix/sht.py``
-— the configuration whose Legendre stages are the fused recurrence
-kernels, K1 for synthesis and K2 for its adjoint (analysis):
+**Cached mode** (``legendre_mode="cached"``; :func:`get_sht`'s default on
+CUDA at nside ≤ 512, as the reference's on an accelerator): the
+associated-Legendre rows are stored once per operator as the parity-packed
+Λ chunks [mw, nrows, nh] of one flat allocation (5.23 GB in f32 at
+nside=512, lmax=1535).  They are built on the device from the scaled,
+checkpointed recurrence (``lambda_build="device"``, the scan mode's rows,
+exact f64 without checkpoints in float64) or by the host f64 recurrence
+(``"host"``, cast to ``cache_dtype``, cached on disk), at the first
+``tables()``.  Synthesis contracts them with kernel K4
+(:func:`cora_tpu_torch.ops.legendre.legendre_contract`), the adjoint with
+one ``torch.bmm`` per chunk; the correlated draw parity-packs each
+frequency chunk's a_lm planes and runs K4 once.
+
+**Scan mode** (``"scan"``; the default on the CPU and above nside=512): the
+Λ-free, checkpointed configuration whose Legendre stages are the fused
+recurrence kernels, K1 for synthesis and K2 for its adjoint (analysis):
 
 * **Host tables** (numpy float64, built once per operator): recurrence
   coefficients ``rec_a``/``rec_b``, the λ_mm seeds built in log space and
@@ -32,21 +46,26 @@ kernels, K1 for synthesis and K2 for its adjoint (analysis):
 
 Both precisions run on the card: complex64/float32 inputs take the f32
 tables and kernels, complex128/float64 inputs the f64 tables (no
-checkpoints, S=512, β=256) and the kernels' double instantiations.
+checkpoints, S=512, β=256; a host-built Λ cast to float64) and the
+kernels' double instantiations.
 
 The TPU-only knobs of the JAX operator (matmul FFTs, conv and precision
-modes, the cached-Λ mode, the banded cap) are not part of this port.
+modes, the banded cap) are not part of this port.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.scan_legendre import scale_for, scan_contract, scan_project
+from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
+                            legendre_contract, legendre_project, release)
+from ..ops.scan_legendre import (_lambda_blocks, scale_for, scan_contract,
+                                 scan_project)
 from ..util.profiling import stage
 from . import pixel
 
@@ -68,25 +87,36 @@ def _band_mw(L, lc, c_lo, nc):
 
 
 class SHT:
-    """Scan-mode transform operator (synthesis and analysis) for one
-    (nside, lmax) pair.
+    """Transform operator (synthesis and analysis) for one (nside, lmax)
+    pair.
 
     Parameters
     ----------
     nside, lmax : int
     l_chunk : int (even)
-        ℓ rows per draw chunk; with ``ckpt_every`` it sets the re-seed
-        cadence ``band_rows = l_chunk·ckpt_every``: the f32 recurrence is
-        re-seeded from exact f64 checkpoint rows at every band start
-        (bounds the error growth to O(band_rows·ε)).
+        ℓ rows per draw chunk (and per parity in a Λ chunk); with
+        ``ckpt_every`` it sets the re-seed cadence ``band_rows =
+        l_chunk·ckpt_every``: the f32 recurrence is re-seeded from exact
+        f64 checkpoint rows at every band start (bounds the error growth
+        to O(band_rows·ε)).
     ckpt_every : int
         Chunks per checkpoint band.
     device : str or torch.device
         Where the operator's tables live and its transforms run.
+    legendre_mode : {"scan", "cached"}
+        "scan": λ generated in the kernels (K1, K2); "cached": stored Λ
+        chunks contracted by K4 (see the module notes).
+    lambda_build : {"host", "device"}
+        Cached mode: the host f64 recurrence cast to ``cache_dtype`` (the
+        accuracy reference, disk-cached at ``lambda_cache``), or the scaled
+        checkpointed recurrence on the device (the scan-mode accuracy
+        class; exact f64 in float64).
     """
 
     def __init__(self, nside: int, lmax: int, l_chunk: int = 64,
-                 ckpt_every: int = 1, device="cuda"):
+                 ckpt_every: int = 1, device="cuda", legendre_mode="scan",
+                 lambda_build="host", cache_dtype=np.float32,
+                 lambda_cache: str | None = None):
         self.device = resolve_device(device)
         self.nside = int(nside)
         self.lmax = int(lmax)
@@ -96,6 +126,14 @@ class SHT:
             raise ValueError("l_chunk must be a positive even number")
         self.ckpt_every = max(1, int(ckpt_every))
         self.band_rows = self.l_chunk * self.ckpt_every
+        if legendre_mode not in ("scan", "cached"):
+            raise ValueError(f"unknown legendre_mode {legendre_mode!r}")
+        if lambda_build not in ("host", "device"):
+            raise ValueError(f"unknown lambda_build {lambda_build!r}")
+        self.legendre_mode = legendre_mode
+        self.lambda_build = lambda_build
+        self.cache_dtype = np.dtype(cache_dtype)
+        self.lambda_cache = lambda_cache
 
         info = pixel.ring_info(self.nside)
         nring = info["theta"].size
@@ -187,6 +225,8 @@ class SHT:
             raise ValueError("ring geometry is not N/S symmetric")
 
         self._ck = None
+        self._lam_meta = self._lambda_chunk_meta()
+        self._lam_host = None
         self._tables = {}
         self._pix_index = None
 
@@ -195,7 +235,8 @@ class SHT:
         """The f32 tables' checkpoint rows, built at first use (seconds of
         host recurrence at nside=512, which float64-only callers skip)."""
         if self._ck is None:
-            self._ck = self._build_scan_checkpoints()
+            with stage("checkpoints", self.device):
+                self._ck = self._build_scan_checkpoints()
         return self._ck
 
     # ------------------------------------------------------------------
@@ -246,19 +287,158 @@ class SHT:
             seeds = self._lam_sign * np.exp2(self._log2_lam_mm + S * k0)
         return seeds, k0
 
+    # --- the cached mode's Λ chunks ------------------------------------
+
+    def _lambda_chunk_meta(self):
+        """Parity-packed Λ chunk layout [(parity, sub_lo, nrows, mwidth)]:
+        the even-ℓ subsequence in chunks of ``l_chunk`` rows, then the odd
+        one; mwidth is the chunk's highest ℓ + 1 rounded up to 128 (λ ≡ 0
+        for m > ℓ).  A pure function of (lmax, l_chunk)."""
+        L = self.lmax + 1
+        lc = self.l_chunk
+        meta = []
+        for parity in (0, 1):
+            nsub = (L - parity + 1) // 2
+            for j in range(-(-nsub // lc)):
+                sub_lo = j * lc
+                nrows = min(lc, nsub - sub_lo)
+                lmax_chunk = parity + 2 * (sub_lo + nrows - 1)
+                mwidth = min(L, ((lmax_chunk + 1 + 127) // 128) * 128)
+                meta.append((parity, sub_lo, nrows, mwidth))
+        return meta
+
+    def lambda_desc(self):
+        """K4's chunk descriptor [nchunk, 5] (offset, nrows, mw, row0,
+        target) for the flat Λ and the total element count: rows are
+        parity-packed planes (evens then odds), the target is the parity."""
+        ne = (self.lmax + 2) // 2
+        return chunk_desc([(sub_lo + (ne if parity else 0), nrows, mw, parity)
+                           for parity, sub_lo, nrows, mw in self._lam_meta],
+                          self.nhalf)
+
+    def _build_lambda_cache(self):
+        """Host float64 recurrence → ``cache_dtype`` chunks [nrows, nh, mw]
+        in the parity-packed layout (the triangle updated in place)."""
+        L = self.lmax + 1
+        nh = self.nhalf
+        z = self._z_half
+        bufs = [np.zeros((nrows, nh, mw), dtype=self.cache_dtype)
+                for (_, _, nrows, mw) in self._lam_meta]
+        where = {}
+        for ci, (parity, sub_lo, nrows, _) in enumerate(self._lam_meta):
+            for i in range(nrows):
+                where[parity + 2 * (sub_lo + i)] = (ci, i)
+        lam_p = np.zeros((nh, L))
+        lam_pp = np.zeros((nh, L))
+        az = np.empty((nh, L))
+        with np.errstate(under="ignore"):
+            for ll in range(L):
+                sl = slice(0, ll + 1)
+                lam = lam_pp
+                np.multiply(z[:, None], lam_p[:, sl], out=az[:, sl])
+                az[:, sl] *= self._rec_a[ll, sl][None, :]
+                lam[:, sl] *= self._rec_b[ll, sl][None, :]
+                lam[:, sl] += az[:, sl]
+                lam[:, ll] = self._lam_mm[:, ll]
+                lam_pp = lam_p
+                lam_p = lam
+                ci, i = where[ll]
+                bufs[ci][i] = lam[:, :bufs[ci].shape[-1]]
+        return bufs
+
+    def _load_or_build_lambda(self):
+        """Host-built chunks, from the npz disk cache at ``lambda_cache``
+        when it holds this layout (nside, lmax, l_chunk, layout 2) and
+        dtype, else built and written there."""
+        path = self.lambda_cache
+        if not path:
+            return self._build_lambda_cache()
+        meta = np.array([self.nside, self.lmax, self.l_chunk, 2], dtype=np.int64)
+        if os.path.exists(path):
+            try:
+                d = np.load(path)
+                if (np.array_equal(d["meta"], meta)
+                        and str(d["dtype"]) == self.cache_dtype.name):
+                    return [d[f"lam{i}"] for i in range(int(d["n"]))]
+            except (OSError, KeyError, ValueError):
+                pass
+        lam = self._build_lambda_cache()
+        try:
+            np.savez(path, meta=meta, dtype=self.cache_dtype.name, n=len(lam),
+                     **{f"lam{i}": c for i, c in enumerate(lam)})
+        except OSError:
+            pass
+        return lam
+
+    def _build_lambda_device(self, double=False):
+        """Flat Λ on the device from the scaled, checkpointed recurrence of
+        the scan kernels (:func:`cora_tpu_torch.ops.scan_legendre.
+        _lambda_blocks`, K1's exact semantics; f64: no checkpoints, S=512,
+        β=256), each block of rows written into its parity chunks."""
+        desc, total = self.lambda_desc()
+        fdt = torch.float64 if double else torch.float32
+        lam = torch.zeros(total, dtype=fdt, device=self.device)
+        views = chunk_views(lam, desc, self.nhalf)
+        t = self._scan_layout(self._scan_base_tables(double), double)
+        for j0, le, lo in _lambda_blocks(*_kernel_tables(t), self.band_rows,
+                                         scale_for(fdt), fdt):
+            nj = le.shape[0]
+            for (p, sub_lo, nrows, mw), v in zip(self._lam_meta, views):
+                a, b = max(j0, sub_lo), min(j0 + nj, sub_lo + nrows)
+                if a < b:
+                    rows = (lo if p else le)[a - j0:b - j0, :mw]
+                    v[:, a - sub_lo:b - sub_lo] = rows.permute(1, 0, 2)
+        return lam
+
+    def load_lambda(self, chunks, double: bool = False):
+        """Install Λ chunks [mw, nrows, nh] (the reference's device layout,
+        e.g. :func:`cora_tpu_torch.convert.lambda_chunks_from_numpy`) as the
+        cached tables at the requested precision."""
+        if self.legendre_mode != "cached":
+            raise ValueError("load_lambda needs legendre_mode='cached'")
+        desc, total = self.lambda_desc()
+        fdt = torch.float64 if double else torch.float32
+        lam = flat_lambda(chunks, desc, total, self.nhalf, fdt, self.device)
+        t = dict(self.ring_tables(double), lam=lam, lam_desc=desc)
+        self._tables[bool(double)] = t
+        release(self, bool(double))
+        return t
+
+    def _cached_tables(self, double):
+        with stage("lambda_build", self.device):
+            if self.lambda_build == "device":
+                lam = self._build_lambda_device(double)
+                return dict(self.ring_tables(double), lam=lam,
+                            lam_desc=self.lambda_desc()[0])
+            if self._lam_host is None:
+                self._lam_host = self._load_or_build_lambda()
+            return self.load_lambda([c.transpose(2, 0, 1) for c in self._lam_host],
+                                    double)
+
     def tables(self, double: bool = False):
         """Device tables at the requested precision (cached per operator).
 
-        Keys mirror the JAX operator's ``tables()``: recurrence rows
-        ``rec_a``/``rec_b``, seeds ``lam_mm``/``lam_k0`` (scaled for the
+        Cached mode: the ring tables, the flat Λ ``lam`` and its descriptor
+        ``lam_desc`` (:meth:`lambda_desc`), built here at the first call.
+        Scan mode, keys mirroring the JAX operator's ``tables()``: recurrence
+        rows ``rec_a``/``rec_b``, seeds ``lam_mm``/``lam_k0`` (scaled for the
         recurrence at this precision), ``z_half``, checkpoints ``lam_ck``
         (f32 only: re-seeding an f64 recurrence from f32-cast rows would
         cost it its precision), and the ring tables; plus the derived
         kernel layout (``psl_*``).
         """
         key = bool(double)
-        if key in self._tables:
-            return self._tables[key]
+        if key not in self._tables:
+            if self.legendre_mode == "cached":
+                t = self._tables[key] = self._cached_tables(double)
+                hold(self, key, t["lam"].numel() * t["lam"].element_size())
+            else:
+                self.load_tables(self._scan_base_tables(double), double)
+        else:
+            hold(self, key)
+        return self._tables[key]
+
+    def _scan_base_tables(self, double):
         fdt = np.float64 if double else np.float32
         seeds, k0 = self._scaled_seeds(double)
         t = dict(
@@ -273,7 +453,7 @@ class SHT:
         t = {k_: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
              for k_, v in t.items()}
         t.update(self.ring_tables(double))
-        return self.load_tables(t, double)
+        return t
 
     def ring_tables(self, double: bool = False):
         """The ring stage's tables alone (``eq_phase``, ``eq_twid``,
@@ -298,6 +478,12 @@ class SHT:
         whole ℓ-chunks (Lk = nchunk·l_chunk); ``psl_seed``/``psl_k0`` [L, nh]
         and ``psl_ck`` [nband, 2, L, nh]: m-leading transposes.
         """
+        t = self._scan_layout(t, double)
+        self._tables[bool(double)] = t
+        return t
+
+    def _scan_layout(self, t, double):
+        """``t`` with the scan kernels' layout (``psl_*``) derived."""
         L = self.lmax + 1
         lc = self.l_chunk
         Lk = -(-L // lc) * lc
@@ -315,7 +501,6 @@ class SHT:
             t["psl_ck"] = ck.to(fdt).permute(0, 1, 3, 2).contiguous()
         else:
             t["psl_ck"] = torch.zeros((1, 2, 1, 1), dtype=fdt, device=self.device)
-        self._tables[bool(double)] = t
         return t
 
     # ------------------------------------------------------------------
@@ -386,58 +571,105 @@ class SHT:
     def _legendre_contract(self, alm):
         alm = torch.as_tensor(alm, device=self.device)
         t = self.tables(alm.dtype == torch.complex128)
-        return _unfold_rows(self, *fused_GeGo(self, t, alm))
+        return _unfold_rows(self, *_GeGo(self, t, alm))
 
     def _legendre_project(self, G):
         G = torch.as_tensor(G, device=self.device)
         t = self.tables(G.dtype == torch.complex128)
-        return fused_project(self, t, *_fold_rows(self, G))
+        return _project(self, t, *_fold_rows(self, G))
+
+
+def default_legendre_mode(device_type: str, nside: int) -> str:
+    """The reference factory's rule: the cached-Λ mode on an accelerator
+    (here CUDA) up to nside=512, where its table fits the card; the Λ-free
+    scan mode on the CPU and above 512."""
+    return "cached" if device_type == "cuda" and int(nside) <= 512 else "scan"
+
+
+def _user_cache_dir():
+    """Disk cache for host-built Λ chunks: $CORA_TPU_TORCH_CACHE,
+    ~/.cache/cora_tpu_torch, or None ("" or an unwritable directory): the
+    chunks are pure functions of (nside, lmax, l_chunk, dtype)."""
+    d = os.environ.get("CORA_TPU_TORCH_CACHE")
+    if d == "":
+        return None
+    if d is None:
+        d = os.path.join(os.path.expanduser("~"), ".cache", "cora_tpu_torch")
+    try:
+        os.makedirs(d, exist_ok=True)
+        return d
+    except OSError:
+        return None
 
 
 @lru_cache(maxsize=8)
-def _get_sht_cached(nside, lmax, l_chunk, device):
+def _get_sht_cached(nside, lmax, l_chunk, legendre_mode, lambda_build, device):
     ke = max(1, (nside // 512) ** 2)
-    return SHT(nside, lmax, l_chunk=l_chunk, ckpt_every=ke, device=device)
+    cache = None
+    if legendre_mode == "cached" and lambda_build == "host":
+        cdir = _user_cache_dir()
+        cache = cdir and os.path.join(cdir, f"lam_{nside}_{lmax}_{l_chunk}.npz")
+    return SHT(nside, lmax, l_chunk=l_chunk, ckpt_every=ke, device=device,
+               legendre_mode=legendre_mode, lambda_build=lambda_build,
+               lambda_cache=cache)
 
 
-def get_sht(nside: int, lmax: int, l_chunk: int = 64, device="cuda") -> SHT:
-    """Cached operator with the JAX factory's scan-mode defaults:
-    checkpoints on (the only mode here), ``ckpt_every = max(1,
-    (nside // 512)²)``."""
-    return _get_sht_cached(int(nside), int(lmax), int(l_chunk),
-                           str(resolve_device(device)))
+def get_sht(nside: int, lmax: int, l_chunk: int = 64, legendre_mode=None,
+            lambda_build=None, device="cuda") -> SHT:
+    """Cached operator with the JAX factory's defaults: the mode of
+    :func:`default_legendre_mode` (cached on CUDA at nside ≤ 512, scan
+    otherwise), a device-built Λ on CUDA and a host-built one (disk-cached,
+    :func:`_user_cache_dir`) on the CPU, and ``ckpt_every = max(1,
+    (nside // 512)²)``.  ``legendre_mode="scan"`` forces the scan kernels.
+
+    A cached-mode operator holds its Λ per precision in use: at nside=512,
+    lmax=1535, 5.2 GB in float32 and 10.5 GB in float64.  The Λ tables of
+    all operators on one device are kept within
+    :data:`cora_tpu_torch.ops.legendre.LAMBDA_BUDGET` (24 GB): past it the
+    least recently used are dropped and rebuilt when next used."""
+    dev = resolve_device(device)
+    if legendre_mode is None:
+        legendre_mode = default_legendre_mode(dev.type, nside)
+    if lambda_build is None:
+        lambda_build = "device" if dev.type == "cuda" else "host"
+    return _get_sht_cached(int(nside), int(lmax), int(l_chunk), legendre_mode,
+                           lambda_build, str(dev))
 
 
-def alm2map(alm, nside: int, device="cuda"):
+def alm2map(alm, nside: int, device="cuda", legendre_mode=None):
     """Synthesis of a dense alm[..., l, m] array onto a HEALPix map."""
     alm = torch.as_tensor(alm)
-    return get_sht(nside, alm.shape[-2] - 1, device=device).synthesis(alm)
+    return get_sht(nside, alm.shape[-2] - 1, legendre_mode=legendre_mode,
+                   device=device).synthesis(alm)
 
 
 def map2alm(fmap, lmax: int | None = None, iter: int = 3,
             method: str = "jacobi", solve_lmax: int | None = None,
-            device="cuda"):
+            device="cuda", legendre_mode=None):
     """Analysis of a HEALPix map [..., npix] into dense alm[..., l, m].
 
     ``method`` as :meth:`SHT.analysis`.  ``solve_lmax`` (recommended
     2·nside) is the two-stage banded solve: the band ℓ ≤ solve_lmax by CG
     on its own well-conditioned system, the rows above it completed by one
     quadrature projection of the residual at full lmax (the grid fixes
-    alm uniquely only to ℓ ≲ 2·nside).
+    alm uniquely only to ℓ ≲ 2·nside).  ``legendre_mode`` as
+    :func:`get_sht`.
     """
     fmap = torch.as_tensor(fmap)
     nside = pixel.npix2nside(fmap.shape[-1])
     if lmax is None:
         lmax = 3 * nside - 1
+    op = get_sht(nside, lmax, legendre_mode=legendre_mode, device=device)
     if solve_lmax is None or solve_lmax >= lmax:
-        return get_sht(nside, lmax, device=device).analysis(fmap, iter, method)
+        return op.analysis(fmap, iter, method)
 
-    op_b = get_sht(nside, int(solve_lmax), device=device)
+    op_b = get_sht(nside, int(solve_lmax), legendre_mode=legendre_mode,
+                   device=device)
     fmap = fmap.to(op_b.device)
     alm_b = op_b.analysis(fmap, iter, method="cg")
     resid = fmap - op_b.synthesis(alm_b)
     # corner completion: plain quadrature projection of the residual
-    alm_f = get_sht(nside, lmax, device=device).analysis(resid, 0)
+    alm_f = op.analysis(resid, 0)
     pad = lmax - int(solve_lmax)
     out = torch.nn.functional.pad(alm_b, (0, pad, 0, pad))
     keep = torch.arange(lmax + 1, device=out.device)[:, None] > solve_lmax
@@ -446,16 +678,16 @@ def map2alm(fmap, lmax: int | None = None, iter: int = 3,
 
 def anafast(map1, map2=None, lmax: int | None = None, iter: int = 3,
             method: str = "jacobi", solve_lmax: int | None = None,
-            device="cuda"):
+            device="cuda", legendre_mode=None):
     """Angular power spectrum C_ℓ [..., lmax+1] of one map, or the cross
     spectrum of two."""
     map1 = torch.as_tensor(map1)
     nside = pixel.npix2nside(map1.shape[-1])
     if lmax is None:
         lmax = 3 * nside - 1
-    alm1 = map2alm(map1, lmax, iter, method, solve_lmax, device)
+    alm1 = map2alm(map1, lmax, iter, method, solve_lmax, device, legendre_mode)
     alm2 = alm1 if map2 is None else map2alm(map2, lmax, iter, method,
-                                             solve_lmax, device)
+                                             solve_lmax, device, legendre_mode)
     prod = alm1 * alm2.conj()
     s = prod[..., 0].real + 2 * prod[..., 1:].sum(dim=-1).real
     return s / (2.0 * torch.arange(lmax + 1, device=s.device) + 1.0)
@@ -563,19 +795,13 @@ def fused_GeGo(op, t, alm):
     ``cora_tpu.ops.pallas_scan_legendre.fused_GeGo``.
     """
     L = op.lmax + 1
-    nh = op.nhalf
-    rdt = t["psl_rec_a"].dtype
     Lk = t["psl_rec_a"].shape[0]
     batch = tuple(alm.shape[:-2])
-    B = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a = alm.reshape(B, L, L)
-    planes = torch.cat([a.real, a.imag], dim=0).to(rdt)
+    planes = _planes(alm, t["psl_rec_a"].dtype)
     planes = torch.nn.functional.pad(planes, (0, 0, 0, Lk - L))
     He, Ho = _contract(op, t, planes[:, 0::2].contiguous(),
                        planes[:, 1::2].contiguous())
-    H0c = torch.complex(He[:B], He[B:]).reshape(batch + (nh, L))
-    H1c = torch.complex(Ho[:B], Ho[B:]).reshape(batch + (nh, L))
-    return _route(H0c, H1c, L)
+    return _route(_join(He, batch), _join(Ho, batch), L)
 
 
 def fused_project(op, t, Ge, Go):
@@ -588,21 +814,68 @@ def fused_project(op, t, Ge, Go):
     plane axis as ``[all real; all imag]``.
     """
     L = op.lmax + 1
-    nh = op.nhalf
     rdt = t["psl_rec_a"].dtype
     batch = tuple(Ge.shape[:-2])
-    B = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    Ge = Ge.reshape(B, nh, L)
-    Go = Go.reshape(B, nh, L)
-    ge = torch.cat([Ge.real, Ge.imag], dim=0).to(rdt)
-    go = torch.cat([Go.real, Go.imag], dim=0).to(rdt)
-    src0, src1 = _route(ge, go, L)
+    src0, src1 = _route(_planes(Ge, rdt), _planes(Go, rdt), L)
     A0, A1 = scan_project(*_kernel_tables(t), src0.contiguous(),
                           src1.contiguous(), band_rows=op.band_rows,
                           scale=scale_for(rdt))
     # interleave the even/odd ℓ rows, trim the padded rows
-    alm = torch.stack([A0, A1], dim=2).reshape(2 * B, -1, L)[:, :L]
-    return torch.complex(alm[:B], alm[B:]).reshape(batch + (L, L))
+    alm = torch.stack([A0, A1], dim=2).reshape(A0.shape[0], -1, L)[:, :L]
+    return _join(alm, batch)
+
+
+def _planes(x, dt):
+    """Complex [..., n, L] → real planes [2B, n, L] ([all re; all im])."""
+    x = x.reshape((-1,) + tuple(x.shape[-2:]))
+    return torch.cat([x.real, x.imag], dim=0).to(dt)
+
+
+def _join(H, batch):
+    """Real planes [2B, n, L] → complex [*batch, n, L]."""
+    B = H.shape[0] // 2
+    return torch.complex(H[:B], H[B:]).reshape(batch + tuple(H.shape[1:]))
+
+
+def cached_GeGo(op, t, alm):
+    """Even/odd ring spectra (Ge, Go) [..., nh, L] from a batched alm in the
+    cached mode (the reference's ``_legendre_contract_cached``): the planes'
+    rows parity-packed (evens then odds) and contracted by K4 with the Λ
+    chunks into the per-ℓ-parity accumulators, then routed by m parity."""
+    L = op.lmax + 1
+    batch = tuple(alm.shape[:-2])
+    a = _planes(alm, t["lam"].dtype)
+    A = torch.cat([a[:, 0::2], a[:, 1::2]], dim=1).contiguous()
+    H0 = a.new_zeros((a.shape[0], op.nhalf, L))
+    H1 = torch.zeros_like(H0)
+    legendre_contract(t["lam"], t["lam_desc"], A, H0, H1)
+    return _route(_join(H0, batch), _join(H1, batch), L)
+
+
+def cached_project(op, t, Ge, Go):
+    """alm [..., L, L] from even/odd ring spectra, the adjoint of
+    :func:`cached_GeGo` (the reference's ``_legendre_project_cached``): even-ℓ
+    rows project the m-parity mix ``src0`` of (Ge, Go), odd-ℓ rows ``src1``
+    (:func:`_route`), one ``torch.bmm`` per Λ chunk; rows interleaved back."""
+    L = op.lmax + 1
+    ne = (L + 1) // 2
+    batch = tuple(Ge.shape[:-2])
+    dt = t["lam"].dtype
+    src0, src1 = _route(_planes(Ge, dt), _planes(Go, dt), L)
+    ap = legendre_project(t["lam"], t["lam_desc"], src0, src1, LA=L)
+    a = torch.empty_like(ap)
+    a[:, 0::2] = ap[:, :ne]
+    a[:, 1::2] = ap[:, ne:]
+    return _join(a, batch)
+
+
+def _GeGo(op, t, alm):
+    """(Ge, Go) through the operator's mode: cached tables carry ``lam``."""
+    return (cached_GeGo if "lam" in t else fused_GeGo)(op, t, alm)
+
+
+def _project(op, t, Ge, Go):
+    return (cached_project if "lam" in t else fused_project)(op, t, Ge, Go)
 
 
 def _fold_rows(op, x):
@@ -674,44 +947,86 @@ def _fused_scan_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
     """
     L = op.lmax + 1
     lc = op.l_chunk
-    g = op.ckpt_every
-    nh = op.nhalf
     Lk = t["psl_rec_a"].shape[0]
-    nchunk = Lk // lc
     F2 = 2 * nz_chunk
     dev = op.device
-    if roots.shape[0] < Lk:
-        roots = torch.nn.functional.pad(roots, (0, 0, 0, 0, 0, Lk - roots.shape[0]))
-
     A0 = torch.zeros((F2, Lk // 2, L), dtype=torch.float32, device=dev)
     A1 = torch.zeros_like(A0)
     with stage("draw", dev):
-        for b in range(-(-nchunk // g)):
-            c_lo = b * g
-            nc = min(g, nchunk - c_lo)
-            mw = _band_mw(L, lc, c_lo, nc)
-            for c in range(c_lo, c_lo + nc):
-                xi = xi_chunk(c, lc, mw, dev) * _XI_HALF
-                rblk = roots[c * lc:(c + 1) * lc, z_lo:z_lo + nz_chunk]
-                blk = torch.einsum("lzy,lypm->zplm", rblk, xi).reshape(F2, lc, mw)
-                j0 = c * (lc // 2)
-                A0[:, j0:j0 + lc // 2, :mw] = blk[:, 0::2]
-                A1[:, j0:j0 + lc // 2, :mw] = blk[:, 1::2]
+        for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
+            j0 = c * (lc // 2)
+            A0[:, j0:j0 + lc // 2, :mw] = blk[:, 0::2]
+            A1[:, j0:j0 + lc // 2, :mw] = blk[:, 1::2]
 
     with stage("legendre", dev):
         He, Ho = _contract(op, t, A0, A1)
+    return _route(_join_freq(He, nz_chunk), _join_freq(Ho, nz_chunk), L)
 
-    def join(H):  # [F2, nh, L] kernel layout → complex [nz_chunk, nh, L]
-        Hf = H[:, :nh, :L].reshape(nz_chunk, 2, nh, L)
-        return torch.complex(Hf[:, 0], Hf[:, 1])
 
-    return _route(join(He), join(Ho), L)
+def _join_freq(H, nz_chunk):
+    """[F2, nh, L] planes, frequency-major with re/im minor → complex
+    [nz_chunk, nh, L]."""
+    Hf = H.reshape((nz_chunk, 2) + tuple(H.shape[1:]))
+    return torch.complex(Hf[:, 0], Hf[:, 1])
+
+
+def _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
+    """The correlated draw of one frequency chunk, per consecutive ℓ-chunk:
+    yields (c, mw, planes [F2, l_chunk, mw]) with F2 = 2·nz_chunk planes
+    frequency-major, re/im minor.  ξ [l_chunk, nz, 2, mw] at 1/√2 per plane
+    is drawn over the chunk's band m-width (the same in both modes, so one
+    generator state gives one cube) and contracted with the chunk's roots
+    rows, ``einsum("lzy,lypm->zplm")``."""
+    L = op.lmax + 1
+    lc = op.l_chunk
+    g = op.ckpt_every
+    nchunk = -(-L // lc)
+    F2 = 2 * nz_chunk
+    if roots.shape[0] < nchunk * lc:
+        roots = torch.nn.functional.pad(
+            roots, (0, 0, 0, 0, 0, nchunk * lc - roots.shape[0]))
+    for b in range(-(-nchunk // g)):
+        c_lo = b * g
+        nc = min(g, nchunk - c_lo)
+        mw = _band_mw(L, lc, c_lo, nc)
+        for c in range(c_lo, c_lo + nc):
+            xi = xi_chunk(c, lc, mw, op.device) * _XI_HALF
+            rblk = roots[c * lc:(c + 1) * lc, z_lo:z_lo + nz_chunk]
+            yield c, mw, torch.einsum("lzy,lypm->zplm", rblk, xi).reshape(F2, lc, mw)
+
+
+def _cached_correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
+    """Cached-mode twin of :func:`_fused_scan_GeGo` (the reference's
+    ``_correlated_GeGo``): the same draw (:func:`_draw_blocks`) written into
+    parity-packed a_lm planes [F2, L, L] — a parity chunk gathers rows p::2
+    of two consecutive ℓ-chunks — and one K4 launch into the per-parity
+    accumulators."""
+    L = op.lmax + 1
+    lc = op.l_chunk
+    ne = (L + 1) // 2
+    F2 = 2 * nz_chunk
+    dev = op.device
+    A = torch.zeros((F2, L, L), dtype=torch.float32, device=dev)
+    with stage("draw", dev):
+        for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
+            n = min(lc, L - c * lc)
+            j0 = c * lc // 2
+            ev, od = blk[:, 0:n:2], blk[:, 1:n:2]
+            A[:, j0:j0 + ev.shape[1], :mw] = ev
+            A[:, ne + j0:ne + j0 + od.shape[1], :mw] = od
+
+    H0 = torch.zeros((F2, op.nhalf, L), dtype=torch.float32, device=dev)
+    H1 = torch.zeros_like(H0)
+    with stage("legendre", dev):
+        legendre_contract(t["lam"], t["lam_desc"], A, H0, H1)
+    return _route(_join_freq(H0, nz_chunk), _join_freq(H1, nz_chunk), L)
 
 
 def synthesis_grid_correlated(op, t, roots, xi_chunk, z_lo, nz_chunk):
     """Correlated draw + synthesis of frequencies [z_lo, z_lo+nz_chunk)
-    onto the ring grid [nz_chunk, nring, nq_max]."""
-    Ge, Go = _fused_scan_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk)
+    onto the ring grid [nz_chunk, nring, nq_max], in the operator's mode."""
+    fn = _cached_correlated_GeGo if "lam" in t else _fused_scan_GeGo
+    Ge, Go = fn(op, t, roots, xi_chunk, z_lo, nz_chunk)
     with stage("ring", op.device):
         return rings_to_grid_parity(op, t, Ge, Go)
 
@@ -915,7 +1230,7 @@ def grid_to_rings_complex(op, t, fgrid):
 
 def _synthesis_grid(op, t, alm):
     with stage("legendre", op.device):
-        Ge, Go = fused_GeGo(op, t, alm)
+        Ge, Go = _GeGo(op, t, alm)
     with stage("ring", op.device):
         return rings_to_grid_parity(op, t, Ge, Go)
 
@@ -926,7 +1241,7 @@ def _analysis_once_grid(op, t, fgrid):
         Ge, Go = grid_to_rings_parity(op, t, fgrid)
         w = 4.0 * np.pi / op.npix
     with stage("projection", op.device):
-        return fused_project(op, t, Ge * w, Go * w)
+        return _project(op, t, Ge * w, Go * w)
 
 
 def _analysis_grid(op, t, fgrid, iter):

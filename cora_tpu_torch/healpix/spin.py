@@ -1,5 +1,5 @@
 """Spin-weighted spherical harmonic transforms (port of
-``cora_tpu/healpix/spin.py``, scan mode).
+``cora_tpu/healpix/spin.py``, scan and cached modes).
 
 Convention (CMB standard, as healpy's):
 
@@ -17,8 +17,20 @@ the northern rings are ever contracted.
 
 The tables are host float64 (as the reference builds them), cast to the
 transform's precision on the device: complex64 alms run the float32
-kernels, complex128 the float64 ones.  The cached-Λ mode of the reference
-is not part of this port.
+kernels, complex128 the float64 ones.
+
+``legendre_mode="cached"`` (the reference's cached spin mode; the default
+stays "scan", as the reference's) stores both families' rows instead: the
+reference's f64 recurrence with the (−1)^m·√((2ℓ+1)/4π) factors applied
+(the same operations, bit for bit, run by torch on the operator's
+device), cast to float32 in consecutive-ℓ chunks [mw, nrows, nh] of one
+flat allocation per family, built on the operator's device at the first
+``tables()`` of each precision (10.5 GB for both families in float32 at
+nside=512, lmax=1535; within the budget of
+:func:`cora_tpu_torch.ops.legendre.hold`).  Synthesis contracts them
+with kernel K4 (:func:`cora_tpu_torch.ops.legendre.legendre_contract`, one
+target), the adjoint with one ``torch.bmm`` per chunk.  The f32 rows are
+cast from f64, so no seed below float32's range is lost on the way.
 """
 
 from __future__ import annotations
@@ -29,6 +41,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
+                            legendre_contract, legendre_project, release)
 from ..ops.wigner import wigner_contract, wigner_project
 from ..util.profiling import stage
 from . import pixel
@@ -107,15 +121,22 @@ class SpinSHT:
     and the cached scalar operator of the same (nside, lmax)
     (:func:`~cora_tpu_torch.healpix.sht.get_sht`) for the ring geometry;
     only its ring tables are taken, so no Legendre table or checkpoint
-    row is built for a spin transform.
+    row is built for a spin transform.  ``legendre_mode="cached"`` stores
+    the rows of both families (see the module notes) in chunks of
+    ``l_chunk`` rows.
     """
 
-    def __init__(self, nside: int, lmax: int, spin: int = 2, device="cuda"):
+    def __init__(self, nside: int, lmax: int, spin: int = 2, device="cuda",
+                 legendre_mode: str = "scan", l_chunk: int = 64):
         self.device = resolve_device(device)
         self.nside = int(nside)
         self.lmax = int(lmax)
         self.spin = int(spin)
-        self.scalar = get_sht(self.nside, self.lmax, device=self.device)
+        if legendre_mode not in ("scan", "cached"):
+            raise ValueError(f"unknown legendre_mode {legendre_mode!r}")
+        self.legendre_mode = legendre_mode
+        self.scalar = get_sht(self.nside, self.lmax, l_chunk, device=self.device)
+        self.l_chunk = self.scalar.l_chunk
         L = self.lmax + 1
         nh = 2 * self.nside
         theta_h = pixel.ring_info(self.nside)["theta"][:nh]
@@ -139,21 +160,108 @@ class SpinSHT:
     def load_wigner_tables(self, tab):
         """Install host Wigner tables ``{sp: (A, B, C, seed, l0)}`` (float64
         numpy, the reference's ``SpinSHT._tab`` layout) and drop the device
-        copies made from the previous ones."""
+        copies and Λ chunks made from the previous ones."""
         self._tab = dict(tab)
         self._tables = {}
 
+    # --- the cached mode's Λ chunks ------------------------------------
+
+    def _lambda_chunk_meta(self):
+        """Consecutive-ℓ chunks [(l_lo, nrows, mw)] of ``l_chunk`` rows; mw
+        is the chunk's highest ℓ + 1 rounded up to 128 (the reference's)."""
+        L = self.lmax + 1
+        lc = self.l_chunk
+        return [(l_lo, min(lc, L - l_lo),
+                 min(L, ((min(L, l_lo + lc) + 127) // 128) * 128))
+                for l_lo in range(0, L, lc)]
+
+    def lambda_desc(self):
+        """K4's descriptor [nchunk, 5] (offset, nrows, mw, row0, target 0)
+        of one family's flat Λ, and its element count."""
+        return chunk_desc([(l_lo, nrows, mw, 0)
+                           for l_lo, nrows, mw in self._lambda_chunk_meta()],
+                          2 * self.nside)
+
+    def _build_spin_lambda(self, sp):
+        """Family ``sp``'s flat float32 Λ (consecutive-ℓ chunks [mw, nrows,
+        nh], :meth:`lambda_desc`) from the f64 recurrence with the
+        (−1)^m·√((2ℓ+1)/4π) factors applied: the reference's host
+        ``_build_spin_lambda`` bit for bit (the same correctly rounded f64
+        operations, run by torch on the operator's device), on the triangle
+        m ≤ ℓ only (columns m > ℓ are zero).  Row ℓ is zero below
+        ℓ0 = max(m, |s|), i.e. whole for ℓ < |s|, and seeded where ℓ0 = ℓ:
+        column m = ℓ, or every m ≤ |s| at ℓ = |s|."""
+        L = self.lmax + 1
+        nh = 2 * self.nside
+        dev = self.device
+        f64 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64)).to(dev)
+        A, B, C, seed, l0 = self._tab[sp]
+        A, B, C, seed = f64(A), f64(B), f64(C), f64(seed)
+        l0 = np.asarray(l0)
+        z = f64(self._z_half)[:, None]
+        norm = np.sqrt((2 * np.arange(L) + 1) / (4 * np.pi))
+        sign = f64(np.where(np.arange(L) % 2 == 0, 1.0, -1.0))
+        desc, total = self.lambda_desc()
+        lam_flat = torch.zeros(total, dtype=torch.float32, device=dev)
+        views = chunk_views(lam_flat, desc, nh)
+        lam_p = torch.zeros((nh, L), dtype=torch.float64, device=dev)
+        lam_pp = torch.zeros_like(lam_p)
+        for l in range(L):
+            sl = slice(0, l + 1)
+            lam = A[l, sl][None, :] * (z - B[l, sl][None, :]) * lam_p[:, sl]
+            lam += C[l, sl][None, :] * lam_pp[:, sl]
+            if l < abs(sp):
+                lam.zero_()
+            else:
+                cols = np.flatnonzero(l0[sl] == l)
+                lam[:, cols] = seed[:, cols]
+            lam_pp[:, sl] = lam  # recycle the oldest row (zero beyond ℓ)
+            lam_pp, lam_p = lam_p, lam_pp
+            v = views[l // self.l_chunk]
+            mw = min(v.shape[0], l + 1)
+            v[:mw, l % self.l_chunk] = ((lam[:, :mw] * float(norm[l]))
+                                        * sign[None, :mw]).T.float()
+        return lam_flat
+
+    def load_lambda(self, chunks, double: bool = False):
+        """Install both families' Λ chunks ``{sp: [[mw, nrows, nh], ...]}``
+        (the reference's device layout, rows trimmed to the port's chunks:
+        :func:`cora_tpu_torch.convert.lambda_chunks_from_numpy`) as the
+        cached tables at the requested precision."""
+        if self.legendre_mode != "cached":
+            raise ValueError("load_lambda needs legendre_mode='cached'")
+        desc, total = self.lambda_desc()
+        fdt = torch.float64 if double else torch.float32
+        self._tables[bool(double)] = {
+            "sc": self.scalar.ring_tables(double),
+            "sp": {sp: (flat_lambda(chunks[sp], desc, total, 2 * self.nside, fdt,
+                                    self.device), desc)
+                   for sp in (self.spin, -self.spin)}}
+        release(self, bool(double))
+        return self._tables[bool(double)]
+
     def tables(self, double: bool = False):
         """Device tables at the requested precision (cached): the scalar
-        operator's ring tables (``SHT.ring_tables``) under ``"sc"``, and
-        per spin family ``sp`` the kernel's (coefs [3, L, M], seed_T [M, R],
-        l0 [M] int32, z [R]).
+        operator's ring tables (``SHT.ring_tables``) under ``"sc"``; in scan
+        mode, per spin family ``sp`` the kernel's (coefs [3, L, M], seed_T
+        [M, R], l0 [M] int32, z [R]); in cached mode, under ``"sp"``, per
+        family the flat Λ and its descriptor.
 
         The float32 seeds are the host float64 seeds cast to float32, as the
         reference builds its kernel tables (subnormal seeds included).
         """
         key = bool(double)
-        if key not in self._tables:
+        if key in self._tables:
+            hold(self, key)
+        elif self.legendre_mode == "cached":
+            fdt = torch.float64 if double else torch.float32
+            desc = self.lambda_desc()[0]
+            with stage("lambda_build", self.device):
+                sp_t = {sp: (self._build_spin_lambda(sp).to(fdt), desc)
+                        for sp in (self.spin, -self.spin)}
+            self._tables[key] = {"sc": self.scalar.ring_tables(double), "sp": sp_t}
+            hold(self, key, sum(x.numel() * x.element_size() for x, _ in sp_t.values()))
+        else:
             fdt = np.float64 if double else np.float32
             t = {"sc": self.scalar.ring_tables(double)}
             for sp, (A, B, C, seed, l0) in self._tab.items():
@@ -170,23 +278,36 @@ class SpinSHT:
 
     def _contract2(self, t, sp, alm_a, alm_b):
         """(Σ_l alm_a·λ^{sp}, Σ_l alm_b·λ^{sp}) on the northern rings
-        [B, nh, L] (complex), both batches in one K3 launch."""
+        [B, nh, L] (complex), both batches in one K3 launch (scan mode) or
+        one K4 launch (cached mode)."""
         B = alm_a.shape[0]
         a = torch.cat([alm_a, alm_b])
-        coefs = t[sp][0]
-        x = torch.cat([a.real, a.imag]).to(coefs.dtype).contiguous()
-        g = wigner_contract(*t[sp], x)
+        if "sp" in t:
+            lam, desc = t["sp"][sp]
+            x = torch.cat([a.real, a.imag]).to(lam.dtype).contiguous()
+            g = x.new_zeros((x.shape[0], 2 * self.nside, x.shape[2]))
+            legendre_contract(lam, desc, x, g)
+        else:
+            coefs = t[sp][0]
+            x = torch.cat([a.real, a.imag]).to(coefs.dtype).contiguous()
+            g = wigner_contract(*t[sp], x)
         G = torch.complex(g[:2 * B], g[2 * B:])
         return G[:B], G[B:]
 
     def _project2(self, t, sp, G_a, G_b):
         """The adjoint of :meth:`_contract2`: alms [B, L, L] (complex) from
-        ring spectra [B, nh, L] of both batches, one K3 launch."""
+        ring spectra [B, nh, L] of both batches, one K3 launch (scan mode)
+        or one ``torch.bmm`` per Λ chunk (cached mode)."""
         B = G_a.shape[0]
         G = torch.cat([G_a, G_b])
-        coefs = t[sp][0]
-        x = torch.cat([G.real, G.imag]).to(coefs.dtype).contiguous()
-        a = wigner_project(*t[sp], x)
+        if "sp" in t:
+            lam, desc = t["sp"][sp]
+            x = torch.cat([G.real, G.imag]).to(lam.dtype)
+            a = legendre_project(lam, desc, x, LA=self.lmax + 1)
+        else:
+            coefs = t[sp][0]
+            x = torch.cat([G.real, G.imag]).to(coefs.dtype).contiguous()
+            a = wigner_project(*t[sp], x)
         A = torch.complex(a[:2 * B], a[2 * B:])
         return A[:B], A[B:]
 
@@ -288,26 +409,31 @@ class SpinSHT:
 
 
 @lru_cache(maxsize=4)
-def _get_spin_sht_cached(nside, lmax, spin, device):
-    return SpinSHT(nside, lmax, spin, device=device)
+def _get_spin_sht_cached(nside, lmax, spin, device, legendre_mode):
+    return SpinSHT(nside, lmax, spin, device=device, legendre_mode=legendre_mode)
 
 
-def get_spin_sht(nside: int, lmax: int, spin: int = 2, device="cuda") -> SpinSHT:
-    """Cached spin operator for (nside, lmax, spin) on ``device``."""
+def get_spin_sht(nside: int, lmax: int, spin: int = 2, device="cuda",
+                 legendre_mode: str = "scan") -> SpinSHT:
+    """Cached spin operator for (nside, lmax, spin) on ``device``, in scan
+    (K3) or cached (K4) mode."""
     return _get_spin_sht_cached(int(nside), int(lmax), int(spin),
-                                str(resolve_device(device)))
+                                str(resolve_device(device)), legendre_mode)
 
 
-def alm2map_spin(alm_E, alm_B, spin, nside, device="cuda"):
+def alm2map_spin(alm_E, alm_B, spin, nside, device="cuda",
+                 legendre_mode: str = "scan"):
     """(Q, U) maps [..., npix] from (E, B) alms [..., L, L]
     (healpy.alm2map_spin-like)."""
     alm_E = torch.as_tensor(alm_E)
-    op = get_spin_sht(nside, alm_E.shape[-2] - 1, spin, device)
+    op = get_spin_sht(nside, alm_E.shape[-2] - 1, spin, device, legendre_mode)
     return op.synthesis(alm_E, alm_B)
 
 
-def map2alm_spin(Q, U, spin, lmax, iter=3, device="cuda"):
+def map2alm_spin(Q, U, spin, lmax, iter=3, device="cuda",
+                 legendre_mode: str = "scan"):
     """(E, B) alms [..., lmax+1, lmax+1] of (Q, U) maps [..., npix]."""
     Q = torch.as_tensor(Q)
     nside = pixel.npix2nside(Q.shape[-1])
-    return get_spin_sht(nside, lmax, spin, device).analysis(Q, U, iter)
+    return get_spin_sht(nside, lmax, spin, device, legendre_mode).analysis(
+        Q, U, iter)

@@ -33,6 +33,7 @@ bad = sorted(n for n in sys.modules
              or n == "cora_tpu")
 print(len([n for n in sys.modules if n.startswith("cora_tpu_torch")]))
 assert not bad, bad
+assert "cora_tpu_torch.ops.legendre" in sys.modules
 """
 
 
@@ -44,7 +45,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           env=env, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 16
 
 
 def test_port_sources_never_import_jax():
@@ -182,6 +183,8 @@ def test_build_targets_hopper_into_ignored_dir():
     assert "pallas_scan_legendre.py" in src and "scan_project_fused" in src
     src = open(os.path.join(_build.CSRC, "wigner_apply.cu")).read()
     assert "pallas_scan_legendre.py" in src and "wigner_apply_fused" in src
+    src = open(os.path.join(_build.CSRC, "legendre_contract.cu")).read()
+    assert "pallas_legendre.py" in src and "legendre_contract_pallas" in src
     assert "--use_fast_math" not in _build.NVCC_FLAGS  # subnormal seeds kept
 
 
