@@ -15,7 +15,10 @@ Phases (each prints its own lines; any failure exits non-zero):
               shape (nside=512, L=1536, F2=32): max|Δ| ≤ 1e-4·max|ref|,
               error against an f64 plain run ≤ 1.5× the plain f32
               version's; the K1/K2 adjoint identity at the flagship
-              (≤ 1e-7·‖K1(a)‖·‖G‖, f64 dot products).
+              (≤ 1e-7·‖K1(a)‖·‖G‖, f64 dot products); K1 at F2=2 held to
+              its plain version as at F2=32, and timed.
+              The a_lm planes are planes-minor, as the transforms build
+              them (ops.scan_legendre.planes_minor).
 3b.         — float64 K1/K2 against their f64 plain versions (≤ 1e-10·max)
               at the F64_SHAPES: nside=128 with even and odd L, nside=512 at
               L=1536, F2=32 and at gaussianfg's L=1537, F2=64.
@@ -30,8 +33,11 @@ Phases (each prints its own lines; any failure exits non-zero):
               (L=384, 385) and at the flagship call; f64 (≤ 1e-12·max) at the
               F64_SHAPES; the adjoint identity with the per-chunk bmm
               projection at the flagship; the per-chunk torch.bmm timed as
-              the yardstick (library_ms).  Every kernel of phase 3 has
-              CUDA-event times and its bound (bytes or operations).
+              the yardstick (library_ms); K4 at F2=2 held to its plain
+              version as at F2=32, and timed.  Every kernel
+              of phase 3 has CUDA-event times, its bound (bytes or
+              operations) and its share of that bound printed; K4 its
+              GB/s and TFLOP/s, K1 and K2 their TFLOP/s.
 4. parity   — in each Legendre mode, the same operator kind on cuda
               (kernels) and on cpu (plain versions; in cached mode a
               device-built Λ on both): mkfullsky at nside=64, nz=8 with the
@@ -186,9 +192,12 @@ def _nbytes(*xs):
 
 
 def _with_bound(report, flops, nbytes, itemsize, library_ms=None):
-    """``flops`` = (products, other), as :func:`_bound` takes them."""
+    """``flops`` = (products, other), as :func:`_bound` takes them; prints
+    the kernel's share of its bound."""
     bound_ms, bound_by = _bound(*flops, nbytes, itemsize)
     report.update(bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    print(f"   {report['name']}: {bound_ms:.3f} ms bound ({bound_by}), "
+          f"{report['ms']:.3f} ms: {100 * bound_ms / report['ms']:.1f}% of its bound")
     return report
 
 
@@ -212,8 +221,11 @@ def build_phase():
 
 def _kernel_inputs(op, F2, seed):
     """The operator's kernel tables, random triangle a_lm planes (K1's
-    input) and random ring planes (K2's input)."""
+    input, planes-minor as the transforms build them) and random ring
+    planes (K2's input)."""
     import torch
+
+    from cora_tpu_torch.ops.scan_legendre import planes_minor
 
     t = op.tables(False)
     Lk, M = t["psl_rec_a"].shape
@@ -223,8 +235,8 @@ def _kernel_inputs(op, F2, seed):
     li = torch.arange(Lk, device=op.device)[:, None]
     mi = torch.arange(M, device=op.device)[None, :]
     planes = planes * ((mi <= li) & (li < L))
-    A0 = planes[:, 0::2].contiguous()
-    A1 = planes[:, 1::2].contiguous()
+    A0, A1 = (planes_minor(F2, Lk // 2, M, planes.dtype, op.device)
+              .copy_(planes[:, p::2]) for p in (0, 1))
     S0, S1 = (torch.randn((F2, op.nhalf, M), generator=g, device=op.device)
               for _ in range(2))
     args = (t["psl_rec_a"], t["psl_rec_b"], t["psl_seed"], t["psl_k0"],
@@ -327,6 +339,16 @@ def kernel_phase(dev):
             print(f"   {name} nside={nside}: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms (CUDA events, median); kernel "
                   f"{useful / ms / 1e9:.2f} TFLOP/s useful f32")
+            if name == "scan_contract" and (nside, lmax) == F32_SHAPES[-1]:
+                _, A2, _ = _kernel_inputs(op, 2, seed=nside + 2)
+                _, ms2, _ = _compare(
+                    f"{name} F2=2", nside,
+                    lambda: fn(*args, *A2, band_rows=br),
+                    lambda: plain(*args, *A2, band_rows=br),
+                    lambda: plain(*args64, *(y.double() for y in A2), band_rows=br))
+                print(f"   scan_contract nside={nside} F2=2: kernel {ms2:.3f} ms "
+                      f"(CUDA events, median)")
+                del A2
             # each (ℓ, m ≤ ℓ, ring): one FMA per plane and the recurrence
             # step (two products and an FMA); the tables, planes in, planes out
             out = (S if name == "scan_contract" else A)
@@ -405,10 +427,11 @@ def kernel64_phase(dev, reports):
             err, ms, plain_ms = _compare64(
                 f"{name} L={lmax + 1} F2={F2}", nside,
                 lambda: fn(*args, *x, **kw), lambda: plain(*args, *x, **kw))
-            print(f"   {name} nside={nside} L={lmax + 1} F2={F2}: kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, median)")
             base = name[:-4]
             npairs = (lmax + 1) * (lmax + 2) / 2
+            print(f"   {name} nside={nside} L={lmax + 1} F2={F2}: kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, median); "
+                  f"{2.0 * F2 * op.nhalf * npairs / ms / 1e9:.2f} TFLOP/s useful f64")
             out = S if base == "scan_contract" else A
             reports[name] = _with_bound(dict(
                 name=name, route="cuda", source=reports[base]["source"],
@@ -517,16 +540,28 @@ def wigner_phase(dev, reports):
         torch.cuda.empty_cache()
 
 
+def _planes_minor_randn(shape, seed, dtype, dev):
+    """Random planes [F2, n, M] stored planes-minor, as the transforms build
+    K4's input."""
+    import torch
+
+    from cora_tpu_torch.ops.scan_legendre import planes_minor
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return planes_minor(*shape, dtype, dev).copy_(
+        torch.randn(shape, generator=g, device=dev, dtype=dtype))
+
+
 def _k4_inputs(op, F2, seed, dtype):
     """The operator's device-built Λ at ``dtype``, random parity-packed
-    a_lm planes [F2, L, L] (K4's input) and random ring planes S0, S1
-    [F2, nh, L] (the adjoint's)."""
+    a_lm planes [F2, L, L] (K4's input, planes-minor) and random ring
+    planes S0, S1 [F2, nh, L] (the adjoint's)."""
     import torch
 
     t = op.tables(dtype == torch.float64)
     L = op.lmax + 1
-    g = torch.Generator(device=op.device).manual_seed(seed)
-    A = torch.randn((F2, L, L), generator=g, device=op.device, dtype=dtype)
+    A = _planes_minor_randn((F2, L, L), seed, dtype, op.device)
+    g = torch.Generator(device=op.device).manual_seed(seed + 1)
     S = tuple(torch.randn((F2, op.nhalf, L), generator=g, device=op.device,
                           dtype=dtype) for _ in range(2))
     return t["lam"], t["lam_desc"], A, S
@@ -616,7 +651,18 @@ def legendre_phase(dev, reports):
             print(f"   {name} nside={nside} L={lmax + 1} F2={F2}: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, per-chunk bmm {lib_ms:.3f} ms (CUDA "
                   f"events, median); {nbytes / 1e9:.3f} GB, {flops[0] / 1e9:.1f} GFLOP: "
-                  f"{nbytes / ms / 1e6:.0f} GB/s")
+                  f"{nbytes / ms / 1e6:.0f} GB/s, {flops[0] / ms / 1e9:.2f} TFLOP/s")
+            if (nside, lmax, F2) == F32_K4_SHAPES[-1] and not f64:
+                A2 = _planes_minor_randn((2, lmax + 1, lmax + 1), nside, dtype, dev)
+                _, ms2, _ = _compare(
+                    f"{name} L={lmax + 1} F2=2", nside,
+                    lambda: _k4_run(k4.legendre_contract, lam, desc, A2, R),
+                    lambda: _k4_run(k4.legendre_contract_plain, lam, desc, A2, R),
+                    lambda: _k4_run(k4.legendre_contract_plain, lam.double(), desc,
+                                    A2.double(), R), tol=1e-5)
+                print(f"   {name} nside={nside} F2=2: kernel {ms2:.3f} ms (CUDA "
+                      f"events, median)")
+                del A2
             reports[name] = _with_bound(dict(
                 name=name, route="cuda", source=K4_SRC, replaces=K4_REPLACES,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms), flops, nbytes,

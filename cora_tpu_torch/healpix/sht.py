@@ -64,8 +64,8 @@ import torch
 from ..device import resolve_device
 from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
                             legendre_contract, legendre_project, release)
-from ..ops.scan_legendre import (_lambda_blocks, scale_for, scan_contract,
-                                 scan_project)
+from ..ops.scan_legendre import (_lambda_blocks, planes_minor, scale_for,
+                                 scan_contract, scan_project)
 from ..util.profiling import stage
 from . import pixel
 
@@ -582,8 +582,10 @@ class SHT:
 def default_legendre_mode(device_type: str, nside: int) -> str:
     """The reference factory's rule: the cached-Λ mode on an accelerator
     (here CUDA) up to nside=512, where its table fits the card; the Λ-free
-    scan mode on the CPU and above 512."""
-    return "cached" if device_type == "cuda" and int(nside) <= 512 else "scan"
+    scan mode on the CPU and above 512.  nside=1 also takes the scan mode:
+    K4 reads Λ's 2·nside rings as 16-byte vectors."""
+    cached = device_type == "cuda" and 2 <= int(nside) <= 512
+    return "cached" if cached else "scan"
 
 
 def _user_cache_dir():
@@ -617,7 +619,7 @@ def _get_sht_cached(nside, lmax, l_chunk, legendre_mode, lambda_build, device):
 def get_sht(nside: int, lmax: int, l_chunk: int = 64, legendre_mode=None,
             lambda_build=None, device="cuda") -> SHT:
     """Cached operator with the JAX factory's defaults: the mode of
-    :func:`default_legendre_mode` (cached on CUDA at nside ≤ 512, scan
+    :func:`default_legendre_mode` (cached on CUDA at 2 ≤ nside ≤ 512, scan
     otherwise), a device-built Λ on CUDA and a host-built one (disk-cached,
     :func:`_user_cache_dir`) on the CPU, and ``ckpt_every = max(1,
     (nside // 512)²)``.  ``legendre_mode="scan"`` forces the scan kernels.
@@ -799,8 +801,9 @@ def fused_GeGo(op, t, alm):
     batch = tuple(alm.shape[:-2])
     planes = _planes(alm, t["psl_rec_a"].dtype)
     planes = torch.nn.functional.pad(planes, (0, 0, 0, Lk - L))
-    He, Ho = _contract(op, t, planes[:, 0::2].contiguous(),
-                       planes[:, 1::2].contiguous())
+    A = [planes_minor(planes.shape[0], Lk // 2, L, planes.dtype, planes.device)
+         .copy_(planes[:, p::2]) for p in (0, 1)]
+    He, Ho = _contract(op, t, *A)
     return _route(_join(He, batch), _join(Ho, batch), L)
 
 
@@ -845,7 +848,10 @@ def cached_GeGo(op, t, alm):
     L = op.lmax + 1
     batch = tuple(alm.shape[:-2])
     a = _planes(alm, t["lam"].dtype)
-    A = torch.cat([a[:, 0::2], a[:, 1::2]], dim=1).contiguous()
+    ne = (L + 1) // 2
+    A = planes_minor(a.shape[0], L, L, a.dtype, a.device)
+    A[:, :ne] = a[:, 0::2]
+    A[:, ne:] = a[:, 1::2]
     H0 = a.new_zeros((a.shape[0], op.nhalf, L))
     H1 = torch.zeros_like(H0)
     legendre_contract(t["lam"], t["lam_desc"], A, H0, H1)
@@ -950,8 +956,8 @@ def _fused_scan_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
     Lk = t["psl_rec_a"].shape[0]
     F2 = 2 * nz_chunk
     dev = op.device
-    A0 = torch.zeros((F2, Lk // 2, L), dtype=torch.float32, device=dev)
-    A1 = torch.zeros_like(A0)
+    A0, A1 = (planes_minor(F2, Lk // 2, L, torch.float32, dev).zero_()
+              for _ in range(2))
     with stage("draw", dev):
         for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
             j0 = c * (lc // 2)
@@ -1006,7 +1012,7 @@ def _cached_correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
     ne = (L + 1) // 2
     F2 = 2 * nz_chunk
     dev = op.device
-    A = torch.zeros((F2, L, L), dtype=torch.float32, device=dev)
+    A = planes_minor(F2, L, L, torch.float32, dev).zero_()
     with stage("draw", dev):
         for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
             n = min(lc, L - c * lc)

@@ -43,6 +43,7 @@ import torch
 from ..device import resolve_device
 from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
                             legendre_contract, legendre_project, release)
+from ..ops.scan_legendre import planes_minor
 from ..ops.wigner import wigner_contract, wigner_project
 from ..util.profiling import stage
 from . import pixel
@@ -284,8 +285,11 @@ class SpinSHT:
         a = torch.cat([alm_a, alm_b])
         if "sp" in t:
             lam, desc = t["sp"][sp]
-            x = torch.cat([a.real, a.imag]).to(lam.dtype).contiguous()
-            g = x.new_zeros((x.shape[0], 2 * self.nside, x.shape[2]))
+            n, L = a.shape[0], a.shape[-1]
+            x = planes_minor(2 * n, a.shape[1], L, lam.dtype, a.device)
+            x[:n] = a.real
+            x[n:] = a.imag
+            g = lam.new_zeros((2 * n, 2 * self.nside, L))
             legendre_contract(lam, desc, x, g)
         else:
             coefs = t[sp][0]

@@ -7,10 +7,10 @@ compiled on first use with
          -Xcompiler -fPIC -o <lib>.so <source>.cu
 
 into ``cora_tpu_torch/_build/`` (listed in ``.gitignore``).  The library
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a current one is reused; :func:`build` compiles several
-sources at once.  Nothing is compiled or imported at
-module import time: the CPU-only tests import every module.
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt and a current one is reused;
+:func:`build` compiles several sources at once.  Nothing is compiled or
+imported at module import time: the CPU-only tests import every module.
 """
 
 from __future__ import annotations
@@ -47,12 +47,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(names) -> None:

@@ -20,11 +20,18 @@ only for CPU tensors.  ``launches`` counts K4 launches in either precision,
 ``cora_legendre_contract_f64``).
 
 Bound on an H100 at the flagship call (nside=512, L=1536, 32 planes): Λ is
-5.23 GB of the 5.80 GB the call moves, 1.73 ms at 3.35 TB/s, against 1.25 ms
-of f32 FMAs at 67 TFLOP/s — memory-bound.  The kernel reads each Λ row once
-per 16-plane tile (8 in f64), coalesced along the rings, and keeps its output
-tile in registers across all chunks (no atomics; the design notes are in the
-CUDA source).
+5.23 GB of the 5.94 GB the call moves, 1.77 ms at 3.35 TB/s, against 1.25 ms
+of f32 FMAs at 67 TFLOP/s — memory-bound; in f64 at L=1537, 64 planes,
+3.97 ms of bytes against 2.50 ms of tensor-core products.  The kernel holds
+all planes of a block's (m, ring) tile, so it reads Λ once, through a
+cp.async pipeline of shared-memory stages, and keeps its output tile in
+registers across all chunks of a target (no atomics): 4.060–4.477 ms in
+f32 and 9.012–9.151 ms in f64 on an H100 80GB HBM3 at 700 W, 40–44% of
+each bound (``chip_smoke.py``, two runs; the design notes are in the CUDA
+source).  Λ rows and the planes are copied as 16-byte vectors: the planes
+from planes-minor storage
+(:func:`cora_tpu_torch.ops.scan_legendre.kernel_planes`), the layout the
+transforms build, and R must be a whole number of vectors.
 
 The adjoint, :func:`legendre_project` (alm rows = Σ_r Λ·src), is one
 ``torch.bmm`` per chunk, as the reference leaves its adjoint to an einsum
@@ -43,6 +50,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from .scan_legendre import kernel_planes, vector_width
 
 launches = 0
 entry_launches = {}
@@ -176,7 +185,10 @@ def legendre_contract(lam, desc, A, H0, H1=None):
     into ``H0`` (and ``H1``) [F2, R, M] in place; returns ``(H0, H1)``.
 
     CPU tensors run :func:`legendre_contract_plain`; CUDA tensors (float32
-    or float64, contiguous) launch K4 or raise.
+    or float64; lam and H contiguous, R a whole number of 16-byte vectors;
+    A read planes-minor,
+    :func:`cora_tpu_torch.ops.scan_legendre.kernel_planes`) launch K4 or
+    raise.
     """
     rows, F2, LA, M, R = _check_args(lam, desc, A, H0, H1)
     if A.device.type == "cpu":
@@ -185,10 +197,16 @@ def legendre_contract(lam, desc, A, H0, H1=None):
     dev = A.device
     if dev.type != "cuda":
         raise ValueError(f"legendre_contract: unsupported device {dev}")
-    for name, x in (("lam", lam), ("A", A), ("H0", H0), ("H1", H1)):
+    for name, x in (("lam", lam), ("H0", H0), ("H1", H1)):
         if x is not None and not x.is_contiguous():
             raise ValueError(f"legendre_contract: {name} must be contiguous")
-    if -(-R // 32) > 65535 or -(-M // 8) > 65535:
+    v = vector_width(lam.dtype)
+    if R % v or lam.data_ptr() % 16 or any(off % v for off, *_ in rows):
+        raise ValueError(f"legendre_contract: the kernel copies Λ rows as 16-byte "
+                         f"vectors; R={R} must be a multiple of {v}, lam and its "
+                         "chunks 16-byte aligned")
+    A, fs = kernel_planes(A, "legendre_contract: A")
+    if -(-M // 4) > 65535 or -(-F2 // 8) > 65535:
         raise ValueError("legendre_contract: shape exceeds the kernel's grid")
     d = _device_desc(rows, dev)
     entry = ("cora_legendre_contract_f64" if A.dtype == torch.float64
@@ -196,8 +214,8 @@ def legendre_contract(lam, desc, A, H0, H1=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_fn(entry)(
         lam.data_ptr(), d.data_ptr(), len(rows), A.data_ptr(), H0.data_ptr(),
-        None if H1 is None else H1.data_ptr(), int(F2), int(LA), int(M),
-        int(R), int(dev.index), stream)
+        None if H1 is None else H1.data_ptr(), int(F2), int(M), int(R),
+        int(fs), int(dev.index), stream)
     if err != 0:
         raise RuntimeError(f"legendre_contract kernel launch failed: CUDA error {err}")
     launches += 1

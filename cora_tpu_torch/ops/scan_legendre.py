@@ -18,9 +18,19 @@ triangle never reaches device memory:
 
 Each wrapper launches its CUDA kernel (``csrc/scan_legendre.cu``,
 ``csrc/scan_project.cu``) for CUDA tensors and takes the plain version only
-for CPU tensors.  Both kernels come in float32 (tables scaled with S=60,
-β=30) and float64 (S=512, β=256); the tensors' dtype picks the entry
-point and must match the tables' scaling.  ``launches`` counts K1
+for CPU tensors.  K1 is bound by its arithmetic on an H100: at the flagship
+call (nside=512, L=1536, 32 planes) 82 GFLOP, 1.23 ms at the f32 rate of 67
+TFLOP/s; in f64 (L=1537, 64 planes) 2.31 ms of tensor-core products.  A
+block holds all planes, so the recurrence runs once per (ℓ, ring, m) in f32
+(twice in f64, a block per ℓ parity); λ passes through shared memory while
+the planes stream in by cp.async: 4.289–4.341 ms in f32, 8.892–9.140 ms
+in f64 on an H100 80GB HBM3 at 700 W, 28–29% and 25–26% of those bounds
+(``chip_smoke.py``, two runs; the design notes are in the CUDA source).
+K1 reads the a_lm planes as 16-byte vectors from planes-minor storage
+(:func:`planes_minor`, :func:`kernel_planes`), the layout the transforms
+build.  Both kernels come in float32 (tables scaled with S=60, β=30) and
+float64 (S=512, β=256); the tensors' dtype picks the entry point and must
+match the tables' scaling.  ``launches`` counts K1
 launches, ``project_launches`` K2 launches, in either precision;
 ``entry_launches`` counts them per C entry point (``cora_scan_contract``,
 ``cora_scan_contract_f64``, ``cora_scan_project``,
@@ -48,11 +58,8 @@ project_launches = 0
 entry_launches = {}
 
 _PLAIN_L_BLOCK = 64  # ℓ rows per einsum in the plain versions
-_WARPS = 8           # K1: m values per block (csrc/scan_legendre.cu)
-# planes per block of K1 by dtype (the f64 accumulators take twice the
-# registers); K2 takes 8 planes a block in both (csrc/scan_project.cu)
-_FT = {torch.float32: 16, torch.float64: 8}
-_P_FT = 8
+_DTYPES = (torch.float32, torch.float64)
+_P_FT = 8  # K2: planes per block in both precisions (csrc/scan_project.cu)
 _FNS = {}
 
 
@@ -62,9 +69,10 @@ def scale_for(dtype):
 
 
 def _kernel_fn(lib_name, fn_name):
-    """A kernel's C entry point, with its signature declared.  Both entry
+    """A kernel's C entry point, with its signature declared.  The entry
     points take (6 table pointers, nband, in0, in1, out0, out1, L, M, R,
-    F2, band_rows, device, stream)."""
+    F2, band_rows, device, stream); K1's take the planes' vector stride
+    (:func:`kernel_planes`) after band_rows."""
     fn = _FNS.get(fn_name)
     if fn is None:
         from . import _build
@@ -72,9 +80,46 @@ def _kernel_fn(lib_name, fn_name):
         fn = getattr(_build.load(lib_name), fn_name)
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.restype = I
-        fn.argtypes = [P] * 6 + [I] + [P] * 4 + [I] * 6 + [P]
+        nint = 7 if fn_name.startswith("cora_scan_contract") else 6
+        fn.argtypes = [P] * 6 + [I] + [P] * 4 + [I] * nint + [P]
         _FNS[fn_name] = fn
     return fn
+
+
+def vector_width(dtype):
+    """Elements of ``dtype`` in one 16-byte vector, the unit in which K1
+    and K4 copy their inputs into shared memory."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def planes_minor(F2, n, M, dtype, device):
+    """An empty [F2, n, M] tensor stored planes-minor: a view of [n, M, fs]
+    storage, fs = F2 rounded up to a whole 16-byte vector (the padding
+    planes zero).  K1 and K4 read the planes of one (row, m) from it as
+    16-byte vectors; the transforms build their a_lm planes straight into
+    it."""
+    v = vector_width(dtype)
+    store = torch.empty((n, M, -(-F2 // v) * v), dtype=dtype, device=device)
+    store[..., F2:].zero_()
+    return store.permute(2, 0, 1)[:F2]
+
+
+def kernel_planes(x, name="planes"):
+    """(x, fs): planes [F2, n, M] as K1 and K4 take them, in planes-minor
+    storage [n, M, fs] (:func:`planes_minor`; fs = F2 rounded up to a whole
+    16-byte vector).  A tensor already stored so (16-byte aligned) is
+    taken as it is; a contiguous or otherwise planes-minor one is laid out
+    so (one pass)."""
+    if x.dim() != 3:
+        raise ValueError(f"{name} must be [F2, n, M], got {tuple(x.shape)}")
+    F2, n, M = x.shape
+    v = vector_width(x.dtype)
+    fs = -(-F2 // v) * v
+    if x.stride() == (1, M * fs, fs) and x.data_ptr() % 16 == 0:
+        return x, fs
+    if not (x.is_contiguous() or x.stride(0) == 1):
+        raise ValueError(f"{name} must be contiguous or planes-minor")
+    return planes_minor(F2, n, M, x.dtype, x.device).copy_(x), fs
 
 
 def scan_contract(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1, *,
@@ -103,11 +148,13 @@ def scan_contract(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1, *,
                                    scale=scale)
     global launches
     L, M = rec_a.shape
-    ft = _FT.get(alm0.dtype, 16)
+    F2 = alm0.shape[0]
+    # the largest grid of either precision: 32-ring tiles, 4 m values a
+    # block, a plane tile of 8 and two ℓ parities (csrc/scan_legendre.cu)
     out = _launch("scan_contract", "scan_legendre", tabs, alm0, alm1,
-                  (alm0.shape[0], L // 2, M), (alm0.shape[0], z.shape[0], M),
-                  band_rows, scale,
-                  (-(-z.shape[0] // 32), -(-M // _WARPS), -(-alm0.shape[0] // ft)))
+                  (F2, L // 2, M), (F2, z.shape[0], M), band_rows, scale,
+                  (-(-z.shape[0] // 32), -(-M // 4), 2 * -(-F2 // 8)),
+                  planes=True)
     launches += 1
     return out
 
@@ -135,27 +182,30 @@ def scan_project(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1, *,
     return out
 
 
-def _check(name, x, shape, dev):
+def _check(name, x, shape, dev, contiguous=True):
     if x.device != dev:
         raise ValueError(f"{name} on {x.device}, expected {dev}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(
             f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}"
         )
-    if not x.is_contiguous():
+    if contiguous and not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
 def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
-            band_rows, scale, grid):
-    """Check every argument of a kernel, allocate its outputs (zeroed: K2
-    accumulates into them) and launch it on the current stream.
+            band_rows, scale, grid, planes=False):
+    """Check every argument of a kernel, allocate its outputs and launch it
+    on the current stream.  With ``planes`` (K1) the inputs are a_lm planes
+    taken as :func:`kernel_planes` says, the outputs are left unset (K1
+    writes every element); otherwise (K2) the inputs must be contiguous and
+    the outputs are zeroed (K2 accumulates into them).
 
     The dtype of ``in0`` picks the float32 or the float64 entry point; the
     tables must have been scaled for that dtype (:func:`scale_for`).
     """
     dt = in0.dtype
-    if dt not in _FT:
+    if dt not in _DTYPES:
         raise TypeError(f"{fn_name}: float32 or float64 planes, got {dt}")
     for name, x in zip(("rec_a", "rec_b", "seed_T", "k0_T", "z", "ck_T",
                         "in0", "in1"), tabs + (in0, in1)):
@@ -168,6 +218,9 @@ def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
     dev = in0.device
     if dev.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {dev}")
+    if planes:
+        (in0, fs), (in1, _) = (kernel_planes(x, f"{fn_name}: {name}")
+                               for x, name in ((in0, "in0"), (in1, "in1")))
     rec_a, rec_b, seed_T, k0_T, z, ck_T = tabs
     L, M = rec_a.shape
     R = z.shape[0]
@@ -178,20 +231,23 @@ def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
                            ("seed_T", seed_T, (M, R)), ("k0_T", k0_T, (M, R)),
                            ("z", z, (R,)), ("in0", in0, in_shape),
                            ("in1", in1, in_shape)):
-        _check(f"{fn_name}: {name}", x, shape, dev)
+        _check(f"{fn_name}: {name}", x, shape, dev,
+               contiguous=not (planes and name.startswith("in")))
     if nband > 1:
         _check(f"{fn_name}: ck_T", ck_T, (nband, 2, M, R), dev)
     if grid[0] >= 2**31 or max(grid[1:]) > 65535:
         raise ValueError(f"{fn_name}: shape exceeds the kernel's grid")
 
-    out0 = torch.zeros(out_shape, dtype=dt, device=dev)
-    out1 = torch.zeros_like(out0)
+    alloc = torch.empty if planes else torch.zeros
+    out0 = alloc(out_shape, dtype=dt, device=dev)
+    out1 = alloc(out_shape, dtype=dt, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     entry = "cora_" + fn_name + ("_f64" if dt == torch.float64 else "")
     err = _kernel_fn(lib_name, entry)(
         *(x.data_ptr() for x in tabs), int(nband), in0.data_ptr(),
         in1.data_ptr(), out0.data_ptr(), out1.data_ptr(), int(L), int(M),
-        int(R), int(in0.shape[0]), int(band_rows), int(dev.index), stream)
+        int(R), int(in0.shape[0]), int(band_rows),
+        *((int(fs),) if planes else ()), int(dev.index), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
     entry_launches[entry] = entry_launches.get(entry, 0) + 1

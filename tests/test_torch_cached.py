@@ -266,6 +266,7 @@ def test_mode_rule(monkeypatch):
     assert tsht.default_legendre_mode("cuda", 512) == "cached"
     assert tsht.default_legendre_mode("cuda", 64) == "cached"
     assert tsht.default_legendre_mode("cuda", 1024) == "scan"
+    assert tsht.default_legendre_mode("cuda", 1) == "scan"  # R=2: not whole vectors
     op = tsht.get_sht(8, 23, device="cpu")
     assert op.legendre_mode == "scan"
     op = tsht.get_sht(8, 23, legendre_mode="cached", device="cpu")

@@ -207,36 +207,54 @@ def test_project_is_adjoint_of_contract():
     assert abs(lhs - rhs) <= 1e-12 * scale
 
 
-def _emulate_kernel(lam, desc, A, R, lb):
-    """numpy replay of csrc/legendre_contract.cu's sum order: per chunk,
-    a fresh partial over each step of ``lb`` rows (rows in order), added to
-    the target's accumulator at the step's end; in the planes' dtype."""
+def _emulate_kernel(lam, desc, A, R):
+    """numpy replay of csrc/legendre_contract.cu's sum order, in the planes'
+    dtype: one pass per target over its chunks in order; f32 sums each
+    chunk's rows in a fresh partial per 32 rows (rows in order) added to
+    the pass's accumulator; f64 (DMMA, 4 rows a product) adds each group of
+    4 rows' products, summed pairwise, to the accumulator.  The pass's
+    accumulator is added to H at its end."""
     lam, A = lam.numpy(), A.numpy()
     F2, _, M = A.shape
+    f64 = A.dtype == np.float64
+    rows = desc.tolist()
     H = np.zeros((2, F2, R, M), A.dtype)
-    for off, nrows, mw, row0, tgt in desc.tolist():
-        lam_c = lam[off:off + mw * nrows * R].reshape(mw, nrows, R)
-        for i0 in range(0, nrows, lb):
-            part = np.zeros((F2, R, mw), A.dtype)
-            for i in range(i0, min(i0 + lb, nrows)):
-                part += lam_c[:, i, :].T[None] * A[:, row0 + i, None, :mw]
-            H[tgt, ..., :mw] += part
+    for tgt in (0, 1):
+        acc = np.zeros((F2, R, M), A.dtype)
+        for off, nrows, mw, row0, t in rows:
+            if t != tgt:
+                continue
+            lam_c = lam[off:off + mw * nrows * R].reshape(mw, nrows, R)
+            term = lambda i: lam_c[:, i, :].T[None] * A[:, row0 + i, None, :mw]
+            if f64:
+                for i0 in range(0, nrows, 4):
+                    p = [term(i) if i < nrows else 0.0 for i in range(i0, i0 + 4)]
+                    acc[..., :mw] += (p[0] + p[1]) + (p[2] + p[3])
+            else:
+                for i0 in range(0, nrows, 32):
+                    part = np.zeros((F2, R, mw), A.dtype)
+                    for i in range(i0, min(i0 + 32, nrows)):
+                        part += term(i)
+                    acc[..., :mw] += part
+        H[tgt] += acc
     return H
 
 
-@pytest.mark.parametrize("dtype,lb,bound", [(np.float32, 32, 1e-5),
-                                            (np.float64, 16, 1e-12)])
-def test_kernel_sum_order_matches_plain(dtype, lb, bound):
-    """The kernel's two-level sum (its step is 32 rows in f32, 16 in f64)
-    replayed on the real parity chunks of SHT(16, 40, l_chunk=16): within
-    the kernel-vs-plain bound of the card (f32 1e-5·max, f64 1e-12·max),
-    and in f32 no further from an f64 sum than 1.5× the plain version."""
+@pytest.mark.parametrize("dtype,bound", [
+    pytest.param(np.float32, 1e-5, id="float32-32-1e-05"),
+    pytest.param(np.float64, 1e-12, id="float64-16-1e-12")])
+def test_kernel_sum_order_matches_plain(dtype, bound):
+    """The kernel's sum order (f32: two-level, 32-row partials; f64: DMMA
+    groups of 4 rows) replayed on the real parity chunks of SHT(16, 40,
+    l_chunk=16): within the kernel-vs-plain bound of the card (f32
+    1e-5·max, f64 1e-12·max), and in f32 no further from an f64 sum than
+    1.5× the plain version."""
     top = _port_cached(16, 40, 16)
     t = top.tables(dtype == np.float64)
     R, L = top.nhalf, 41
     rng = np.random.default_rng(12)
     A = torch.from_numpy(rng.standard_normal((6, L, L)).astype(dtype))
-    emu = _emulate_kernel(t["lam"], t["lam_desc"], A, R, lb)
+    emu = _emulate_kernel(t["lam"], t["lam_desc"], A, R)
     H = [torch.zeros(6, R, L, dtype=A.dtype) for _ in range(2)]
     k4.legendre_contract_plain(t["lam"], t["lam_desc"], A, *H)
     ref = np.stack([h.numpy() for h in H])
@@ -298,25 +316,66 @@ def cuda_device():
     return resolve_device("cuda")
 
 
+def _gpu_case(layout, F2, dtype, rng):
+    """(lam, desc, A, R, two targets?) for a GPU comparison: ``ragged`` —
+    hand-made chunks of both targets, R=68 and M=37 off the block tiles;
+    ``parity`` — the parity chunks of SHT(16, 40, l_chunk=16), L=41 odd,
+    R=32; ``spin`` — consecutive rows into one accumulator (H1 None),
+    R=132, M=29."""
+    if layout == "ragged":
+        lam, desc, A = _random_chunks(rng, R=68, M=37, LA=14, F2=F2, dtype=dtype)
+        return lam, desc, A, 68, True
+    if layout == "parity":
+        top = _port_cached(16, 40, 16)
+        desc, total = top.lambda_desc()
+        R, L = top.nhalf, 41
+        lam = torch.from_numpy(rng.standard_normal(total)).to(dtype)
+        A = torch.from_numpy(rng.standard_normal((F2, L, L))).to(dtype)
+        return lam, desc, A, R, True
+    R, M = 132, 29
+    desc, total = k4.chunk_desc([(0, 9, 29, 0), (9, 20, 24, 0), (29, 3, 5, 0)], R)
+    lam = torch.from_numpy(rng.standard_normal(total)).to(dtype)
+    A = torch.from_numpy(rng.standard_normal((F2, 32, M))).to(dtype)
+    return lam, desc, A, R, False
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ragged", "parity", "spin"])
+@pytest.mark.parametrize("F2", [2, 6, 20, 32, 64])
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5),
                                          (torch.float64, 1e-12)])
-def test_kernel_matches_plain_on_gpu(cuda_device, dtype, bound):
-    """K4 against its plain version on the card, ragged chunks of both
-    targets, more planes and rings than one block holds."""
-    rng = np.random.default_rng(8)
-    lam, desc, A = _random_chunks(rng, R=70, M=37, LA=14, F2=20, dtype=dtype)
+def test_kernel_matches_plain_on_gpu(cuda_device, dtype, bound, F2, layout):
+    """K4 against its plain version on the card at every plane tile (F2 =
+    2, 6: the small tiles, padded to whole vectors; 20: a partly filled
+    one; 32, 64: one or two full ones), rings and m off the block tiles,
+    odd L, and the spin layout with one accumulator."""
+    rng = np.random.default_rng(8 + F2)
+    lam, desc, A, R, two = _gpu_case(layout, F2, dtype, rng)
     lam, A = lam.to(cuda_device), A.to(cuda_device)
-    H = [torch.zeros(20, 70, 37, dtype=dtype, device=cuda_device) for _ in range(4)]
+    M = A.shape[2]
+    H = [torch.zeros(F2, R, M, dtype=dtype, device=cuda_device) for _ in range(4)]
     entry = ("cora_legendre_contract_f64" if dtype == torch.float64
              else "cora_legendre_contract_f32")
     before = k4.entry_launches.get(entry, 0)
-    k4.legendre_contract(lam, desc, A, H[0], H[1])
+    k4.legendre_contract(lam, desc, A, H[0], H[1] if two else None)
     torch.cuda.synchronize()
     assert k4.entry_launches[entry] == before + 1
-    k4.legendre_contract_plain(lam, desc, A, H[2], H[3])
+    k4.legendre_contract_plain(lam, desc, A, H[2], H[3] if two else None)
     for got, ref in ((H[0], H[2]), (H[1], H[3])):
-        assert float((got - ref).abs().max()) <= bound * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= bound * max(float(ref.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_rings_off_the_vectors_on_gpu(cuda_device):
+    """K4 copies Λ rows as 16-byte vectors: R=70 float32 rings (not a
+    multiple of 4) are refused before anything launches."""
+    lam, desc, A = _random_chunks(np.random.default_rng(10), R=70, M=37, LA=14,
+                                  F2=8, dtype=torch.float32)
+    H0, H1 = (torch.zeros(8, 70, 37, device=cuda_device) for _ in range(2))
+    before = k4.launches
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        k4.legendre_contract(lam.to(cuda_device), desc, A.to(cuda_device), H0, H1)
+    assert k4.launches == before
 
 
 @pytest.mark.cuda

@@ -104,10 +104,22 @@ def test_correlated_path_matches_jax_xla():
     assert np.abs(Go.numpy() - Go_r).max() <= 1e-4 * sc
 
 
+def _sum4(g):
+    """One m8n8k4 DMMA group: up to 4 products, summed pairwise."""
+    g = g + [0.0] * (4 - len(g))
+    return (g[0] + g[1]) + (g[2] + g[3])
+
+
 def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
-                    band_rows, warps=8, ft=16, lb=32, scale=(60, 30)):
+                    band_rows, warps=4, ft=32, lb=32, scale=(60, 30),
+                    dmma=False):
     """numpy replay of csrc/scan_legendre.cu's block loop, in the dtype of
-    the planes (scaled with ``scale`` = (S, β))."""
+    the planes (scaled with ``scale`` = (S, β)): ``warps`` m values and
+    ``ft`` planes a block, steps of ``lb`` rows from the step holding the
+    block's first m.  f32 sums each parity in a fresh partial per step,
+    added at the step's end; with ``dmma`` (f64, the tensor cores' m8n8k4)
+    each group of 4 rows of one parity is summed pairwise and added to the
+    running total."""
     f32 = alm0.dtype.type
     L, M = rec_a.shape
     R = z.size
@@ -129,6 +141,7 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
                        if nband > 1 else None)
             for lb0 in range(lstart, L, lb):
                 part = [np.zeros_like(acc[0]) for _ in range(2)]
+                group = [[], []]
                 for p in range(min(lb // 2, (L - lb0) // 2)):
                     l = lb0 + 2 * p
                     if l == next_ck:
@@ -149,13 +162,21 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
                         out = np.where(k == 0, lam, f32(0))
                         lpp, lp = lp, lam
                         a = alm[fs][:, row // 2][:, ms]
-                        part[par] += a[:, :, None] * out[None]
+                        if dmma:
+                            group[par].append(a[:, :, None] * out[None])
+                            if len(group[par]) == 4:
+                                acc[par] += _sum4(group[par])
+                                group[par] = []
+                        else:
+                            part[par] += a[:, :, None] * out[None]
                     grow = (np.abs(lp) > 2.0**scale[1]) & (k > 0)
                     lp = np.where(grow, lp * f32(2.0**-scale[0]), lp)
                     lpp = np.where(grow, lpp * f32(2.0**-scale[0]), lpp)
                     k = np.where(grow, k - 1, k)
-                acc[0] += part[0]
-                acc[1] += part[1]
+                for par in (0, 1):
+                    if group[par]:  # a short last step: rows past L are zero
+                        acc[par] += _sum4(group[par])
+                    acc[par] += part[par]
             he[np.ix_(fs, np.arange(R), ms)] = acc[0].transpose(0, 2, 1)
             ho[np.ix_(fs, np.arange(R), ms)] = acc[1].transpose(0, 2, 1)
     return he, ho
@@ -206,14 +227,15 @@ def _f64_scaled_inputs(F2, seed):
 
 
 def test_kernel_block_structure_matches_plain_f64():
-    """The double instantiation of K1 (8 planes a block, S=512, β=256)
-    replayed in numpy float64 against the f64 plain version."""
+    """The double instantiation of K1 (4 m values × 64 planes a block, 32-row
+    steps, DMMA groups of 4 rows; S=512, β=256) replayed in numpy float64
+    against the f64 plain version."""
     op, args, A, _ = _f64_scaled_inputs(11, 3)
     he_p, ho_p = k1.scan_contract_plain(*args, *A, band_rows=op.band_rows,
                                         scale=k1.SCALE_F64)
     he_e, ho_e = _emulate_kernel(*[a.numpy() for a in args], A[0].numpy(),
-                                 A[1].numpy(), op.band_rows, ft=8,
-                                 scale=k1.SCALE_F64)
+                                 A[1].numpy(), op.band_rows, warps=4, ft=64,
+                                 lb=32, scale=k1.SCALE_F64, dmma=True)
     sc = float(he_p.abs().max())
     assert np.abs(he_e - he_p.numpy()).max() <= 1e-13 * sc
     assert np.abs(ho_e - ho_p.numpy()).max() <= 1e-13 * sc
@@ -273,6 +295,29 @@ def test_plain_matches_pallas_interpret():
     sc = float(np.abs(np.asarray(Ge_r)).max())
     assert np.abs(Ge.numpy() - np.asarray(Ge_r)).max() <= 5e-6 * sc
     assert np.abs(Go.numpy() - np.asarray(Go_r)).max() <= 5e-6 * sc
+
+
+@pytest.mark.parametrize("F2", [2, 6, 11, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_planes_pad_to_whole_vectors(dtype, F2):
+    """The planes as K1 and K4 read them: planes-minor [n, M, fs] storage
+    with fs = F2 rounded up to a whole 16-byte vector and the padding
+    planes zero; a contiguous tensor is laid out so, one already so stored
+    is taken as it is, and one in neither layout is refused."""
+    n, M = 5, 7
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    fs = -(-F2 // v) * v
+    x = torch.from_numpy(np.random.default_rng(F2).standard_normal((F2, n, M))).to(dtype)
+    y, got_fs = k1.kernel_planes(x)
+    assert got_fs == fs and y.stride() == (1, M * fs, fs)
+    assert torch.equal(y, x)
+    store = y.as_strided((n, M, fs), (M * fs, fs, 1))
+    assert not store[..., F2:].any()
+    z = k1.planes_minor(F2, n, M, dtype, "cpu").copy_(x)
+    w, w_fs = k1.kernel_planes(z)
+    assert w_fs == fs and w.data_ptr() == z.data_ptr()
+    with pytest.raises(ValueError, match="planes-minor"):
+        k1.kernel_planes(x.transpose(0, 1).contiguous().transpose(0, 1))
 
 
 @pytest.fixture
@@ -476,11 +521,30 @@ def test_project_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
     assert float((alm.cpu() - alm_c).abs().max()) <= 1e-4 * sc
 
 
+def _planes_for(op, t, F2, seed, double):
+    """The kernel tables of ``t`` and random planes of both kinds for op."""
+    args = tsht._kernel_tables(t)
+    L, Lk = op.lmax + 1, args[0].shape[0]
+    rng = np.random.default_rng(seed)
+    planes = rng.standard_normal((F2, Lk, L))
+    planes *= (np.arange(L)[None, :] <= np.arange(Lk)[:, None])
+    dt = torch.float64 if double else torch.float32
+    A = [torch.from_numpy(np.ascontiguousarray(planes[:, p::2])).to(dt) for p in (0, 1)]
+    S = [torch.from_numpy(rng.standard_normal((F2, op.nhalf, L))).to(dt) for _ in (0, 1)]
+    return args, A, S
+
+
 @pytest.mark.cuda
-def test_f64_kernels_match_plain_on_card(cuda_device):
+@pytest.mark.parametrize("F2", [2, 6, 11, 32, 64])
+@pytest.mark.parametrize("nside,lmax", [(8, 111), (16, 40)])
+def test_f64_kernels_match_plain_on_card(cuda_device, nside, lmax, F2):
     """K1 and K2 in float64 (S=512, β=256) against their f64 plain
-    versions: 1e-10 relative."""
-    op, args, A, S = _f64_scaled_inputs(11, 5)
+    versions: 1e-10 relative, at every plane tile (F2 = 2, 6, 32, 64; odd
+    F2 = 11 padded to a whole vector), with scale counts exercised
+    (SHT(8, 111)) and with odd L, R = 32 and M = 41 off the block tiles
+    (SHT(16, 40))."""
+    op = tsht.SHT(nside, lmax, l_chunk=16, device="cpu")
+    args, A, S = _planes_for(op, op.tables(True), F2, 5 + F2, True)
     args = [a.to(cuda_device) for a in args]
     A = [a.to(cuda_device) for a in A]
     S = [s.to(cuda_device) for s in S]
@@ -499,3 +563,25 @@ def test_f64_kernels_match_plain_on_card(cuda_device):
                         + k1.scan_project_plain(*args, *S, band_rows=op.band_rows,
                                                 scale=k1.SCALE_F64)):
         assert float((got - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F2", [2, 6, 20, 32, 64])
+@pytest.mark.parametrize("nside,lmax,lc,ke", [(8, 23, 6, 2), (16, 40, 8, 2)])
+def test_f32_kernel_plane_tiles_on_card(cuda_device, nside, lmax, lc, ke, F2):
+    """K1 in float32 against its plain version at every plane tile (F2 = 2,
+    6, 20, 32, 64): a re-seed cadence of 12 rows, which neither divides the
+    32-row step nor lands on it, and odd L with R = 32, M = 41 off the
+    block tiles; ≤ 1e-4·max, the bound of the kernel's other checks."""
+    op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke, device="cpu")
+    args, A, _ = _planes_for(op, op.tables(False), F2, 9 + F2, False)
+    kw = dict(band_rows=op.band_rows)
+    ref = k1.scan_contract_plain(*args, *A, **kw)
+    before = k1.entry_launches.get("cora_scan_contract", 0)
+    got = k1.scan_contract(*[a.to(cuda_device) for a in args],
+                           *[a.to(cuda_device) for a in A], **kw)
+    torch.cuda.synchronize()
+    assert k1.entry_launches["cora_scan_contract"] == before + 1
+    sc = max(float(x.abs().max()) for x in ref)
+    for g, r in zip(got, ref):
+        assert float((g.cpu() - r).abs().max()) <= 1e-4 * sc
