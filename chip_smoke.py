@@ -7,26 +7,32 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device   — CUDA must be available; prints the card's name and power limit
               (nvidia-smi) and pins true f32 (TF32 off).
-2. build    — builds the four CUDA sources with nvcc (one process per
-              source, started together), prints the build time and ptxas's
-              register and shared-memory report.
+2. build    — builds the four CUDA sources (with the shared headers
+              csrc/*.cuh: tile building blocks, the scan recurrence of K1
+              and K2, the adjoint loops of K2 and K3) with nvcc (one process
+              per source, started together), prints the build time and
+              ptxas's register and shared-memory report.
 3. kernels  — K1 scan_contract and K2 scan_project (scan-mode operators)
               against their plain versions at nside=128 and at the flagship
               shape (nside=512, L=1536, F2=32): max|Δ| ≤ 1e-4·max|ref|,
               error against an f64 plain run ≤ 1.5× the plain f32
               version's; the K1/K2 adjoint identity at the flagship
-              (≤ 1e-7·‖K1(a)‖·‖G‖, f64 dot products); K1 at F2=2 held to
-              its plain version as at F2=32, and timed.
-              The a_lm planes are planes-minor, as the transforms build
-              them (ops.scan_legendre.planes_minor).
+              (≤ 1e-7·‖K1(a)‖·‖G‖, f64 dot products); K1 and K2 at F2=2
+              (the round trip's shape) held to their plain versions as at
+              F2=32, and timed; two K2 launches give the same bits.
+              The a_lm planes and K2's sources are planes-minor, as the
+              transforms build them (ops.scan_legendre.planes_minor).
 3b.         — float64 K1/K2 against their f64 plain versions (≤ 1e-10·max)
               at the F64_SHAPES: nside=128 with even and odd L, nside=512 at
               L=1536, F2=32 and at gaussianfg's L=1537, F2=64.
 3c.         — K3 (wigner_contract, wigner_project), both spin-2 families:
               f32 against its plain version (≤ 1e-4·max, error against f64
               ≤ max(1.5× the plain f32 version's, 1e-5 RMS)) at nside=128
-              (even and odd L) and at L=1536, R=1024; the adjoint identity;
-              f64 (≤ 1e-10·max) at the F64_SHAPES.
+              (even and odd L) and at L=1536, R=1024 with F2=32, 4 (one
+              pair) and 64 (phase 9's 16 pairs); the adjoint identity; the
+              f32 synthesis of a one-hot x returns the plain recurrence's λ
+              rows bit for bit; two launches give the same bits; f64
+              (≤ 1e-10·max) at the F64_SHAPES.  Planes planes-minor.
 3d.         — K4 (legendre_contract) on the default operators' device-built
               Λ: f32 against its plain version (≤ 1e-5·max; error against
               an f64 plain run ≤ 1.5× the plain f32 version's) at nside=128
@@ -34,7 +40,9 @@ Phases (each prints its own lines; any failure exits non-zero):
               F64_SHAPES; the adjoint identity with the per-chunk bmm
               projection at the flagship; the per-chunk torch.bmm timed as
               the yardstick (library_ms); K4 at F2=2 held to its plain
-              version as at F2=32, and timed.  Every kernel
+              version as at F2=32, and timed; cached mode at nside=1 (R=2
+              rings, padded to a whole vector) through K4 against the plain
+              version (≤ 1e-5·max), scalar and spin.  Every kernel
               of phase 3 has CUDA-event times, its bound (bytes or
               operations) and its share of that bound printed; K4 its
               GB/s and TFLOP/s, K1 and K2 their TFLOP/s.
@@ -219,10 +227,18 @@ def build_phase():
                 print(f"   ptxas: {line.strip()}")
 
 
+def _as_built(x):
+    """Planes [F2, n, M] in the layout the transforms hand them to the
+    kernels: planes-minor storage (ops.scan_legendre.planes_minor)."""
+    from cora_tpu_torch.ops.scan_legendre import planes_minor
+
+    return planes_minor(*x.shape, x.dtype, x.device).copy_(x)
+
+
 def _kernel_inputs(op, F2, seed):
     """The operator's kernel tables, random triangle a_lm planes (K1's
-    input, planes-minor as the transforms build them) and random ring
-    planes (K2's input)."""
+    input) and random ring planes (K2's input), both planes-minor as the
+    transforms build them."""
     import torch
 
     from cora_tpu_torch.ops.scan_legendre import planes_minor
@@ -237,8 +253,8 @@ def _kernel_inputs(op, F2, seed):
     planes = planes * ((mi <= li) & (li < L))
     A0, A1 = (planes_minor(F2, Lk // 2, M, planes.dtype, op.device)
               .copy_(planes[:, p::2]) for p in (0, 1))
-    S0, S1 = (torch.randn((F2, op.nhalf, M), generator=g, device=op.device)
-              for _ in range(2))
+    S0, S1 = (_as_built(torch.randn((F2, op.nhalf, M), generator=g,
+                                    device=op.device)) for _ in range(2))
     args = (t["psl_rec_a"], t["psl_rec_b"], t["psl_seed"], t["psl_k0"],
             t["psl_z"], t["psl_ck"])
     return args, (A0, A1), (S0, S1)
@@ -339,16 +355,17 @@ def kernel_phase(dev):
             print(f"   {name} nside={nside}: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms (CUDA events, median); kernel "
                   f"{useful / ms / 1e9:.2f} TFLOP/s useful f32")
-            if name == "scan_contract" and (nside, lmax) == F32_SHAPES[-1]:
-                _, A2, _ = _kernel_inputs(op, 2, seed=nside + 2)
+            if (nside, lmax) == F32_SHAPES[-1]:  # the round trip's shape
+                x2 = _kernel_inputs(op, 2, seed=nside + 2)[1 + (name == "scan_project")]
                 _, ms2, _ = _compare(
                     f"{name} F2=2", nside,
-                    lambda: fn(*args, *A2, band_rows=br),
-                    lambda: plain(*args, *A2, band_rows=br),
-                    lambda: plain(*args64, *(y.double() for y in A2), band_rows=br))
-                print(f"   scan_contract nside={nside} F2=2: kernel {ms2:.3f} ms "
+                    lambda: fn(*args, *x2, band_rows=br),
+                    lambda: plain(*args, *x2, band_rows=br),
+                    lambda: plain(*args64, *(y.double() for y in x2), band_rows=br),
+                    reps=(7, 1))
+                print(f"   {name} nside={nside} F2=2: kernel {ms2:.3f} ms "
                       f"(CUDA events, median)")
-                del A2
+                del x2
             # each (ℓ, m ≤ ℓ, ring): one FMA per plane and the recurrence
             # step (two products and an FMA); the tables, planes in, planes out
             out = (S if name == "scan_contract" else A)
@@ -371,7 +388,10 @@ def kernel_phase(dev):
             print(f"   adjoint at nside={nside}: <K1(a),G>={lhs:.9e} "
                   f"<a,K2(G)>={rhs:.9e} gap/(|K1 a||G|)={gap:.3e}")
             check(gap <= 1e-7, "adjoint identity K1/K2 ≤ 1e-7")
-            del He, Ho, P0, P1
+            again = k.scan_project(*args, *S, band_rows=br)
+            check(torch.equal(P0, again[0]) and torch.equal(P1, again[1]),
+                  "two scan_project launches give the same bits")
+            del He, Ho, P0, P1, again
         del A, S, args64
         torch.cuda.empty_cache()
     return reports
@@ -445,7 +465,8 @@ def kernel64_phase(dev, reports):
 
 def _wigner_inputs(op, F2, seed, dtype):
     """Random triangle a_lm planes (synthesis input) and ring planes
-    (adjoint input) for a spin operator."""
+    (adjoint input) for a spin operator, planes-minor as SpinSHT builds
+    them."""
     import torch
 
     L = op.lmax + 1
@@ -455,12 +476,14 @@ def _wigner_inputs(op, F2, seed, dtype):
     x = x * (li[None, :] <= li[:, None])
     G = torch.randn((F2, 2 * op.nside, L), generator=g, device=op.device,
                     dtype=dtype)
-    return x, G
+    return _as_built(x), _as_built(G)
 
 
 # float32 K3 shapes (nside, lmax, F2): even and odd L at nside=128, the
-# full spin shape (L=1536, R=1024), whose times the kernel report carries
+# full spin shape (L=1536, R=1024), whose times the kernel report carries,
+# and that shape with the planes of one (E, B) pair and of phase 9's 16
 F32_WIGNER_SHAPES = [(128, 383, 32), (128, 384, 32), (512, 1535, 32)]
+F32_WIGNER_PLANES = (4, 64)
 
 
 def _k3_work(op, tabs, inp, F2):
@@ -525,10 +548,39 @@ def wigner_phase(dev, reports):
                             replaces=K3_REPLACES, max_abs_err=err64, ms=ms64,
                             plain_ms=plain64),
                             *_k3_work(op, t64[sp], inp.double(), F2), 8)
+        if (nside, lmax, F2) == F32_WIGNER_SHAPES[-1]:
+            for F2x in F32_WIGNER_PLANES:
+                x2, G2 = _wigner_inputs(op, F2x, nside + F2x, torch.float32)
+                for name, fn, plain, inp in (
+                        ("wigner_contract", k3.wigner_contract, k3.wigner_contract_plain, x2),
+                        ("wigner_project", k3.wigner_project, k3.wigner_project_plain, G2)):
+                    _, ms2, _ = _compare(
+                        f"{name} s=2 L={lmax + 1} F2={F2x}", nside,
+                        lambda: (fn(*t32[2], inp),), lambda: (plain(*t32[2], inp),),
+                        lambda: (plain(*t64[2], inp.double()),), reps=(7, 1),
+                        rms_floor=1e-5)
+                    print(f"   {name} s=2 nside={nside} L={lmax + 1} F2={F2x}: kernel "
+                          f"{ms2:.3f} ms (CUDA events, median)")
+                del x2, G2
+        if (nside, lmax, F2) == F32_WIGNER_SHAPES[0]:
+            # a one-hot x: the synthesis returns the λ rows themselves
+            ells = torch.linspace(0, lmax, 32, device=dev).long()
+            hot = torch.zeros((32, lmax + 1, lmax + 1), device=dev)
+            hot[torch.arange(32, device=dev), ells] = 1.0
+            for sp in (2, -2):
+                rows = torch.cat([lam for _, lam in
+                                  k3._wigner_blocks(*t32[sp], torch.float32)])
+                check(torch.equal(k3.wigner_contract(*t32[sp], _as_built(hot)),
+                                  rows[ells].permute(0, 2, 1)),
+                      f"K3 s={sp}: the f32 λ rows are the plain recurrence's, bit for bit")
+            del hot, rows
         if (nside, lmax) == (512, 1535):  # adjoint identity: λ rows shared bit for bit
             for sp in (2, -2):
                 g = k3.wigner_contract(*t32[sp], x)
                 a = k3.wigner_project(*t32[sp], G)
+                check(torch.equal(g, k3.wigner_contract(*t32[sp], x))
+                      and torch.equal(a, k3.wigner_project(*t32[sp], G)),
+                      f"two K3 launches of each direction give the same bits (s={sp})")
                 lhs = float((g.double() * G.double()).sum())
                 rhs = float((x.double() * a.double()).sum())
                 gap = abs(lhs - rhs) / (float(g.double().norm()) * float(G.double().norm()))
@@ -682,6 +734,32 @@ def legendre_phase(dev, reports):
             op._tables.clear()
             torch.cuda.empty_cache()
     sht._get_sht_cached.cache_clear()
+    _nside1_check(dev)
+
+
+def _nside1_check(dev):
+    """Cached mode at nside=1 in float32: R=2 rings are not a whole 16-byte
+    vector, so K4's wrapper pads Λ's rings; the scalar and the spin operator
+    through K4 on the card against their plain versions on the CPU."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht, spin
+    from cora_tpu_torch.ops import legendre as k4
+
+    rng = np.random.default_rng(1)
+    E, B = (torch.from_numpy(_triangle(rng, (2, 3, 3))) for _ in range(2))
+    before = k4.launches
+    got = [sht.SHT(1, 2, device=dev, legendre_mode="cached").synthesis(E.to(dev))]
+    got += spin.SpinSHT(1, 2, 2, device=dev, legendre_mode="cached").synthesis(
+        E.to(dev), B.to(dev))
+    ref = [sht.SHT(1, 2, device="cpu", legendre_mode="cached").synthesis(E)]
+    ref += spin.SpinSHT(1, 2, 2, device="cpu", legendre_mode="cached").synthesis(E, B)
+    gap = max(float((g.cpu() - r).abs().max()) / float(r.abs().max())
+              for g, r in zip(got, ref))
+    print(f"   cached mode at nside=1 (f32, R=2): {k4.launches - before} K4 launches, "
+          f"max|Δ|/max vs the plain version {gap:.3e}")
+    check(k4.launches - before >= 3 and gap <= 1e-5,
+          "nside=1 cached synthesis (scalar, spin) launches K4 and matches plain ≤ 1e-5·max")
 
 
 def _random_roots(L, nz, seed):

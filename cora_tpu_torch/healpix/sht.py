@@ -582,8 +582,8 @@ class SHT:
 def default_legendre_mode(device_type: str, nside: int) -> str:
     """The reference factory's rule: the cached-Λ mode on an accelerator
     (here CUDA) up to nside=512, where its table fits the card; the Λ-free
-    scan mode on the CPU and above 512.  nside=1 also takes the scan mode:
-    K4 reads Λ's 2·nside rings as 16-byte vectors."""
+    scan mode on the CPU and above 512.  nside=1 also takes the scan mode
+    (K4 would pad its 2 rings to a whole 16-byte vector at every call)."""
     cached = device_type == "cuda" and 2 <= int(nside) <= 512
     return "cached" if cached else "scan"
 
@@ -769,12 +769,14 @@ def smoothing_grid(fmap, fwhm: float = None, iter: int = 3,
 # ===========================================================================
 
 
-def _route(H0c, H1c, L):
+def _route(H0c, H1c, L, out=(None, None)):
     """Per-ℓ-parity accumulators → even/odd (north ± south) ring spectra:
-    a term with ℓ-parity p feeds the even combination iff ℓ + m is even."""
+    a term with ℓ-parity p feeds the even combination iff ℓ + m is even.
+    ``out`` gives the two results' storage (the kernels' planes-minor
+    layout, written in this pass)."""
     meven = (torch.arange(L, device=H0c.device) % 2 == 0)
-    Ge = torch.where(meven, H0c, H1c)
-    Go = torch.where(meven, H1c, H0c)
+    Ge = torch.where(meven, H0c, H1c, out=out[0])
+    Go = torch.where(meven, H1c, H0c, out=out[1])
     return Ge, Go
 
 
@@ -819,10 +821,12 @@ def fused_project(op, t, Ge, Go):
     L = op.lmax + 1
     rdt = t["psl_rec_a"].dtype
     batch = tuple(Ge.shape[:-2])
-    src0, src1 = _route(_planes(Ge, rdt), _planes(Go, rdt), L)
-    A0, A1 = scan_project(*_kernel_tables(t), src0.contiguous(),
-                          src1.contiguous(), band_rows=op.band_rows,
-                          scale=scale_for(rdt))
+    Pe, Po = _planes(Ge, rdt), _planes(Go, rdt)
+    # the sources planes-minor, as K2 reads them
+    src0, src1 = _route(Pe, Po, L, out=[planes_minor(*Pe.shape, rdt, Pe.device)
+                                        for _ in range(2)])
+    A0, A1 = scan_project(*_kernel_tables(t), src0, src1,
+                          band_rows=op.band_rows, scale=scale_for(rdt))
     # interleave the even/odd ℓ rows, trim the padded rows
     alm = torch.stack([A0, A1], dim=2).reshape(A0.shape[0], -1, L)[:, :L]
     return _join(alm, batch)

@@ -114,6 +114,16 @@ def _wigner_d_seed(theta, m_arr, sp):
     return np.where(~mask, val, out)
 
 
+def _real_planes(a, dt):
+    """Complex [n, rows, L] → real planes [2n, rows, L] ([all re; all im]) of
+    dtype ``dt`` in the kernels' planes-minor storage, in one pass."""
+    n = a.shape[0]
+    x = planes_minor(2 * n, a.shape[1], a.shape[2], dt, a.device)
+    x[:n] = a.real
+    x[n:] = a.imag
+    return x
+
+
 class SpinSHT:
     """Spin-s transform operator for one (nside, lmax, spin).
 
@@ -282,18 +292,14 @@ class SpinSHT:
         [B, nh, L] (complex), both batches in one K3 launch (scan mode) or
         one K4 launch (cached mode)."""
         B = alm_a.shape[0]
-        a = torch.cat([alm_a, alm_b])
-        if "sp" in t:
+        cached = "sp" in t
+        x = _real_planes(torch.cat([alm_a, alm_b]),
+                         (t["sp"][sp] if cached else t[sp])[0].dtype)
+        if cached:
             lam, desc = t["sp"][sp]
-            n, L = a.shape[0], a.shape[-1]
-            x = planes_minor(2 * n, a.shape[1], L, lam.dtype, a.device)
-            x[:n] = a.real
-            x[n:] = a.imag
-            g = lam.new_zeros((2 * n, 2 * self.nside, L))
+            g = lam.new_zeros((4 * B, 2 * self.nside, x.shape[-1]))
             legendre_contract(lam, desc, x, g)
         else:
-            coefs = t[sp][0]
-            x = torch.cat([a.real, a.imag]).to(coefs.dtype).contiguous()
             g = wigner_contract(*t[sp], x)
         G = torch.complex(g[:2 * B], g[2 * B:])
         return G[:B], G[B:]
@@ -309,9 +315,7 @@ class SpinSHT:
             x = torch.cat([G.real, G.imag]).to(lam.dtype)
             a = legendre_project(lam, desc, x, LA=self.lmax + 1)
         else:
-            coefs = t[sp][0]
-            x = torch.cat([G.real, G.imag]).to(coefs.dtype).contiguous()
-            a = wigner_project(*t[sp], x)
+            a = wigner_project(*t[sp], _real_planes(G, t[sp][0].dtype))
         A = torch.complex(a[:2 * B], a[2 * B:])
         return A[:B], A[B:]
 

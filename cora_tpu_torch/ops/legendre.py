@@ -31,7 +31,8 @@ each bound (``chip_smoke.py``, two runs; the design notes are in the CUDA
 source).  Λ rows and the planes are copied as 16-byte vectors: the planes
 from planes-minor storage
 (:func:`cora_tpu_torch.ops.scan_legendre.kernel_planes`), the layout the
-transforms build, and R must be a whole number of vectors.
+transforms build; an R that is not a whole number of vectors (nside=1 in
+float32) is padded with zero rings by the wrapper.
 
 The adjoint, :func:`legendre_project` (alm rows = Σ_r Λ·src), is one
 ``torch.bmm`` per chunk, as the reference leaves its adjoint to an einsum
@@ -185,10 +186,11 @@ def legendre_contract(lam, desc, A, H0, H1=None):
     into ``H0`` (and ``H1``) [F2, R, M] in place; returns ``(H0, H1)``.
 
     CPU tensors run :func:`legendre_contract_plain`; CUDA tensors (float32
-    or float64; lam and H contiguous, R a whole number of 16-byte vectors;
-    A read planes-minor,
+    or float64; lam and H contiguous; A read planes-minor,
     :func:`cora_tpu_torch.ops.scan_legendre.kernel_planes`) launch K4 or
-    raise.
+    raise.  Where R is not a whole number of 16-byte vectors (nside=1 in
+    float32), Λ's rings and the accumulators are padded with zero rings
+    for the launch.
     """
     rows, F2, LA, M, R = _check_args(lam, desc, A, H0, H1)
     if A.device.type == "cpu":
@@ -201,10 +203,19 @@ def legendre_contract(lam, desc, A, H0, H1=None):
         if x is not None and not x.is_contiguous():
             raise ValueError(f"legendre_contract: {name} must be contiguous")
     v = vector_width(lam.dtype)
-    if R % v or lam.data_ptr() % 16 or any(off % v for off, *_ in rows):
-        raise ValueError(f"legendre_contract: the kernel copies Λ rows as 16-byte "
-                         f"vectors; R={R} must be a multiple of {v}, lam and its "
-                         "chunks 16-byte aligned")
+    if R % v:  # nside=1 in float32 (R=2): zero rings up to a whole vector
+        Rp = -(-R // v) * v
+        lam_p, rows_p = _pad_rings(lam, rows, R, Rp)
+        Hp = [None if H is None else torch.nn.functional.pad(H, (0, 0, 0, Rp - R))
+              for H in (H0, H1)]
+        legendre_contract(lam_p, torch.tensor(rows_p, dtype=torch.int64), A, *Hp)
+        for H, P in zip((H0, H1), Hp):
+            if H is not None:
+                H.copy_(P[:, :R])
+        return H0, H1
+    if lam.data_ptr() % 16 or any(off % v for off, *_ in rows):
+        raise ValueError("legendre_contract: the kernel copies Λ rows as 16-byte "
+                         "vectors; lam and its chunks must be 16-byte aligned")
     A, fs = kernel_planes(A, "legendre_contract: A")
     if -(-M // 4) > 65535 or -(-F2 // 8) > 65535:
         raise ValueError("legendre_contract: shape exceeds the kernel's grid")
@@ -221,6 +232,18 @@ def legendre_contract(lam, desc, A, H0, H1=None):
     launches += 1
     entry_launches[entry] = entry_launches.get(entry, 0) + 1
     return H0, H1
+
+
+def _pad_rings(lam, rows, R, Rp):
+    """(Λ, descriptor rows) with every chunk [mw, nrows, R] padded with zero
+    rings to [mw, nrows, Rp] and the offsets moved accordingly."""
+    out, rows_p, off_p = [], [], 0
+    for off, nrows, mw, row0, tgt in rows:
+        c = lam[off:off + mw * nrows * R].view(mw, nrows, R)
+        out.append(torch.nn.functional.pad(c, (0, Rp - R)).reshape(-1))
+        rows_p.append((off_p, nrows, mw, row0, tgt))
+        off_p += mw * nrows * Rp
+    return torch.cat(out), rows_p
 
 
 def _device_desc(rows, dev):

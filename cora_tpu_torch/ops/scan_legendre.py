@@ -17,22 +17,28 @@ triangle never reaches device memory:
       alm1[f, j, m] = Σ_r λ_{2j+1}[m, r] · src1[f, r, m]
 
 Each wrapper launches its CUDA kernel (``csrc/scan_legendre.cu``,
-``csrc/scan_project.cu``) for CUDA tensors and takes the plain version only
-for CPU tensors.  K1 is bound by its arithmetic on an H100: at the flagship
-call (nside=512, L=1536, 32 planes) 82 GFLOP, 1.23 ms at the f32 rate of 67
-TFLOP/s; in f64 (L=1537, 64 planes) 2.31 ms of tensor-core products.  A
-block holds all planes, so the recurrence runs once per (ℓ, ring, m) in f32
-(twice in f64, a block per ℓ parity); λ passes through shared memory while
-the planes stream in by cp.async: 4.289–4.341 ms in f32, 8.892–9.140 ms
-in f64 on an H100 80GB HBM3 at 700 W, 28–29% and 25–26% of those bounds
-(``chip_smoke.py``, two runs; the design notes are in the CUDA source).
-K1 reads the a_lm planes as 16-byte vectors from planes-minor storage
-(:func:`planes_minor`, :func:`kernel_planes`), the layout the transforms
-build.  Both kernels come in float32 (tables scaled with S=60, β=30) and
-float64 (S=512, β=256); the tensors' dtype picks the entry point and must
-match the tables' scaling.  ``launches`` counts K1
-launches, ``project_launches`` K2 launches, in either precision;
-``entry_launches`` counts them per C entry point (``cora_scan_contract``,
+``csrc/scan_project.cu``; the recurrence both share is
+``csrc/scan_recurrence.cuh``) for CUDA tensors and takes the plain version
+only for CPU tensors.  Both are bound by their arithmetic on an H100: at
+the flagship call (nside=512, L=1536, 32 planes) 82 GFLOP, 1.23 ms at the
+f32 rate of 67 TFLOP/s; in f64 (L=1537, 64 planes) 2.31 ms of tensor-core
+products.  A K1 block holds all planes, so the recurrence runs once per
+(ℓ, ring, m) in f32 (twice in f64, a block per ℓ parity); λ passes through
+shared memory while the planes stream in by cp.async.  K2 turns the
+product round: rings are its inner dimension, a block holds 2 m × 128 rings
+with its sources in shared memory, and the blocks of one m group (a
+thread-block cluster) add their partial sums in rank order through
+distributed shared memory — no atomics, the same bits from run to run; at
+F2 ≤ 8 one block per m keeps the carry and the sources in registers
+(``csrc/project_tiles.cuh``; the design notes are in the CUDA sources, the
+times in ``PERF.md``).  Both kernels read their input planes as 16-byte
+vectors from planes-minor storage (:func:`planes_minor`,
+:func:`kernel_planes`), the layout the transforms build, and K2 returns
+planes-minor views.  Both come in float32 (tables scaled with S=60, β=30)
+and float64 (S=512, β=256); the tensors' dtype picks the entry point and
+must match the tables' scaling.  ``launches`` counts K1 launches,
+``project_launches`` K2 launches, in either precision; ``entry_launches``
+counts them per C entry point (``cora_scan_contract``,
 ``cora_scan_contract_f64``, ``cora_scan_project``,
 ``cora_scan_project_f64``), so each precision's launches are read apart.
 """
@@ -59,7 +65,6 @@ entry_launches = {}
 
 _PLAIN_L_BLOCK = 64  # ℓ rows per einsum in the plain versions
 _DTYPES = (torch.float32, torch.float64)
-_P_FT = 8  # K2: planes per block in both precisions (csrc/scan_project.cu)
 _FNS = {}
 
 
@@ -71,8 +76,8 @@ def scale_for(dtype):
 def _kernel_fn(lib_name, fn_name):
     """A kernel's C entry point, with its signature declared.  The entry
     points take (6 table pointers, nband, in0, in1, out0, out1, L, M, R,
-    F2, band_rows, device, stream); K1's take the planes' vector stride
-    (:func:`kernel_planes`) after band_rows."""
+    F2, band_rows, fs, device, stream), fs the planes' vector stride
+    (:func:`kernel_planes`)."""
     fn = _FNS.get(fn_name)
     if fn is None:
         from . import _build
@@ -80,24 +85,23 @@ def _kernel_fn(lib_name, fn_name):
         fn = getattr(_build.load(lib_name), fn_name)
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.restype = I
-        nint = 7 if fn_name.startswith("cora_scan_contract") else 6
-        fn.argtypes = [P] * 6 + [I] + [P] * 4 + [I] * nint + [P]
+        fn.argtypes = [P] * 6 + [I] + [P] * 4 + [I] * 7 + [P]
         _FNS[fn_name] = fn
     return fn
 
 
 def vector_width(dtype):
-    """Elements of ``dtype`` in one 16-byte vector, the unit in which K1
-    and K4 copy their inputs into shared memory."""
+    """Elements of ``dtype`` in one 16-byte vector, the unit in which the
+    kernels copy their planes into shared memory."""
     return 16 // torch.empty((), dtype=dtype).element_size()
 
 
 def planes_minor(F2, n, M, dtype, device):
     """An empty [F2, n, M] tensor stored planes-minor: a view of [n, M, fs]
     storage, fs = F2 rounded up to a whole 16-byte vector (the padding
-    planes zero).  K1 and K4 read the planes of one (row, m) from it as
-    16-byte vectors; the transforms build their a_lm planes straight into
-    it."""
+    planes zero).  The kernels read the planes of one (row, m) from it as
+    16-byte vectors, and K2 and K3's adjoint write their output so; the
+    transforms build their planes straight into it."""
     v = vector_width(dtype)
     store = torch.empty((n, M, -(-F2 // v) * v), dtype=dtype, device=device)
     store[..., F2:].zero_()
@@ -105,7 +109,7 @@ def planes_minor(F2, n, M, dtype, device):
 
 
 def kernel_planes(x, name="planes"):
-    """(x, fs): planes [F2, n, M] as K1 and K4 take them, in planes-minor
+    """(x, fs): planes [F2, n, M] as the kernels take them, in planes-minor
     storage [n, M, fs] (:func:`planes_minor`; fs = F2 rounded up to a whole
     16-byte vector).  A tensor already stored so (16-byte aligned) is
     taken as it is; a contiguous or otherwise planes-minor one is laid out
@@ -153,8 +157,7 @@ def scan_contract(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1, *,
     # block, a plane tile of 8 and two ℓ parities (csrc/scan_legendre.cu)
     out = _launch("scan_contract", "scan_legendre", tabs, alm0, alm1,
                   (F2, L // 2, M), (F2, z.shape[0], M), band_rows, scale,
-                  (-(-z.shape[0] // 32), -(-M // 4), 2 * -(-F2 // 8)),
-                  planes=True)
+                  (-(-z.shape[0] // 32), -(-M // 4), 2 * -(-F2 // 8)))
     launches += 1
     return out
 
@@ -166,7 +169,10 @@ def scan_project(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1, *,
     ``src0``/``src1`` [F2, R, M] are the sources of the even-ℓ / odd-ℓ rows;
     the tables, ``band_rows`` and ``scale`` are those of
     :func:`scan_contract`.  CPU tensors run :func:`scan_project_plain`;
-    CUDA tensors launch the kernel (float32 or float64) or raise.
+    CUDA tensors launch the kernel (float32 or float64) or raise.  The
+    kernel reads the sources planes-minor (:func:`kernel_planes`) and
+    returns planes-minor views (:func:`planes_minor`), every element
+    written.
     """
     tabs = (rec_a, rec_b, seed_T, k0_T, z, ck_T)
     dev = src0.device
@@ -177,7 +183,8 @@ def scan_project(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1, *,
     L, M = rec_a.shape
     out = _launch("scan_project", "scan_project", tabs, src0, src1,
                   (src0.shape[0], z.shape[0], M), (src0.shape[0], L // 2, M),
-                  band_rows, scale, (M, -(-src0.shape[0] // _P_FT), 1))
+                  band_rows, scale, (8, -(-M // 2), -(-src0.shape[0] // 8)),
+                  minor_out=True)
     project_launches += 1
     return out
 
@@ -194,12 +201,12 @@ def _check(name, x, shape, dev, contiguous=True):
 
 
 def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
-            band_rows, scale, grid, planes=False):
+            band_rows, scale, grid, minor_out=False):
     """Check every argument of a kernel, allocate its outputs and launch it
-    on the current stream.  With ``planes`` (K1) the inputs are a_lm planes
-    taken as :func:`kernel_planes` says, the outputs are left unset (K1
-    writes every element); otherwise (K2) the inputs must be contiguous and
-    the outputs are zeroed (K2 accumulates into them).
+    on the current stream.  The input planes are taken as
+    :func:`kernel_planes` says; the outputs are left unset (both kernels
+    write every element), contiguous (K1) or, with ``minor_out`` (K2),
+    planes-minor.
 
     The dtype of ``in0`` picks the float32 or the float64 entry point; the
     tables must have been scaled for that dtype (:func:`scale_for`).
@@ -218,9 +225,8 @@ def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
     dev = in0.device
     if dev.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {dev}")
-    if planes:
-        (in0, fs), (in1, _) = (kernel_planes(x, f"{fn_name}: {name}")
-                               for x, name in ((in0, "in0"), (in1, "in1")))
+    (in0, fs), (in1, _) = (kernel_planes(x, f"{fn_name}: {name}")
+                           for x, name in ((in0, "in0"), (in1, "in1")))
     rec_a, rec_b, seed_T, k0_T, z, ck_T = tabs
     L, M = rec_a.shape
     R = z.shape[0]
@@ -232,22 +238,24 @@ def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
                            ("z", z, (R,)), ("in0", in0, in_shape),
                            ("in1", in1, in_shape)):
         _check(f"{fn_name}: {name}", x, shape, dev,
-               contiguous=not (planes and name.startswith("in")))
+               contiguous=not name.startswith("in"))
     if nband > 1:
         _check(f"{fn_name}: ck_T", ck_T, (nband, 2, M, R), dev)
     if grid[0] >= 2**31 or max(grid[1:]) > 65535:
         raise ValueError(f"{fn_name}: shape exceeds the kernel's grid")
 
-    alloc = torch.empty if planes else torch.zeros
-    out0 = alloc(out_shape, dtype=dt, device=dev)
-    out1 = alloc(out_shape, dtype=dt, device=dev)
+    if minor_out:
+        out0, out1 = (planes_minor(*out_shape, dt, dev) for _ in range(2))
+    else:
+        out0, out1 = (torch.empty(out_shape, dtype=dt, device=dev)
+                      for _ in range(2))
     stream = torch.cuda.current_stream(dev).cuda_stream
     entry = "cora_" + fn_name + ("_f64" if dt == torch.float64 else "")
     err = _kernel_fn(lib_name, entry)(
         *(x.data_ptr() for x in tabs), int(nband), in0.data_ptr(),
         in1.data_ptr(), out0.data_ptr(), out1.data_ptr(), int(L), int(M),
-        int(R), int(in0.shape[0]), int(band_rows),
-        *((int(fs),) if planes else ()), int(dev.index), stream)
+        int(R), int(in0.shape[0]), int(band_rows), int(fs), int(dev.index),
+        stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
     entry_launches[entry] = entry_launches.get(entry, 0) + 1

@@ -14,10 +14,17 @@ Tables: ``coefs`` [3, L, M] (A, B, C; zero where ℓ ≤ l0), ``seed_T``
 [M, R], ``l0`` [M] int32, ``z`` [R].  Each wrapper launches
 ``csrc/wigner_apply.cu`` for CUDA tensors (float32 or float64: the dtype
 of ``x`` picks the entry point) and takes the plain version only for CPU
-tensors.  ``launches`` counts synthesis launches, ``project_launches``
-adjoint launches, in either precision; ``entry_launches`` counts them per
-C entry point (``cora_wigner_contract``, ``cora_wigner_contract_f64``,
-``cora_wigner_project``, ``cora_wigner_project_f64``).
+tensors.  The kernels read ``x`` as 16-byte vectors from planes-minor
+storage (:func:`cora_tpu_torch.ops.scan_legendre.kernel_planes`, the layout
+``SpinSHT`` builds; any other input is laid out so in one pass); a block
+holds all planes of its tile, so the recurrence runs once per (ℓ, ring, m)
+(the synthesis has K1's design, the adjoint K2's: ``csrc/project_tiles.cuh``;
+the design notes and times are in the CUDA source and ``PERF.md``).  The
+adjoint returns a planes-minor view.  ``launches`` counts synthesis
+launches, ``project_launches`` adjoint launches, in either precision;
+``entry_launches`` counts them per C entry point (``cora_wigner_contract``,
+``cora_wigner_contract_f64``, ``cora_wigner_project``,
+``cora_wigner_project_f64``).
 """
 
 from __future__ import annotations
@@ -27,20 +34,21 @@ import math
 
 import torch
 
+from .scan_legendre import kernel_planes, planes_minor
+
 launches = 0
 project_launches = 0
 entry_launches = {}
 
 _PLAIN_L_BLOCK = 64  # ℓ rows per einsum in the plain versions
-_WARPS = 8           # synthesis: m values per block (csrc/wigner_apply.cu)
-_FT = {torch.float32: 16, torch.float64: 8}  # synthesis planes per block
-_P_FT = 8            # adjoint planes per block
+_DTYPES = (torch.float32, torch.float64)
 _FNS = {}
 
 
 def _kernel_fn(fn_name):
     """A C entry point of the kernel library, with its signature declared:
-    (coefs, seed_T, l0, z, x, out, L, M, R, F2, device, stream)."""
+    (coefs, seed_T, l0, z, x, out, L, M, R, F2, fs, device, stream), fs the
+    planes' vector stride (``kernel_planes``)."""
     fn = _FNS.get(fn_name)
     if fn is None:
         from . import _build
@@ -48,7 +56,7 @@ def _kernel_fn(fn_name):
         fn = getattr(_build.load("wigner_apply"), fn_name)
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.restype = I
-        fn.argtypes = [P] * 6 + [I] * 5 + [P]
+        fn.argtypes = [P] * 6 + [I] * 6 + [P]
         _FNS[fn_name] = fn
     return fn
 
@@ -64,9 +72,11 @@ def wigner_contract(coefs, seed_T, l0, z, x):
     global launches
     _, L, M = coefs.shape
     R, F2 = z.shape[0], x.shape[0]
+    # the largest grid of either precision: 64-ring tiles, 4 m values a
+    # block, a plane tile of 8 (csrc/wigner_apply.cu)
     out = _launch("cora_wigner_contract", (coefs, seed_T, l0, z), x,
                   (F2, L, M), (F2, R, M),
-                  (-(-R // 32), -(-M // _WARPS), -(-F2 // _FT.get(x.dtype, 16))))
+                  (-(-R // 64), -(-M // 4), -(-F2 // 8)))
     launches += 1
     return out
 
@@ -74,23 +84,28 @@ def wigner_contract(coefs, seed_T, l0, z, x):
 def wigner_project(coefs, seed_T, l0, z, x):
     """alm [F2, L, M] from ring planes x [F2, R, M] — the adjoint of
     :func:`wigner_contract`.  CPU tensors run :func:`wigner_project_plain`;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel or raise; the result is then a
+    planes-minor view (``scan_legendre.planes_minor``), every element
+    written."""
     if x.device.type == "cpu":
         return wigner_project_plain(coefs, seed_T, l0, z, x)
     global project_launches
     _, L, M = coefs.shape
     R, F2 = z.shape[0], x.shape[0]
     out = _launch("cora_wigner_project", (coefs, seed_T, l0, z), x,
-                  (F2, R, M), (F2, L, M), (M, -(-F2 // _P_FT), 1))
+                  (F2, R, M), (F2, L, M), (8, -(-M // 2), -(-F2 // 8)),
+                  minor_out=True)
     project_launches += 1
     return out
 
 
-def _launch(fn_name, tabs, x, in_shape, out_shape, grid):
-    """Check every argument, allocate the zeroed output and launch on the
-    current stream (``_f64`` entry point for float64 planes)."""
+def _launch(fn_name, tabs, x, in_shape, out_shape, grid, minor_out=False):
+    """Check every argument, allocate the output (contiguous, or
+    planes-minor with ``minor_out``; the kernels write every element) and
+    launch on the current stream (``_f64`` entry point for float64
+    planes)."""
     dt = x.dtype
-    if dt not in _FT:
+    if dt not in _DTYPES:
         raise TypeError(f"{fn_name}: float32 or float64 planes, got {dt}")
     dev = x.device
     if dev.type != "cuda":
@@ -98,10 +113,14 @@ def _launch(fn_name, tabs, x, in_shape, out_shape, grid):
     coefs, seed_T, l0, z = tabs
     _, L, M = coefs.shape
     R = z.shape[0]
+    if tuple(x.shape) != tuple(in_shape):
+        raise ValueError(f"{fn_name}: x has shape {tuple(x.shape)}, "
+                         f"expected {tuple(in_shape)}")
+    x, fs = kernel_planes(x, f"{fn_name}: x")
     for name, t, shape, tdt in (("coefs", coefs, (3, L, M), dt),
                                 ("seed_T", seed_T, (M, R), dt),
                                 ("l0", l0, (M,), torch.int32),
-                                ("z", z, (R,), dt), ("x", x, in_shape, dt)):
+                                ("z", z, (R,), dt)):
         if t.device != dev:
             raise ValueError(f"{fn_name}: {name} on {t.device}, expected {dev}")
         if t.dtype != tdt:
@@ -114,12 +133,13 @@ def _launch(fn_name, tabs, x, in_shape, out_shape, grid):
     if grid[0] >= 2**31 or max(grid[1:]) > 65535:
         raise ValueError(f"{fn_name}: shape exceeds the kernel's grid")
 
-    out = torch.zeros(out_shape, dtype=dt, device=dev)
+    out = (planes_minor(*out_shape, dt, dev) if minor_out
+           else torch.empty(out_shape, dtype=dt, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     entry = fn_name + ("_f64" if dt == torch.float64 else "")
     err = _kernel_fn(entry)(
         *(t.data_ptr() for t in tabs), x.data_ptr(), out.data_ptr(), int(L),
-        int(M), int(R), int(x.shape[0]), int(dev.index), stream)
+        int(M), int(R), int(x.shape[0]), int(fs), int(dev.index), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
     entry_launches[entry] = entry_launches.get(entry, 0) + 1

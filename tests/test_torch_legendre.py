@@ -366,16 +366,54 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype, bound, F2, layout):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_rings_off_the_vectors_on_gpu(cuda_device):
-    """K4 copies Λ rows as 16-byte vectors: R=70 float32 rings (not a
-    multiple of 4) are refused before anything launches."""
-    lam, desc, A = _random_chunks(np.random.default_rng(10), R=70, M=37, LA=14,
-                                  F2=8, dtype=torch.float32)
-    H0, H1 = (torch.zeros(8, 70, 37, device=cuda_device) for _ in range(2))
+@pytest.mark.parametrize("layout", ["scalar", "spin"])
+def test_kernel_pads_rings_off_the_vectors_on_gpu(cuda_device, layout):
+    """K4 copies Λ rows as 16-byte vectors: nside=1's R=2 float32 rings are
+    padded with zero rings to a whole vector, K4 launches and gives its plain
+    version's result (scalar: two accumulators; spin: one)."""
+    rng = np.random.default_rng(10)
+    R, M, F2 = 2, 3, 6
+    two = layout == "scalar"
+    desc, total = k4.chunk_desc([(0, 2, 3, 0), (2, 1, 2, 1 if two else 0)], R)
+    lam = torch.from_numpy(rng.standard_normal(total)).float().to(cuda_device)
+    A = torch.from_numpy(rng.standard_normal((F2, 3, M))).float().to(cuda_device)
+    H = [torch.from_numpy(rng.standard_normal((F2, R, M))).float().to(cuda_device)
+         for _ in range(2)]
+    ref = [h.clone() for h in H]
+    before = k4.entry_launches.get("cora_legendre_contract_f32", 0)
+    k4.legendre_contract(lam, desc, A, H[0], H[1] if two else None)
+    torch.cuda.synchronize()
+    assert k4.entry_launches["cora_legendre_contract_f32"] == before + 1
+    k4.legendre_contract_plain(lam, desc, A, ref[0], ref[1] if two else None)
+    for got, want in zip(H, ref):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cached_nside1_synthesis_on_gpu(cuda_device):
+    """SHT(1, lmax, legendre_mode="cached") and the spin operator synthesise
+    in float32 through K4 on the card, within 1e-5·max of the CPU's plain
+    version."""
+    from cora_tpu_torch.healpix import spin as tspin
+
+    rng = np.random.default_rng(12)
+    alm = torch.from_numpy(_random_alm(rng, 2).astype(np.complex64))
+    ops = {d: tsht.SHT(1, 2, device=d, legendre_mode="cached")
+           for d in ("cpu", cuda_device)}
     before = k4.launches
-    with pytest.raises(ValueError, match="16-byte vectors"):
-        k4.legendre_contract(lam.to(cuda_device), desc, A.to(cuda_device), H0, H1)
-    assert k4.launches == before
+    got = ops[cuda_device].synthesis(alm.to(cuda_device)).cpu()
+    assert k4.launches > before
+    ref = ops["cpu"].synthesis(alm)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    sops = {d: tspin.SpinSHT(1, 2, 2, device=d, legendre_mode="cached")
+            for d in ("cpu", cuda_device)}
+    blm = torch.from_numpy(_random_alm(rng, 2).astype(np.complex64))
+    before = k4.launches
+    got = [x.cpu() for x in sops[cuda_device].synthesis(alm.to(cuda_device),
+                                                        blm.to(cuda_device))]
+    assert k4.launches > before
+    for g, r in zip(got, sops["cpu"].synthesis(alm, blm)):
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
 @pytest.mark.cuda

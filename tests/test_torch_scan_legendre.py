@@ -7,10 +7,11 @@ level, to a numpy emulation of the CUDA kernel's loop structure (ℓ-block
 start per m tile, band counter, F tiling, two-level sums), which pins the
 kernel's design to the plain version's semantics without a GPU.  The
 projection is held the same way: its plain version to JAX
-``_legendre_project_scan`` (XLA route), to K1-plain by adjointness, and a
-numpy replay of csrc/scan_project.cu's block structure to the plain
-version.  The CUDA kernels themselves are compared on the card (``cuda``
-marker).
+``_legendre_project_scan`` (XLA route), to K1-plain by adjointness, and
+numpy replays of csrc/project_tiles.cuh's two loops (ring tiles whose
+partial sums are added in rank order, in passes of one cluster; one block
+per m with the warp reduction at F2 ≤ 8) to the plain version.  The CUDA
+kernels themselves are compared on the card (``cuda`` marker).
 """
 
 import numpy as np
@@ -241,15 +242,21 @@ def test_kernel_block_structure_matches_plain_f64():
     assert np.abs(ho_e - ho_p.numpy()).max() <= 1e-13 * sc
 
 
-def test_project_kernel_block_structure_matches_plain_f64():
-    """The double instantiation of K2 (2 rings a thread) replayed in numpy
+@pytest.mark.parametrize("F2,kw", [
+    (20, dict(lb=16, fp=16, dmma=True)),          # two plane tiles of 16, DMMA
+    (20, dict(lb=16, fp=16, dmma=True, rt=8, cluster=2)),  # R=16: one pass of 2 ranks
+    (6, dict(lb=16, small=dict(rpt=2, ft=8))),    # F2 ≤ 8: 2 rings a thread
+])
+def test_project_kernel_block_structure_matches_plain_f64(F2, kw):
+    """The double instantiations of K2 (16-row steps; DMMA groups of 4 rings,
+    plane tiles of 16; at F2 ≤ 8 two rings a thread) replayed in numpy
     float64 against the f64 plain version."""
-    op, args, _, S = _f64_scaled_inputs(10, 4)
+    op, args, _, S = _f64_scaled_inputs(F2, 4)
     a0_p, a1_p = k1.scan_project_plain(*args, *S, band_rows=op.band_rows,
                                        scale=k1.SCALE_F64)
     a0_e, a1_e = _emulate_project_kernel(*[a.numpy() for a in args], S[0].numpy(),
-                                         S[1].numpy(), op.band_rows, rpt=2,
-                                         scale=k1.SCALE_F64)
+                                         S[1].numpy(), op.band_rows,
+                                         scale=k1.SCALE_F64, **kw)
     sc = float(a0_p.abs().max())
     assert np.abs(a0_e - a0_p.numpy()).max() <= 1e-13 * sc
     assert np.abs(a1_e - a1_p.numpy()).max() <= 1e-13 * sc
@@ -375,87 +382,185 @@ def test_project_plain_matches_jax_xla(double, tol):
     assert np.abs(got.numpy() - ref).max() <= tol * np.abs(ref).max()
 
 
-def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1,
-                            band_rows, rpt=4, max_threads=256, ft=8, pb=16,
-                            scale=(60, 30)):
-    """numpy replay of csrc/scan_project.cu, in the dtype of the sources:
-    one block per (m, plane tile), rings in chunks of threads·rpt (thread t
-    holds rings chunk + i·threads + t), per-thread sums over its rpt rings,
-    the warp's butterfly (lane bit 4 first, then 3, 2, 1, 0), warp sums in
-    order once per ℓ-block of pb row pairs, chunks added in order."""
-    f32 = src0.dtype.type
-    L, M = rec_a.shape
-    R = z.size
-    F2 = src0.shape[0]
-    nband = ck_T.shape[0]
-    nthr = min(max_threads, -(-(-(-R // rpt)) // 32) * 32)
-    nw = nthr // 32
-    out = [np.zeros((F2, L // 2, M), f32) for _ in range(2)]
+def replay_project(make_rows, srcs, L, M, R, lb=32, mt=2, rt=128, cluster=8,
+                   fp=32, dmma=False):
+    """numpy replay of project_kernel (csrc/project_tiles.cuh), the loop K2
+    and K3's adjoint share, in the dtype of the sources.
+
+    ``make_rows(ms, rr)`` yields, per step of ``lb`` rows from the step that
+    holds the m group's first m, the emitted rows λ [lb, len(ms), len(rr)]
+    (zero past L and on rings past R).  A block owns ``mt`` m × ``rt`` rings
+    and a plane tile of ``fp``; the blocks of one m group form a cluster of
+    at most ``cluster`` ranks, more ring tiles are walked in passes.  Per
+    step and ℓ parity q each half of a block's rings is summed on its own
+    (f32: ring after ring; ``dmma``: groups of 4 rings, summed pairwise,
+    added to the running sum), the partials are added rank after rank, half
+    after half, and each pass adds to the output.  Returns [res_0, res_1],
+    res_q [F2, ⌈L/2⌉, M] holding row ℓ = 2j + q at j."""
+    dt = srcs[0].dtype.type
+    F2 = srcs[0].shape[0]
+    res = [np.zeros((F2, (L + 1) // 2, M), dt) for _ in range(2)]
+    C = min(cluster, -(-R // rt))
+    for m0 in range(0, M, mt):
+        ms = np.arange(m0, min(m0 + mt, M))
+        lstart = (m0 // lb) * lb
+        for f0 in range(0, F2, fp):
+            fs = np.arange(f0, min(f0 + fp, F2))
+            for pas in range(-(-R // (C * rt))):
+                rings = [(pas * C + rank) * rt + np.arange(rt) for rank in range(C)]
+                gens = [make_rows(ms, rr) for rr in rings]
+                for lb0 in range(lstart, L, lb):
+                    tot = None
+                    for rr, gen in zip(rings, gens):
+                        lam = next(gen)
+                        ri = np.minimum(rr, R - 1)
+                        for half in (0, 1):
+                            hs = slice(half * rt // 2, (half + 1) * rt // 2)
+                            acc = []
+                            for q in (0, 1):
+                                S = np.where((rr[hs] < R)[None, :, None],
+                                             srcs[q][fs][:, ri[hs]][:, :, ms], dt(0))
+                                # products [NJ, nm, nf] per ring of the half
+                                prod = [lam[q::2, :, hs][:, :, r, None]
+                                        * S[:, r, :].T[None] for r in range(rt // 2)]
+                                a = np.zeros_like(prod[0])
+                                if dmma:
+                                    for g in range(0, len(prod), 4):
+                                        a = a + _sum4(prod[g:g + 4])
+                                else:
+                                    for x in prod:
+                                        a = a + x
+                                acc.append(a)
+                            acc = np.stack(acc)
+                            tot = acc if tot is None else tot + acc
+                    for q in (0, 1):
+                        nj = min(lb // 2, (L - lb0 - q + 1) // 2)
+                        blk = res[q][:, lb0 // 2:lb0 // 2 + nj]
+                        blk[np.ix_(fs, np.arange(nj), ms)] += tot[q, :nj].transpose(2, 0, 1)
+    return res
+
+
+def replay_project_small(make_rows, srcs, L, M, R, lb=32, rpt=4, threads=256,
+                         ft=8):
+    """numpy replay of project_small_kernel (F2 ≤ 8): one block per (m,
+    plane tile of ``ft``), rings in chunks of threads·rpt (thread t holds
+    rings chunk + i·threads + t), per-thread sums over its rpt rings, the
+    warp's butterfly (lane bit 4 first, then 3, 2, 1, 0), warp sums in order
+    once per step of ``lb`` rows from the row pair that holds m, chunks added
+    in order.  ``make_rows`` (here given the first row) and the result are
+    those of :func:`replay_project`."""
+    dt = srcs[0].dtype.type
+    F2 = srcs[0].shape[0]
+    nw = threads // 32
+    res = [np.zeros((F2, (L + 1) // 2, M), dt) for _ in range(2)]
     for m in range(M):
-        lstart = m & ~1
         for f0 in range(0, F2, ft):
             fs = np.arange(f0, min(f0 + ft, F2))
-            for rc in range(0, R, nthr * rpt):
-                rr = rc + np.arange(rpt)[:, None] * nthr + np.arange(nthr)[None, :]
-                live = rr < R
+            for rc in range(0, R, threads * rpt):
+                rr = rc + np.arange(rpt * threads)  # ring of (i, t) at i·threads + t
                 ri = np.minimum(rr, R - 1)
-                zr = np.where(live, z[ri], f32(0))
-                lp = np.zeros((rpt, nthr), f32)
-                lpp = np.zeros_like(lp)
-                k = np.zeros_like(lp)
-                S = [np.where(live[None], s[fs][:, ri, m], f32(0)) for s in (src0, src1)]
-                next_ck = (max(band_rows, -(-lstart // band_rows) * band_rows)
-                           if nband > 1 else None)
-                for lb0 in range(lstart, L, 2 * pb):
-                    npair = min(pb, (L - lb0) // 2)
-                    red = np.zeros((nw, npair, 2, fs.size), f32)
-                    for p in range(npair):
-                        l = lb0 + 2 * p
-                        if l == next_ck:
-                            b = l // band_rows
-                            if b < nband:
-                                c0 = np.where(live, ck_T[b, 0, m][ri], f32(0))
-                                c1 = np.where(live, ck_T[b, 1, m][ri], f32(0))
-                                use = (np.abs(c0) > 2.0**-20) & (np.abs(c1) > 2.0**-20)
-                                lpp = np.where(use, c0, lpp)
-                                lp = np.where(use, c1, lp)
-                                k = np.where(use, f32(0), k)
-                            next_ck += band_rows
-                        for par in (0, 1):
-                            row = l + par
-                            lam = rec_a[row, m] * (zr * lp) + rec_b[row, m] * lpp
-                            if m == row:
-                                lam = np.where(live, seed_T[m][ri], f32(0))
-                                k = np.where(live, k0_T[m][ri], f32(1))
-                            o = np.where(k == 0, lam, f32(0))
-                            lpp, lp = lp, lam
-                            acc = o[0] * S[par][:, 0]
-                            for i in range(1, rpt):
-                                acc = acc + o[i] * S[par][:, i]
-                            v = acc.reshape((fs.size, nw) + (2,) * 5)
-                            for _ in range(5):  # lane bits 4, 3, 2, 1, 0
-                                v = v[:, :, 0] + v[:, :, 1]
-                            red[:, p, par] = v.T
-                        grow = (np.abs(lp) > 2.0**scale[1]) & (k > 0)
-                        lp = np.where(grow, lp * f32(2.0**-scale[0]), lp)
-                        lpp = np.where(grow, lpp * f32(2.0**-scale[0]), lpp)
-                        k = np.where(grow, k - 1, k)
-                    tot = red[0]
-                    for w in range(1, nw):
-                        tot = tot + red[w]
-                    for par in (0, 1):
-                        out[par][fs, lb0 // 2:lb0 // 2 + npair, m] += tot[:, par].T
-    return out
+                S = [np.where((rr < R)[None], s[fs][:, ri, m], dt(0))
+                     .reshape(fs.size, rpt, threads) for s in srcs]
+                gen = make_rows(np.array([m]), rr, m & ~1)
+                for lb0 in range(m & ~1, L, lb):
+                    lam = next(gen)[:, 0].reshape(lb, rpt, threads)
+                    for row in range(min(lb, L - lb0)):
+                        q = row % 2
+                        acc = lam[row, 0] * S[q][:, 0]
+                        for i in range(1, rpt):
+                            acc = acc + lam[row, i] * S[q][:, i]
+                        v = acc.reshape((fs.size, nw) + (2,) * 5)
+                        for _ in range(5):  # lane bits 4, 3, 2, 1, 0
+                            v = v[:, :, 0] + v[:, :, 1]
+                        tot = v[:, 0]
+                        for w in range(1, nw):
+                            tot = tot + v[:, w]
+                        res[q][fs, (lb0 + row) // 2, m] += tot
+    return res
 
 
-@pytest.mark.parametrize("nside,lmax,lc,ke,F2,rpt,threads", [
-    (8, 23, 6, 2, 6, 4, 256),     # band_rows 12: cadence does not divide the ℓ-block
-    (16, 47, 8, 2, 10, 4, 256),   # two plane tiles, ragged second one
-    (128, 15, 4, 1, 3, 4, 256),   # 256 rings: two warps
-    (64, 31, 8, 1, 4, 2, 32),     # 128 rings over 32 threads·2: two ring chunks
+def _scan_rows(rec_a, rec_b, seed_T, k0_T, z, ck_T, band_rows, lb, scale):
+    """``make_rows`` of the scaled Legendre recurrence as the kernels run it:
+    from ``lstart`` (default: the step holding the group's first m), the
+    band counter started there, a re-seed wherever a band starts (inside a step too), the seed
+    and scale count injected at ℓ = m, emission where k == 0, one rescale
+    per row pair."""
+    f32 = rec_a.dtype.type
+    L = rec_a.shape[0]
+    R = z.size
+    nband = ck_T.shape[0]
+
+    def make_rows(ms, rr, lstart=None):
+        live = (rr < R)[None, :]
+        ri = np.minimum(rr, R - 1)
+        zr = np.where(live, z[ri][None, :], f32(0))
+        seed = np.where(live, seed_T[ms][:, ri], f32(0))
+        k0 = np.where(live, k0_T[ms][:, ri], f32(1))
+        lp = np.zeros((ms.size, rr.size), f32)
+        lpp = np.zeros_like(lp)
+        k = np.zeros_like(lp)
+        if lstart is None:
+            lstart = (ms[0] // lb) * lb
+        next_ck = (max(band_rows, -(-lstart // band_rows) * band_rows)
+                   if nband > 1 else None)
+        for lb0 in range(lstart, L, lb):
+            rows = np.zeros((lb, ms.size, rr.size), f32)
+            for p in range(lb // 2):
+                l = lb0 + 2 * p
+                if l == next_ck:
+                    b = l // band_rows
+                    if b < nband:
+                        c0 = np.where(live, ck_T[b, 0][ms][:, ri], f32(0))
+                        c1 = np.where(live, ck_T[b, 1][ms][:, ri], f32(0))
+                        use = (np.abs(c0) > 2.0**-20) & (np.abs(c1) > 2.0**-20)
+                        lpp = np.where(use, c0, lpp)
+                        lp = np.where(use, c1, lp)
+                        k = np.where(use, f32(0), k)
+                    next_ck += band_rows
+                for row in (l, l + 1):
+                    a, b = ((rec_a[row, ms], rec_b[row, ms]) if row < L
+                            else (np.zeros(ms.size, f32),) * 2)
+                    lam = a[:, None] * (zr * lp) + b[:, None] * lpp
+                    at = (ms == row)[:, None]
+                    lam = np.where(at, seed, lam)
+                    k = np.where(at, k0, k)
+                    rows[row - lb0] = np.where(k == 0, lam, f32(0))
+                    lpp, lp = lp, lam
+                grow = (np.abs(lp) > 2.0**scale[1]) & (k > 0)
+                lp = np.where(grow, lp * f32(2.0**-scale[0]), lp)
+                lpp = np.where(grow, lpp * f32(2.0**-scale[0]), lpp)
+                k = np.where(grow, k - 1, k)
+            yield rows
+
+    return make_rows
+
+
+def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1,
+                            band_rows, lb=32, scale=(60, 30), small=None, **kw):
+    """csrc/scan_project.cu replayed in numpy: project_kernel's loop, or with
+    ``small`` (rpt, threads, ft) project_small_kernel's."""
+    L, M = rec_a.shape
+    rows = _scan_rows(rec_a, rec_b, seed_T, k0_T, z, ck_T, band_rows, lb, scale)
+    if small is not None:
+        return replay_project_small(rows, (src0, src1), L, M, z.size, lb=lb, **small)
+    return replay_project(rows, (src0, src1), L, M, z.size, lb=lb, **kw)
+
+
+@pytest.mark.parametrize("nside,lmax,lc,ke,F2,kw", [
+    # band_rows 12: the cadence does not divide the 32-row step; ragged F2
+    (8, 23, 6, 2, 11, {}),
+    # two plane tiles, ragged second one
+    (16, 47, 8, 2, 40, {}),
+    # 256 rings: a cluster of two ranks of 128 rings
+    (128, 15, 4, 1, 12, {}),
+    # 128 rings in tiles of 16, clusters of 2: four passes
+    (64, 31, 8, 1, 9, dict(rt=16, cluster=2)),
+    # F2 ≤ 8, a tile of 4 planes; the cadence does not divide the step
+    (8, 23, 6, 2, 2, dict(small=dict(ft=4))),
+    # F2 ≤ 8: 128 rings over 32 threads·2, two ring chunks; ragged F2
+    (64, 31, 8, 1, 6, dict(small=dict(rpt=2, threads=32))),
 ])
-def test_project_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2,
-                                                      rpt, threads):
+def test_project_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2, kw):
     op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                   device="cpu")
     t = op.tables(False)
@@ -466,11 +571,45 @@ def test_project_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2,
     args = tsht._kernel_tables(t)
     a0_p, a1_p = k1.scan_project_plain(*args, s0, s1, band_rows=op.band_rows)
     a0_e, a1_e = _emulate_project_kernel(*[a.numpy() for a in args], s0.numpy(),
-                                         s1.numpy(), op.band_rows, rpt=rpt,
-                                         max_threads=threads)
+                                         s1.numpy(), op.band_rows, **kw)
     sc = float(a0_p.abs().max())
     assert np.abs(a0_e - a0_p.numpy()).max() <= 2e-6 * sc
     assert np.abs(a1_e - a1_p.numpy()).max() <= 2e-6 * sc
+
+
+def test_fused_project_builds_planes_minor_sources(monkeypatch):
+    """fused_project hands K2 its sources planes-minor ([R, M, fs] storage,
+    built in the pass that mixes Ge and Go by m parity), and the plain
+    version gives the same values on them as on contiguous ones."""
+    nside, lmax = 8, 23
+    L = lmax + 1
+    op = tsht.SHT(nside, lmax, l_chunk=8, device="cpu")
+    t = op.tables(False)
+    rng = np.random.default_rng(12)
+    shape = (3, op.nhalf, L)
+    Ge, Go = (torch.from_numpy((rng.standard_normal(shape)
+                                + 1j * rng.standard_normal(shape)).astype(np.complex64))
+              for _ in range(2))
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(args[6:8])
+        return k1.scan_project(*args, **kw)
+
+    monkeypatch.setattr(tsht, "scan_project", spy)
+    got = tsht.fused_project(op, t, Ge, Go)
+    (s0, s1), = seen
+    F2, R = 6, op.nhalf
+    assert s0.shape == (F2, R, L) and s0.stride() == (1, L * 8, 8) == s1.stride()
+    assert k1.kernel_planes(s0)[0].data_ptr() == s0.data_ptr()
+    # the same mixes, contiguous
+    c0, c1 = tsht._route(tsht._planes(Ge, torch.float32),
+                         tsht._planes(Go, torch.float32), L)
+    assert c0.is_contiguous() and torch.equal(c0, s0) and torch.equal(c1, s1)
+    A0, A1 = k1.scan_project_plain(*tsht._kernel_tables(t), c0, c1,
+                                   band_rows=op.band_rows)
+    ref = tsht._join(torch.stack([A0, A1], dim=2).reshape(F2, -1, L)[:, :L], (3,))
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
 
 def test_contract_project_adjoint_f64():
@@ -519,6 +658,42 @@ def test_project_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
     alm_c = tsht.fused_project(op_c, op_c.tables(False), Ge, Go)
     sc = float(alm_c.abs().max())
     assert float((alm.cpu() - alm_c).abs().max()) <= 1e-4 * sc
+
+
+# ring counts: one tile of 128 (R=32, odd L, M=41 off the m tiles), several
+# tiles in one cluster (R=512), more than a cluster of 8 holds (R=2048)
+_RING_CASES = [(16, 40, 8, 2), (256, 23, 6, 2), (1024, 15, 8, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F2", [2, 6, 11, 32, 64])
+@pytest.mark.parametrize("nside,lmax,lc,ke", _RING_CASES)
+@pytest.mark.parametrize("double", [False, True])
+def test_project_kernel_tiles_on_card(cuda_device, nside, lmax, lc, ke, F2, double):
+    """K2 against its plain version at every plane tile (F2 = 2, 6: the
+    loop of F2 ≤ 8; 11, 32, 64: ring tiles in a cluster) and ring count (one
+    tile, several, two passes of a cluster), odd L, a re-seed cadence of 12
+    rows that does not divide the step; sources contiguous (laid out by the
+    wrapper) — f32 ≤ 1e-4·max, f64 ≤ 1e-10·max — and two launches on the
+    same input give the same bits (fixed-order sums, no atomics)."""
+    op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke, device="cpu")
+    args, _, S = _planes_for(op, op.tables(double), F2, 7 + F2, double)
+    kw = dict(band_rows=op.band_rows,
+              scale=k1.scale_for(torch.float64 if double else torch.float32))
+    ref = k1.scan_project_plain(*args, *S, **kw)
+    entry = "cora_scan_project" + ("_f64" if double else "")
+    before = k1.entry_launches.get(entry, 0)
+    dev_args = [a.to(cuda_device) for a in args]
+    dev_S = [x.to(cuda_device) for x in S]
+    got = k1.scan_project(*dev_args, *dev_S, **kw)
+    again = k1.scan_project(*dev_args, *dev_S, **kw)
+    torch.cuda.synchronize()
+    assert k1.entry_launches[entry] == before + 2
+    sc = max(float(x.abs().max()) for x in ref)
+    for g, g2, r in zip(got, again, ref):
+        assert g.shape == r.shape and g.stride(0) == 1  # planes-minor
+        assert float((g.cpu() - r).abs().max()) <= (1e-10 if double else 1e-4) * sc
+        assert torch.equal(g, g2)
 
 
 def _planes_for(op, t, F2, seed, double):
