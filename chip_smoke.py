@@ -56,12 +56,17 @@ Phases (each prints its own lines; any failure exits non-zero):
               (K4) mode, and alm2map_der1 (each device's default mode), on
               the same alms/maps, cuda against cpu: RMS ratios ≤ 1e-5.
 5. main, synthesis — Corr21cm().getsky(device="cuda") at nside=512 × 256
-              channels (400–800 MHz) through the default operator (cached
-              Λ built on the device) with the launch counters reset just
-              before: K4 launches > 0 and no K1 launch, every pixel finite,
-              each channel's map variance within 5% of Σ_ℓ (2ℓ+1)
-              C_ℓ(ν,ν)/4π; stage times (Λ build included) and peak device
-              memory.  Then the same roots and generator seed through
+              channels (400–800 MHz): the device C_ℓ engine (tables, grid
+              and roots built on the card in float64; the host C_ℓ path
+              refused for the call) and the default operator (cached Λ
+              built on the device), with the launch counters reset just
+              before: K4 launches > 0 and no K1 launch, every pixel finite;
+              each diagonal 16×16 channel block of the device grid within
+              1e-6·max of the host f64 grid of that block, R Rᵀ within
+              1e-10·max of the device grid, each channel's map variance
+              within 5% of Σ_ℓ (2ℓ+1) C_ℓ(ν,ν)/4π; stage times (Λ build
+              included) and peak device memory.  Then the same roots and
+              generator seed through
               legendre_mode="scan" (K1 launches, no K4): cube RMS(cached −
               scan)/RMS ≤ 1e-5; and 16 channels through a host-built Λ
               against the device-built one (≤ 1e-5 RMS, host build timed).
@@ -71,6 +76,12 @@ Phases (each prints its own lines; any failure exits non-zero):
               Jacobi syntheses), no K1/K2; each channel's Ĉ_ℓ against its
               C_ℓ(ν,ν) in bins of 64 over ℓ ∈ [2, 767], max |r − 1|/σ ≤ 5;
               stage times and peak device memory.
+5b. checkpoint cache — run after phase 6 (which reuses phase 5's operator),
+              with CORA_TPU_TORCH_CACHE set to a temporary directory for
+              this phase only: the scan checkpoint rows of the default
+              operator at nside=128 and 512 built (and written as
+              ck_{nside}_{lmax}_{l_chunk}_{ckpt_every}.npz), then read back
+              by a fresh operator bit for bit; both times printed.
 7. round trip — a band-limited alm (ℓ ≤ 2·nside) at nside=512 through
               alm2map and map2alm(lmax=1535, solve_lmax=1024, iter=20) in
               scan mode: K1 and K2 launches, no K4; band error ≤ max(1.5×
@@ -107,8 +118,8 @@ Phases (each prints its own lines; any failure exits non-zero):
               then the T analysis in scan mode (the f64 K1 and K2 only),
               within 1e-10·max of the cached one.
 
-The Λ disk cache is off (``CORA_TPU_TORCH_CACHE=""``): nothing survives a
-call.  Launch counts are read per C entry point (``entry_launches`` of each
+The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phase 5b:
+nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
 wrapper module), so the f32 and f64 launches are counted apart.
 
 The line before the last is the kernel report (JSON); the last line is
@@ -925,7 +936,7 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
     from cora_tpu_torch.util import profiling
 
     phase(f"5 main path, synthesis: Corr21cm().getsky() nside={cfg['nside']} × "
-          f"{cfg['nfreq']} channels (default: cached Λ, K4)")
+          f"{cfg['nfreq']} channels (device C_ℓ engine; default: cached Λ, K4)")
     _clear_operators()  # the user path builds its own operator
     cr = Corr21cm()
     cr.nside = cfg["nside"]
@@ -934,21 +945,28 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
     gen = torch.Generator(device=dev).manual_seed(2024)
     seen = {}
     roots_fn = skysim.covariance_roots
+    host_fns = (clfast.build_cl_tables, clfast.cl_grid_np)
 
-    def keep_roots(*a, **kw):  # the same roots for the scan-mode run below
-        seen["roots"] = roots_fn(*a, **kw)
+    def keep_roots(cla, *a, **kw):  # the device grid and its roots, for the checks
+        seen["grid"] = cla
+        seen["roots"] = roots_fn(cla, *a, **kw)
         return seen["roots"]
+
+    def host_path(*a, **kw):
+        raise AssertionError("getsky on CUDA ran the host C_ℓ path")
 
     profiling.enable(True)
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
     skysim.covariance_roots = keep_roots
+    clfast.build_cl_tables = clfast.cl_grid_np = host_path
     t0 = time.perf_counter()
     try:
         sky = cr.getsky(device=dev, generator=gen)
         torch.cuda.synchronize(dev)
     finally:
         skysim.covariance_roots = roots_fn
+        clfast.build_cl_tables, clfast.cl_grid_np = host_fns
     total = time.perf_counter() - t0
     n = _counts()
     st = dict(profiling.stage_times)
@@ -968,18 +986,34 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
     check(tuple(sky.shape) == (cfg["nfreq"], npix), f"sky shape {tuple(sky.shape)}")
     check(bool(torch.isfinite(sky).all()), "every pixel finite")
 
-    # expected per-channel variance Σ_ℓ (2ℓ+1) C_ℓ(ν,ν)/4π from the same
-    # C_ℓ grid code, evaluated on channel subsets (diagonal only)
+    # the device grid's diagonal 16×16 blocks against the host f64 grid
+    # (build_cl_tables + cl_grid_np) of each channel subset; their
+    # diagonals give the expected variance Σ_ℓ (2ℓ+1) C_ℓ(ν,ν)/4π
     lmax = 3 * cfg["nside"] - 1
     nu = np.asarray(cr.frequencies)
+    grid, roots = seen["grid"], seen["roots"]
+    t0 = time.perf_counter()
     tab = clfast.build_cl_tables(cr, nu, dtype=np.float64)
     per_channel = ("chi", "D", "f", "b", "pf", "a")
     ell = np.arange(lmax + 1)[:, None]
     cl_diag = np.empty((lmax + 1, nu.size))
+    worst = 0.0
     for i0 in range(0, nu.size, 16):
         idx = np.arange(i0, min(i0 + 16, nu.size))
         sub = {k: (v[idx] if k in per_channel else v) for k, v in tab.items()}
-        cl_diag[:, idx] = np.einsum("lii->li", clfast.cl_grid_np(sub, lmax))
+        host = clfast.cl_grid_np(sub, lmax)
+        cl_diag[:, idx] = np.einsum("lii->li", host)
+        blk = grid[:, i0:idx[-1] + 1, i0:idx[-1] + 1].cpu().numpy()
+        worst = max(worst, float(np.abs(blk - host).max() / np.abs(host).max()))
+    print(f"   host f64 grid of the 16 diagonal blocks {time.perf_counter() - t0:.3f} s; "
+          f"device grid vs host: worst block max|Δ|/max = {worst:.3e}")
+    check(worst <= 1e-6, "device C_ℓ grid within 1e-6·max of the host grid on "
+          "every diagonal 16×16 block")
+    rr = torch.einsum("lij,lkj->lik", roots, roots)
+    rel = float((rr - grid).abs().max() / grid.abs().max())
+    print(f"   roots: max|R Rᵀ − C_ℓ|/max = {rel:.3e}")
+    check(rel <= 1e-10, "R Rᵀ within 1e-10·max of the device C_ℓ grid")
+    del rr, grid, seen["grid"]
     expect = ((2 * ell + 1) * cl_diag).sum(0) / (4 * np.pi)
     got = sky.double().square().mean(dim=1).cpu().numpy()
     ratio = got / expect
@@ -1038,6 +1072,45 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
     del grids
     torch.cuda.empty_cache()
     return sky, cl_diag
+
+
+def checkpoint_cache_phase(dev, nsides=(128, 512)):
+    """The scan checkpoint rows' disk cache: at each nside the rows of the
+    default operator built with ``CORA_TPU_TORCH_CACHE`` set to a fresh
+    directory (written there), then again by a fresh operator (read back):
+    the same bits, both times printed."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+
+    phase(f"5b checkpoint rows' disk cache at nside {', '.join(map(str, nsides))}")
+    with tempfile.TemporaryDirectory() as cdir:
+        os.environ["CORA_TPU_TORCH_CACHE"] = cdir
+        try:
+            for nside in nsides:
+                lmax = 3 * nside - 1
+                rows, times = [], []
+                for _ in range(2):
+                    _clear_operators()
+                    op = sht.get_sht(nside, lmax, device=dev)
+                    t0 = time.perf_counter()
+                    rows.append(op._ck_host)
+                    times.append(time.perf_counter() - t0)
+                name = os.path.basename(op.ckpt_cache)
+                size = os.path.getsize(op.ckpt_cache)
+                print(f"   nside {nside}: rows {rows[0].shape} built and written "
+                      f"{times[0]:.3f} s, read back {times[1]:.3f} s ({name}, "
+                      f"{size / 2**20:.1f} MiB)")
+                check(name == f"ck_{nside}_{lmax}_{op.l_chunk}_{op.ckpt_every}.npz",
+                      f"cache file {name}")
+                check(rows[0].dtype == rows[1].dtype and rows[0].shape == rows[1].shape
+                      and rows[0].tobytes() == rows[1].tobytes(),
+                      f"nside {nside}: the checkpoint rows read back bit for bit")
+                del rows, op
+        finally:
+            os.environ["CORA_TPU_TORCH_CACHE"] = ""
+            _clear_operators()
+    torch.cuda.empty_cache()
 
 
 def analysis_phase(dev, reports, sky, cl_diag):
@@ -1530,7 +1603,7 @@ def main():
     dev = device_phase()
     import torch
 
-    os.environ["CORA_TPU_TORCH_CACHE"] = ""  # no Λ disk cache: nothing survives a call
+    os.environ["CORA_TPU_TORCH_CACHE"] = ""  # no disk cache (phase 5b sets its own)
     build_phase()
     reports = kernel_phase(dev)
     kernel64_phase(dev, reports)
@@ -1540,6 +1613,7 @@ def main():
     sky, cl_diag = main_phase(dev, reports)
     analysis_phase(dev, reports, sky, cl_diag)
     del sky
+    checkpoint_cache_phase(dev)  # after 6, which reuses phase 5's operator
     roundtrip_phase(dev, reports)
     cli_phase()
     spin_phase(dev, reports)

@@ -179,6 +179,17 @@ class Sky3d(Map3d):
         sky[:, 0] = sky_I
         return sky
 
+    def getalms(self, lmax, device="cuda", generator=None):
+        """Correlated a_lm [numz, lmax+1, lmax+1] of the model on
+        ``device``: the Romberg C_l of :func:`skysim.clarray` (default
+        order, as the reference's) drawn by ``mkfullsky(alms=True)``."""
+        from . import skysim
+
+        dev = resolve_device(device)
+        cla = skysim.clarray(self.angular_powerspectrum, lmax, self.nu_pixels)
+        return skysim.mkfullsky(cla, self.nside, alms=True, device=dev,
+                                generator=self._generator(generator, dev))
+
     def _generator(self, generator, device):
         """The draw's generator: the one given, else one seeded from
         ``self.seed``, else one seeded from fresh entropy."""

@@ -86,9 +86,11 @@ def covariance_roots(corr, device="cuda", threshold=1e-16):
     the largest diagonal entry, a 1e-12 diagonal jitter, a batched f64
     ``eigh`` with eigenvalues below ``threshold·max`` clipped to zero, and
     the scale restored (an all-zero C_l gives a zero root, as on the host).
+    ``corr`` may be a numpy array or a tensor; one already on ``device``
+    (the device-built C_l grid) is used where it lies.
     """
     dev = resolve_device(device)
-    cla = torch.as_tensor(np.asarray(corr), dtype=torch.float64).to(dev)
+    cla = torch.as_tensor(corr, dtype=torch.float64, device=dev)
     nz = cla.shape[-1]
     dmax = cla.diagonal(dim1=-2, dim2=-1).abs().max(dim=-1).values
     norm = torch.where(dmax > 0, dmax, torch.ones_like(dmax))
@@ -173,6 +175,24 @@ def draw_alm_from_roots(roots, xi=None, generator=None,
     alm *= torch.arange(L, device=dev)[None, None, :] <= torch.arange(
         L, device=dev)[:, None, None]
     return alm.movedim(0, 1)
+
+
+def draw_correlated_alm(corr, generator=None, xi=None, dtype=torch.complex128):
+    """a_lm [nz, L, L] with per-ℓ covariance C_l(z, z') [L, nz, nz]: a
+    1e-14·max-diagonal jitter per ℓ, the clipped-eigh root
+    (:func:`cora_tpu_torch.util.linalg.batch_matrix_root`), times the
+    complex standard normal ``xi`` [L, nz, L] (drawn from ``generator``
+    when not given), zero for m > ℓ.  Runs on the device ``corr`` lies on
+    (numpy: the CPU) in ``dtype`` (complex128 or complex64).  Port of
+    ``cora_tpu/core/skysim.py`` ``draw_correlated_alm``.
+    """
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    corr = torch.as_tensor(corr).to(rdt)
+    L, nz, _ = corr.shape
+    cmax = corr.diagonal(dim1=-2, dim2=-1).abs().max(dim=-1, keepdim=True).values
+    eye = torch.eye(nz, dtype=rdt, device=corr.device)
+    roots = linalg.batch_matrix_root(corr + (cmax * 1e-14)[..., None] * eye)
+    return draw_alm_from_roots(roots, xi=xi, generator=generator, dtype=dtype)
 
 
 def mkfullsky(corr, nside, *, alms=False, device="cuda", generator=None,

@@ -21,7 +21,8 @@ recurrence kernels, K1 for synthesis and K2 for its adjoint (analysis):
 * **Host tables** (numpy float64, built once per operator): recurrence
   coefficients ``rec_a``/``rec_b``, the λ_mm seeds built in log space and
   pre-scaled by powers of 2^60, exact f64 checkpoint rows every
-  ``l_chunk·ckpt_every`` ℓ, and the ring geometry (equatorial phases and
+  ``l_chunk·ckpt_every`` ℓ (cached on disk, ``ck_*.npz``), and the ring
+  geometry (equatorial phases and
   twiddles, polar-cap chirp tables at the foldless FFT size ``nfft2``).
 * **Legendre stage**: :func:`fused_GeGo` (alm → even/odd ring spectra) and
   :func:`_fused_scan_GeGo` (correlated draw → a_lm planes → kernel), both
@@ -56,6 +57,7 @@ modes, the banded cap) are not part of this port.
 from __future__ import annotations
 
 import os
+import zipfile
 from functools import lru_cache
 
 import numpy as np
@@ -111,12 +113,16 @@ class SHT:
         accuracy reference, disk-cached at ``lambda_cache``), or the scaled
         checkpointed recurrence on the device (the scan-mode accuracy
         class; exact f64 in float64).
+    ckpt_cache : str, optional
+        npz file that keeps the f32 tables' checkpoint rows across
+        processes (read when it holds this geometry, else written).
     """
 
     def __init__(self, nside: int, lmax: int, l_chunk: int = 64,
                  ckpt_every: int = 1, device="cuda", legendre_mode="scan",
                  lambda_build="host", cache_dtype=np.float32,
-                 lambda_cache: str | None = None):
+                 lambda_cache: str | None = None,
+                 ckpt_cache: str | None = None):
         self.device = resolve_device(device)
         self.nside = int(nside)
         self.lmax = int(lmax)
@@ -134,6 +140,7 @@ class SHT:
         self.lambda_build = lambda_build
         self.cache_dtype = np.dtype(cache_dtype)
         self.lambda_cache = lambda_cache
+        self.ckpt_cache = ckpt_cache
 
         info = pixel.ring_info(self.nside)
         nring = info["theta"].size
@@ -232,11 +239,22 @@ class SHT:
 
     @property
     def _ck_host(self):
-        """The f32 tables' checkpoint rows, built at first use (seconds of
-        host recurrence at nside=512, which float64-only callers skip)."""
+        """The f32 tables' checkpoint rows (scan mode, and the device build
+        of an f32 Λ), at first use: read from ``ckpt_cache`` when it holds
+        this geometry [nside, lmax, l_chunk, ckpt_every], else built
+        (seconds of host recurrence at nside=512, which float64-only callers
+        skip) and written there."""
         if self._ck is None:
             with stage("checkpoints", self.device):
-                self._ck = self._build_scan_checkpoints()
+                meta = np.array([self.nside, self.lmax, self.l_chunk,
+                                 self.ckpt_every], dtype=np.int64)
+                d = _load_npz(self.ckpt_cache, meta)
+                if d is not None and "ck" in d:
+                    self._ck = d["ck"]
+                else:
+                    self._ck = self._build_scan_checkpoints()
+                    if self.ckpt_cache:
+                        _save_npz(self.ckpt_cache, meta=meta, ck=self._ck)
         return self._ck
 
     # ------------------------------------------------------------------
@@ -351,23 +369,15 @@ class SHT:
         when it holds this layout (nside, lmax, l_chunk, layout 2) and
         dtype, else built and written there."""
         path = self.lambda_cache
-        if not path:
-            return self._build_lambda_cache()
         meta = np.array([self.nside, self.lmax, self.l_chunk, 2], dtype=np.int64)
-        if os.path.exists(path):
-            try:
-                d = np.load(path)
-                if (np.array_equal(d["meta"], meta)
-                        and str(d["dtype"]) == self.cache_dtype.name):
-                    return [d[f"lam{i}"] for i in range(int(d["n"]))]
-            except (OSError, KeyError, ValueError):
-                pass
+        d = _load_npz(path, meta) or {}
+        keys = [f"lam{i}" for i in range(len(self._lam_meta))]
+        if str(d.get("dtype")) == self.cache_dtype.name and all(k in d for k in keys):
+            return [d[k] for k in keys]
         lam = self._build_lambda_cache()
-        try:
-            np.savez(path, meta=meta, dtype=self.cache_dtype.name, n=len(lam),
-                     **{f"lam{i}": c for i, c in enumerate(lam)})
-        except OSError:
-            pass
+        if path:
+            _save_npz(path, meta=meta, dtype=self.cache_dtype.name,
+                      **dict(zip(keys, lam)))
         return lam
 
     def _build_lambda_device(self, double=False):
@@ -589,9 +599,11 @@ def default_legendre_mode(device_type: str, nside: int) -> str:
 
 
 def _user_cache_dir():
-    """Disk cache for host-built Λ chunks: $CORA_TPU_TORCH_CACHE,
-    ~/.cache/cora_tpu_torch, or None ("" or an unwritable directory): the
-    chunks are pure functions of (nside, lmax, l_chunk, dtype)."""
+    """Disk cache for host-built tables: $CORA_TPU_TORCH_CACHE,
+    ~/.cache/cora_tpu_torch, or None ("" or an unwritable directory).  It
+    holds Λ chunks (``lam_*.npz``), scan checkpoint rows (``ck_*.npz``) and
+    the C_l engine's DCT tables (``dct_*.npz``): each a pure function of
+    its key (geometry, or grid and a probe of P(k))."""
     d = os.environ.get("CORA_TPU_TORCH_CACHE")
     if d == "":
         return None
@@ -604,24 +616,58 @@ def _user_cache_dir():
         return None
 
 
+def _load_npz(path, meta=None):
+    """The arrays of the cache file ``path`` as a dict, when it exists, reads
+    whole and (given ``meta``) holds that ``meta``; else None: a missing,
+    partial, corrupt or stale file is the caller's to rebuild."""
+    if not path or not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as d:
+            if meta is not None and not np.array_equal(d["meta"], meta):
+                return None
+            return {k: d[k] for k in d.files}
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def _save_npz(path, **arrays):
+    """Write ``arrays`` to the cache file ``path`` through a temporary file
+    renamed into place, so no reader sees a partial file; an unwritable or
+    full cache directory leaves nothing behind (the tables stay in
+    memory)."""
+    tmp = f"{path}.tmp{os.getpid()}.npz"
+    try:
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+
+
 @lru_cache(maxsize=8)
 def _get_sht_cached(nside, lmax, l_chunk, legendre_mode, lambda_build, device):
     ke = max(1, (nside // 512) ** 2)
-    cache = None
-    if legendre_mode == "cached" and lambda_build == "host":
-        cdir = _user_cache_dir()
-        cache = cdir and os.path.join(cdir, f"lam_{nside}_{lmax}_{l_chunk}.npz")
+    cdir = _user_cache_dir()
+    lam_cache = ck_cache = None
+    if cdir:
+        ck_cache = os.path.join(cdir, f"ck_{nside}_{lmax}_{l_chunk}_{ke}.npz")
+        if legendre_mode == "cached" and lambda_build == "host":
+            lam_cache = os.path.join(cdir, f"lam_{nside}_{lmax}_{l_chunk}.npz")
     return SHT(nside, lmax, l_chunk=l_chunk, ckpt_every=ke, device=device,
                legendre_mode=legendre_mode, lambda_build=lambda_build,
-               lambda_cache=cache)
+               lambda_cache=lam_cache, ckpt_cache=ck_cache)
 
 
 def get_sht(nside: int, lmax: int, l_chunk: int = 64, legendre_mode=None,
             lambda_build=None, device="cuda") -> SHT:
     """Cached operator with the JAX factory's defaults: the mode of
     :func:`default_legendre_mode` (cached on CUDA at 2 ≤ nside ≤ 512, scan
-    otherwise), a device-built Λ on CUDA and a host-built one (disk-cached,
-    :func:`_user_cache_dir`) on the CPU, and ``ckpt_every = max(1,
+    otherwise), a device-built Λ on CUDA and a host-built one on the CPU
+    (disk-cached under :func:`_user_cache_dir`, as the checkpoint rows
+    are), and ``ckpt_every = max(1,
     (nside // 512)²)``.  ``legendre_mode="scan"`` forces the scan kernels.
 
     A cached-mode operator holds its Λ per precision in use: at nside=512,

@@ -4,8 +4,11 @@
 synthesis template (``Sky3d``): the shipped z=1.5 matter power spectrum
 with a Gaussian k* = 5 h/Mpc suppression, the 0.39 mK mean brightness
 temperature scaling and Pade growth approximations.  ``getsky`` runs the
-whole path — channel-integrated C_l grid (host f64), covariance roots and
-streamed synthesis on ``device``.
+whole path on ``device``: on CUDA the C_l engine of
+:mod:`cora_tpu_torch.signal.clfast` builds its tables, the channel-integrated
+C_l grid and the covariance roots there in float64 (the JAX package's
+accelerator path), else the host f64 grid (``Sky3d.getsky``); then the
+streamed synthesis.
 """
 
 from __future__ import annotations
@@ -13,11 +16,14 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from .. import constants
-from ..core import maps
+from ..core import maps, skysim
+from ..device import resolve_device
 from ..util import interpolation as cs
-from . import corr
+from ..util.profiling import stage
+from . import clfast, corr
 
 # the data tables ship with the JAX package; read by path
 _DATA_DIR = os.path.join(
@@ -39,8 +45,6 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
     clarray_method = "clfast"
 
     def _clarray(self, lmax=None):
-        from . import clfast
-
         nu = np.asarray(self.nu_pixels)
         if self.clarray_method != "clfast" or nu.size < 2:
             return super()._clarray(lmax)
@@ -50,13 +54,61 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
         tables = clfast.build_cl_tables(self, nu, dtype=np.float64, window=window)
         return clfast.cl_grid_np(tables, lmax)
 
-    def __init__(self, ps=None, redshift=0.0):
+    def getsky(self, device="cuda", generator=None):
+        """Unpolarised sky [numz, npix] on ``device`` (float64, as
+        ``Sky3d.getsky``).  Where :func:`_device_engine_applies`, the C_l
+        tables, grid and roots are built on the device
+        (:meth:`_getsky_device`); otherwise, or when the device table build
+        raises ``ValueError``, the host path of ``Sky3d.getsky`` runs."""
+        dev = resolve_device(device)
+        sky = None
+        if _device_engine_applies(self, dev):
+            sky = self._getsky_device(dev, generator)
+        if sky is None:
+            return super().getsky(device=dev, generator=generator)
+        return sky
+
+    def _getsky_device(self, device, generator=None):
+        """The device engine on ``device``: tables
+        (:func:`clfast.build_cl_tables_device`) and grid
+        (:func:`clfast.cl_grid_combined`) as stage ``cl_tables``, the roots
+        (:func:`skysim.covariance_roots`) as stage ``roots``, then the
+        streamed synthesis in chunks of up to 16 channels, each placed at
+        its own channels.  None when the table build raises ``ValueError``
+        (a P(k) it cannot represent).  Port of ``cora_tpu/signal/
+        corr21cm.py`` ``_getsky_device``."""
+        nu = np.asarray(self.nu_pixels)
+        lmax = 3 * self.nside - 1
+        window = "exact" if self.oversample else "none"
+        try:
+            with stage("cl_tables", device):
+                tables = clfast.build_cl_tables_device(self, nu, window=window,
+                                                       device=device)
+        except ValueError:
+            return None
+        with stage("cl_tables", device):
+            cla = clfast.cl_grid_combined(tables, lmax)
+        del tables
+        with stage("roots", device):
+            roots = skysim.covariance_roots(cla, device)
+        del cla
+        sky = skysim.mkfullsky(None, self.nside, device=device, roots=roots,
+                               generator=self._generator(generator, device),
+                               fchunk=min(16, nu.size))
+        mean = torch.as_tensor(self.mean_nu(nu), device=device)
+        return mean[:, None] + sky
+
+    def __init__(self, ps=None, redshift=0.0, sigma_v=0.0, **kwargs):
         if ps is None:
             redshift = 1.5
             data = np.load(os.path.join(_DATA_DIR, "ps_z1.5.npz"))
             c1 = cs.LogSpline(np.dstack((data["k"], data["ps"]))[0])
             ps = lambda k: np.exp(-0.5 * k**2 / self._kstar**2) * np.asarray(c1(k))
+
+        self._sigma_v = sigma_v
+
         corr.RedshiftCorrelation.__init__(self, ps_vv=ps, redshift=redshift)
+        self._load_cache(os.path.join(_DATA_DIR, "corr_z1.5.npz"))
 
     def T_b(self, z):
         r"""Mean 21cm brightness temperature at redshift z, in K (0.39 mK
@@ -124,6 +176,23 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
 
     def mean_nu(self, freq):
         return self.mean(constants.nu21 / np.asarray(freq, dtype=np.float64) - 1.0)
+
+    def get_pwrspec(self, k_vec):
+        """Power spectrum of the signal averaged over the band."""
+        z1 = constants.nu21 / self.nu_upper - 1.0
+        z2 = constants.nu21 / self.nu_lower - 1.0
+        return self.powerspectrum_1D(k_vec, z1, z2, 256)
+
+
+def _device_engine_applies(model, device):
+    """Whether ``getsky`` builds its C_l on ``device``: a CUDA device, the
+    "clfast" method, a 1-D P(k) and at least 2 channels (the JAX package's
+    rules; a caller that asks for the CPU gets the host path, as the
+    reference does on its CPU backend)."""
+    return (torch.device(device).type == "cuda"
+            and model.clarray_method == "clfast"
+            and not model.ps_2d
+            and np.asarray(model.nu_pixels).size >= 2)
 
 
 class EoR21cm(Corr21cm):

@@ -357,3 +357,61 @@ def test_cached_mode_at_nside1_matches_scan_mode(kind):
                 for mode in ("cached", "scan")]
     assert maps[0].dtype == torch.float32
     assert _rms_rel(maps[0].numpy(), maps[1].numpy()) <= 1e-5
+
+
+def test_checkpoint_rows_disk_cache(tmp_path, monkeypatch):
+    """The scan checkpoint rows: written at the first build, read back bit
+    for bit with no recurrence run; a file of another geometry (its
+    ``meta``) or one cut short is rebuilt and rewritten."""
+    path = str(tmp_path / "ck.npz")
+    kw = dict(l_chunk=8, device="cpu", ckpt_cache=path)
+    ck = tsht.SHT(8, 23, **kw)._ck_host
+    assert ck.shape[0] == 3 and np.abs(ck).max() > 0  # three bands of rows
+    op2 = tsht.SHT(8, 23, **kw)
+    monkeypatch.setattr(op2, "_build_scan_checkpoints",
+                        lambda: pytest.fail("rebuilt cached checkpoint rows"))
+    np.testing.assert_array_equal(op2._ck_host, ck)
+    # the rows reach the kernel tables unchanged
+    np.testing.assert_array_equal(op2.tables(False)["lam_ck"].numpy(), ck)
+
+    def rebuilt(op):
+        built = []
+        real = op._build_scan_checkpoints
+        monkeypatch.setattr(op, "_build_scan_checkpoints",
+                            lambda: built.append(1) or real())
+        rows = op._ck_host
+        return built == [1], rows
+
+    ok, rows = rebuilt(tsht.SHT(8, 22, **kw))  # another geometry's meta
+    assert ok and rows.shape[-1] == 23
+    with np.load(path) as d:
+        assert d["meta"].tolist() == [8, 22, 8, 1]
+    with open(path, "r+b") as f:
+        f.truncate(64)
+    ok, rows = rebuilt(tsht.SHT(8, 23, **kw))
+    assert ok
+    np.testing.assert_array_equal(rows, ck)
+    ok, rows = rebuilt(tsht.SHT(8, 23, **kw))
+    assert not ok
+    np.testing.assert_array_equal(rows, ck)
+
+
+@pytest.mark.parametrize("setting", ["dir", "off"])
+def test_get_sht_checkpoint_cache_file(setting, tmp_path, monkeypatch):
+    """``get_sht`` keys the rows ``ck_{nside}_{lmax}_{l_chunk}_{ckpt_every}
+    .npz`` under ``$CORA_TPU_TORCH_CACHE``; ``""`` writes nothing."""
+    cdir = tmp_path / "cache"
+    monkeypatch.setenv("CORA_TPU_TORCH_CACHE", str(cdir) if setting == "dir" else "")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    tsht._get_sht_cached.cache_clear()
+    try:
+        op = tsht.get_sht(8, 23, device="cpu")
+        op.tables(False)
+    finally:
+        tsht._get_sht_cached.cache_clear()
+    if setting == "dir":
+        assert op.ckpt_cache == str(cdir / "ck_8_23_64_1.npz")
+        assert sorted(p.name for p in cdir.iterdir()) == ["ck_8_23_64_1.npz"]
+    else:
+        assert op.ckpt_cache is None and op.lambda_cache is None
+        assert not any(tmp_path.rglob("*.npz"))

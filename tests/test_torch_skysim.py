@@ -130,3 +130,76 @@ def test_matrix_root_manynull_matches_jax(rank):
     assert nt == nj == rank
     np.testing.assert_allclose(rt.numpy() @ rt.numpy().T, rj @ rj.T,
                                atol=1e-10 * np.abs(C).max())
+
+
+# --- draw_correlated_alm and getalms ----------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_draw_correlated_alm_roots_match_jax(dtype):
+    """With ξ given as the identity over the first nz m columns, the draw
+    returns its roots: alm[:, ℓ, :nz] = R_ℓ for ℓ ≥ nz − 1.  Its R Rᵀ must
+    equal the reference's batch_matrix_root of the same jittered C_ℓ (the
+    roots themselves differ by eigenvector signs between LAPACK builds);
+    m > ℓ is zero."""
+    from cora_tpu.util import linalg as jlin
+
+    L, nz = 24, 6
+    cl, _ = _cl(L, nz, 9)
+    cl[:, :, 3] = cl[:, 3, :] = 0.0  # a null mode: the clipped branch
+    xi = np.zeros((L, nz, L), np.complex128)
+    xi[:, np.arange(nz), np.arange(nz)] = 1.0
+    alm = tsky.draw_correlated_alm(cl, xi=xi, dtype=dtype)
+    assert alm.shape == (nz, L, L) and alm.dtype == dtype
+    mask = np.arange(L)[None, :] > np.arange(L)[:, None]
+    assert not alm[:, mask].any()
+    R = alm.numpy().transpose(1, 0, 2)[nz - 1:, :, :nz].real.astype(np.float64)
+    cmax = np.abs(np.einsum("lii->li", cl)).max(-1)
+    jit = cl + (cmax * 1e-14)[:, None, None] * np.eye(nz)
+    Rj = np.asarray(jlin.batch_matrix_root(jnp.asarray(jit)))[nz - 1:]
+    RR, RRj = np.einsum("lij,lkj->lik", R, R), np.einsum("lij,lkj->lik", Rj, Rj)
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    sc = np.abs(RRj).max(axis=(1, 2), keepdims=True)
+    assert np.all(np.abs(RR - RRj) <= tol * sc)
+    assert np.all(np.abs(RR - cl[nz - 1:]) <= tol * sc)
+    # a generator draw has that covariance's statistics and is reproducible
+    a = tsky.draw_correlated_alm(cl, generator=torch.Generator().manual_seed(1))
+    b = tsky.draw_correlated_alm(cl, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and not a[:, mask].any()
+
+
+def test_getalms_draws_the_reference_clarray(monkeypatch):
+    """Sky3d.getalms: the Romberg C_ℓ of the reference's getalms (same
+    model, default order) drawn by mkfullsky(alms=True) — its argument held
+    to the reference's clarray at 1e-10, then the draw itself reproduced
+    from it with the same generator seed."""
+    from cora_tpu.core import skysim as jsky_
+    from cora_tpu.signal.corr21cm import Corr21cm as J
+    from cora_tpu_torch.signal.corr21cm import Corr21cm as T
+
+    monkeypatch.setenv("CORA_TPU_CACHE", "")
+    monkeypatch.setenv("CORA_TPU_TORCH_CACHE", "")
+    nu = np.linspace(600.0, 640.0, 5)
+    j, t = J(), T()
+    for m in (j, t):
+        m._nkperp, m._nkpar = 100, 4096
+        m.nside = 8
+        m.frequencies = nu
+    lmax = 20
+    seen = {}
+    real = tsky.mkfullsky
+
+    def capture(corr, *a, **kw):
+        seen["cla"] = corr
+        return real(corr, *a, **kw)
+
+    monkeypatch.setattr(tsky, "mkfullsky", capture)
+    alm = t.getalms(lmax, device="cpu", generator=torch.Generator().manual_seed(2))
+    ref = jsky_.clarray(j.angular_powerspectrum, lmax, j.nu_pixels)
+    cla = np.asarray(seen["cla"])
+    assert np.abs(cla - ref).max() <= 1e-10 * np.abs(ref).max()
+    assert alm.shape == (5, lmax + 1, lmax + 1) and alm.dtype == torch.complex128
+    assert not alm[:, np.arange(lmax + 1)[None, :] > np.arange(lmax + 1)[:, None]].any()
+    again = real(cla, 8, alms=True, device="cpu",
+                 generator=torch.Generator().manual_seed(2))
+    assert torch.equal(alm, again)
