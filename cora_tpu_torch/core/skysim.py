@@ -234,3 +234,49 @@ def mkfullsky(corr, nside, *, alms=False, device="cuda", generator=None,
     ):
         out[z_lo:z_lo + maps.shape[0]] = maps
     return out
+
+
+def mkconstrained(corr, constraints, nside, device="cuda"):
+    """Correlated maps [numz, npix] that equal the given maps on given
+    frequency slices (port of ``cora_tpu/core/skysim.py`` ``mkconstrained``).
+
+    Per ℓ, the ``nmodes = len(constraints)`` largest eigenmodes of C_l
+    (batched float64 ``eigh`` on ``device``) carry the constraint: their
+    amplitudes solve the mode matrix at the constrained slices against
+    the constraint maps' a_lm (one batched ``solve`` over ℓ ≥ 1; ℓ = 0 is
+    left zero, its mode matrix can be singular), and project over all
+    frequencies.  The analysis and synthesis run in the constraint maps'
+    precision: float32 maps take the float32 transforms, as the reference
+    does.
+
+    corr : [lmax+1, numz, numz]; constraints : list of (freq_index, map
+    [npix]).  Returns float32 or float64 maps on ``device``.
+    """
+    dev = resolve_device(device)
+    corr = torch.as_tensor(corr, device=dev).to(torch.float64)
+    maxl = corr.shape[0] - 1
+    numz = corr.shape[1]
+    if corr.shape[2] != numz:
+        raise ValueError("Correlation matrix is incorrect shape.")
+    nmodes = len(constraints)
+    f_ind = [c[0] for c in constraints]
+
+    _, evecs = torch.linalg.eigh(corr)  # ascending eigenvalues
+    trans = evecs[:, :, -nmodes:].transpose(1, 2)  # [L, nmodes, nz]
+    tmat = trans[:, :, f_ind]  # [L, nmodes, nmodes]
+
+    maps_in = [torch.as_tensor(c[1], device=dev) for c in constraints]
+    single = all(m.dtype == torch.float32 for m in maps_in)
+    rdt = torch.float32 if single else torch.float64
+    cons = torch.stack([m.to(rdt) for m in maps_in])
+    calm = _sht.map2alm(cons, maxl, 3, device=dev)  # [nmodes, L, L]
+
+    x = torch.linalg.solve(
+        tmat[1:].transpose(1, 2).to(torch.complex128),
+        calm.transpose(0, 1)[1:].to(torch.complex128),
+    )  # [L-1, nmodes, L]
+    cv = torch.zeros((numz, maxl + 1, maxl + 1), dtype=torch.complex128,
+                     device=dev)
+    cv[:, 1:] = torch.einsum("lnz,lnm->zlm", trans[1:].to(torch.complex128), x)
+    cv = cv.to(torch.complex64 if single else torch.complex128)
+    return _sht.alm2map(cv, nside, device=dev)

@@ -1,2 +1,2 @@
-"""Foreground models: the Gaussian SCK foregrounds and the full-sky
-synchrotron amplitudes."""
+"""Foreground models: the Gaussian SCK foregrounds, the Haslam-constrained
+galaxy with its Faraday screen, and the point sources."""

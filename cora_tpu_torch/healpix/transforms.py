@@ -34,6 +34,18 @@ _iter = 3
 _FCHUNK = 16
 
 
+def ang_positions(nside, device="cuda"):
+    """Angular position (theta, phi) of each pixel, packed [npix, 2]."""
+    npix = pixel.nside2npix(int(nside))
+    theta, phi = pixel.pix2ang(nside, torch.arange(npix), device)
+    return torch.stack([theta, phi], dim=1)
+
+
+def nside_for_lmax(lmax, accuracy_boost=1):
+    """Power-of-two nside adequate for the given lmax."""
+    return int(2 ** (accuracy_boost + np.ceil(np.log((lmax + 1) / 3.0) / np.log(2.0))))
+
+
 def unpack_alm(alm, lmax, fullm=False):
     """Unpack healpy-ordered packed alm into a dense [l, m] array."""
     alm = torch.as_tensor(alm)
@@ -253,3 +265,105 @@ def sphtrans_inv_sky(alm, nside, device="cuda"):
 def sph_ps(map1, map2=None, lmax=None, device="cuda"):
     """Cross power spectrum of two maps (or the auto spectrum of one)."""
     return _sht.anafast(map1, map2, lmax=lmax, iter=_iter, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Coordinate rotation
+# ---------------------------------------------------------------------------
+
+# elements of one gather in coord_x2y (its [maps, 4, npix] intermediate)
+_GATHER_ELEMS = 2**26
+
+
+def _coord_matrix(x, y):
+    """Rotation matrix [3, 3] (float64) taking coordinate system y to x
+    ('C' celestial J2000, 'G' galactic, 'E' ecliptic)."""
+    # galactic <-> celestial (J2000), the standard IAU values
+    g2c = np.array(
+        [
+            [-0.0548755604, 0.4941094279, -0.8676661490],
+            [-0.8734370902, -0.4448296300, -0.1980763734],
+            [-0.4838350155, 0.7469822445, 0.4559837762],
+        ]
+    ).T
+    # ecliptic <-> celestial: rotation about the x-axis by the obliquity
+    eps = np.radians(23.4392794)
+    e2c = np.array(
+        [
+            [1.0, 0.0, 0.0],
+            [0.0, np.cos(eps), -np.sin(eps)],
+            [0.0, np.sin(eps), np.cos(eps)],
+        ]
+    )
+    to_c = {"C": np.eye(3), "G": g2c, "E": e2c}
+    if x not in to_c or y not in to_c:
+        raise ValueError("Co-ordinate system invalid.")
+    return to_c[x].T @ to_c[y]
+
+
+def _rotation_weights(nside, rot, dev):
+    """Pixels and weights [4, npix] at which each output pixel samples the
+    input map, for the rotation matrix ``rot`` of :func:`_coord_matrix`."""
+    angpos = ang_positions(nside, dev)
+    rot = torch.from_numpy(rot).to(dev)
+    vec = pixel.ang2vec(angpos[:, 0], angpos[:, 1], dev)
+    theta, phi = pixel.vec2ang(vec @ rot, dev)
+    return pixel.get_interp_weights(nside, theta, phi, dev)
+
+
+def coord_x2y(map_, x, y, device="cuda"):
+    """Rotate maps [..., npix] from coordinate system x into y.
+
+    The reference's scheme: every output pixel takes the bilinear-on-sphere
+    interpolation of the input at its rotated position.  The weights are
+    computed once for the stack; each chunk of maps is one gather of the
+    four pixels and one weighted sum over them.
+    """
+    rot = _coord_matrix(x, y)
+    dev = resolve_device(device)
+    map_ = torch.as_tensor(map_, device=dev)
+    npix = map_.shape[-1]
+    pix, wgt = _rotation_weights(pixel.npix2nside(npix), rot, dev)
+    flat = map_.reshape(-1, npix)
+    out = torch.empty_like(flat)
+    idx = pix.reshape(-1)
+    wgt = wgt.to(flat.dtype)
+    step = max(1, _GATHER_ELEMS // (4 * npix))
+    for i0 in range(0, flat.shape[0], step):
+        g = flat[i0:i0 + step].index_select(1, idx).reshape(-1, 4, npix)
+        out[i0:i0 + step] = (g * wgt).sum(dim=1)
+    return out.reshape(map_.shape)
+
+
+def coord_g2c(map_, device="cuda"):
+    """Rotate maps from galactic into celestial coordinates."""
+    return coord_x2y(map_, "G", "C", device)
+
+
+def coord_c2g(map_, device="cuda"):
+    """Rotate maps from celestial into galactic coordinates."""
+    return coord_x2y(map_, "C", "G", device)
+
+
+class Rotator:
+    """Coordinate rotation between two systems (``healpy.Rotator`` subset).
+
+    ``Rotator(coord=["G", "C"])(theta, phi)`` rotates directions from the
+    first system into the second; ``rotate_map_pixel(m)`` rotates maps by
+    pixel interpolation (:func:`coord_x2y`).
+    """
+
+    def __init__(self, coord=("G", "C")):
+        if len(coord) != 2:
+            raise ValueError("coord must name two systems, e.g. ['G', 'C']")
+        self.coord = (coord[0].upper(), coord[1].upper())
+        # matrix taking vectors in coord[0] to coord[1]
+        self._mat = _coord_matrix(self.coord[1], self.coord[0])
+
+    def __call__(self, theta, phi, device="cuda"):
+        dev = resolve_device(device)
+        vec = pixel.ang2vec(theta, phi, dev)
+        return pixel.vec2ang(vec @ torch.from_numpy(self._mat).to(dev).T, dev)
+
+    def rotate_map_pixel(self, map_, device="cuda"):
+        return coord_x2y(map_, self.coord[0], self.coord[1], device)

@@ -1,13 +1,15 @@
-"""cora-makesky for the PyTorch port: the ``21cm`` and ``gaussianfg``
-subcommands.
+"""cora-makesky for the PyTorch port: the ``foreground``, ``galaxy``,
+``pointsource``, ``21cm``, ``gaussianfg`` and ``singlesource`` subcommands.
 
-Same CLI surface as ``cora_tpu/scripts/makesky.py`` for these commands
-(the CHIME-style frequency specification with centre / centre_nyquist /
-edge modes, channel binning and selection) and the same memh5-compatible
-HDF5 map schema, plus ``--device`` (default ``cuda``).
+Same CLI surface as ``cora_tpu/scripts/makesky.py`` (the CHIME-style
+frequency specification with centre / centre_nyquist / edge modes, channel
+binning and selection; the same options and seeds) and the same
+memh5-compatible HDF5 map schema, plus ``--device`` (default ``cuda``).
 
     python -m cora_tpu_torch.scripts.makesky 21cm --nside 128 \\
         --freq 400 500 64 --filename map.h5
+    python -m cora_tpu_torch.scripts.makesky foreground --nside 128 \\
+        --freq 500 400 64 --filename fg.h5
     python -m cora_tpu_torch.scripts.makesky gaussianfg --nside 512 \\
         --freq 400 800 64 --pol full --filename fg.h5
 """
@@ -154,6 +156,88 @@ def cli():
     """Generate a map of the low frequency radio sky (PyTorch port)."""
 
 
+@cli.command()
+@map_options
+@click.option("--maxflux", default=1e6, type=float,
+              help="Maximum point-source flux in Jy (default 1 MJy).")
+def foreground(fstate, nside, pol, filename, seed, device, maxflux):
+    """Generate a full foreground sky map (galaxy + point sources)."""
+    if fstate.frequencies.shape[0] < 2:
+        click.echo("Number of frequencies must be more than two.")
+        return
+
+    from cora_tpu_torch.device import resolve_device
+    from cora_tpu_torch.foreground import galaxy, pointsource
+
+    device = resolve_device(device)  # fail before the model build
+    gal = galaxy.ConstrainedGalaxy()
+    gal.nside = nside
+    gal.frequencies = fstate.frequencies
+    if seed is not None:
+        gal.seed = seed
+
+    cs = (gal.getpolsky(device=device) if pol == "full"
+          else gal.getsky(device=device))
+
+    ps = pointsource.CombinedPointSources.like_map(gal)
+    ps.flux_max = maxflux
+    if seed is not None:
+        ps.seed = seed + 1
+
+    cs += ps.getpolsky(device=device) if pol == "full" else ps.getsky(device=device)
+    write_map(filename, cs.cpu().numpy(), gal.frequencies, fstate.freq_width,
+              pol != "none")
+
+
+@cli.command()
+@map_options
+@click.option("--spectral-index", default="md",
+              type=click.Choice(["md", "gsm", "gd"]))
+def galaxy(fstate, nside, pol, filename, seed, device, spectral_index):
+    """Generate a Milky Way synchrotron map (Haslam-constrained)."""
+    if fstate.frequencies.shape[0] < 2:
+        click.echo("Number of frequencies must be more than two.")
+        return
+
+    from cora_tpu_torch.device import resolve_device
+    from cora_tpu_torch.foreground import galaxy as galaxy_mod
+
+    device = resolve_device(device)  # fail before the model build
+    gal = galaxy_mod.ConstrainedGalaxy()
+    gal.nside = nside
+    gal.frequencies = fstate.frequencies
+    gal.spectral_map = spectral_index
+    if seed is not None:
+        gal.seed = seed
+
+    cs = (gal.getpolsky(device=device) if pol == "full"
+          else gal.getsky(device=device))
+    write_map(filename, cs.cpu().numpy(), gal.frequencies, fstate.freq_width,
+              pol != "none")
+
+
+@cli.command()
+@map_options
+@click.option("--maxflux", default=1e6, type=float,
+              help="Maximum point-source flux in Jy (default 1 MJy).")
+def pointsource(fstate, nside, pol, filename, seed, device, maxflux):
+    """Generate a point-source-only foreground map."""
+    from cora_tpu_torch.device import resolve_device
+    from cora_tpu_torch.foreground import pointsource as ps_mod
+
+    device = resolve_device(device)  # fail before the model build
+    ps = ps_mod.CombinedPointSources()
+    ps.nside = nside
+    ps.frequencies = fstate.frequencies
+    ps.flux_max = maxflux
+    if seed is not None:
+        ps.seed = seed
+
+    cs = ps.getpolsky(device=device) if pol == "full" else ps.getsky(device=device)
+    write_map(filename, cs.cpu().numpy(), ps.frequencies, fstate.freq_width,
+              pol != "none")
+
+
 @cli.command("21cm")
 @map_options
 @click.option("--eor", is_flag=True,
@@ -230,6 +314,31 @@ def gaussianfg(fstate, nside, pol, filename, seed, device):
 
     maps = hputil.sphtrans_inv_sky(alms, nside, device=device)
     write_map(filename, maps.cpu().numpy(), fsyn.frequencies,
+              fstate.freq_width, pol != "none")
+
+
+@cli.command()
+@map_options
+@click.option("--ra", type=float, help="RA (degrees) of the source.", default=0)
+@click.option("--dec", type=float, help="DEC (degrees) of the source.", default=0)
+def singlesource(fstate, nside, pol, filename, seed, device, ra, dec):
+    """Generate a test map with a single unit source at the given position."""
+    import torch
+
+    from cora_tpu_torch.device import resolve_device
+    from cora_tpu_torch.healpix import pixel
+
+    device = resolve_device(device)
+    nfreq = len(fstate.frequencies)
+    npol = 4 if pol == "full" else 1
+
+    map_ = torch.zeros((nfreq, npol, 12 * nside**2), dtype=torch.float64,
+                       device=device)
+    theta = np.radians(90.0 - dec)
+    phi = np.radians(ra)
+    map_[:, 0, pixel.ang2pix(nside, theta, phi, device)[0]] = 1.0
+
+    write_map(filename, map_.cpu().numpy(), fstate.frequencies,
               fstate.freq_width, pol != "none")
 
 

@@ -1,11 +1,13 @@
-"""The port's ``makesky 21cm`` and ``gaussianfg`` commands and their HDF5
-output.
+"""The port's ``makesky`` commands (``21cm``, ``gaussianfg``, ``foreground``,
+``galaxy``, ``pointsource``, ``singlesource``) and their HDF5 output.
 
 The commands run on the CPU (``--device cpu``); each file must carry the
 same datasets, dtypes, shapes and attributes as the JAX package's
 ``write_map`` writes for the same data.  The frequency specification must
 match the JAX ``FreqState`` in every mode, and the foreground models the
-JAX package's closed forms.
+JAX package's closed forms.  The foreground commands read a sky-data
+blob downgraded to nside 32 (``CORA_TPU_SKYDATA``), so no float64
+smoothing runs at the shipped nside 256.
 """
 
 import subprocess
@@ -18,8 +20,10 @@ import pytest
 import torch
 from click.testing import CliRunner
 
+from cora_tpu.healpix import pixel as jpix
 from cora_tpu.scripts import makesky as jmk
 from cora_tpu_torch.scripts import makesky as tmk
+from test_torch_foregrounds import write_skydata
 
 torch.set_num_threads(1)
 
@@ -159,3 +163,86 @@ def test_sck_foregrounds_match_jax():
             j.angular_powerspectrum(l, fa[None, :, None], fa[None, None, :]))
         np.testing.assert_array_equal(t.frequency_correlation_dlog(fa / 800.0),
                                       j.frequency_correlation_dlog(fa / 800.0))
+
+
+@pytest.fixture
+def small_skydata(tmp_path, monkeypatch):
+    path = write_skydata(tmp_path / "skydata.npz")
+    monkeypatch.setenv("CORA_TPU_SKYDATA", str(path))
+    monkeypatch.setenv("CORA_TPU_TORCH_CACHE", "")
+
+
+def _run(tmp_path, *args):
+    """Run one command on the CPU; the written map, frequencies and width,
+    with the file's schema held to the JAX package's writer."""
+    fname = tmp_path / "out.h5"
+    res = CliRunner().invoke(tmk.cli, [*args, "--device", "cpu",
+                                       "--filename", str(fname)],
+                             catch_exceptions=False)
+    assert res.exit_code == 0, res.output
+    with h5py.File(fname, "r") as f:
+        data = f["map"][:]
+        freq = f["index_map/freq"]["centre"][:]
+        width = f["index_map/freq"]["width"][0]
+    ref = tmp_path / "jax.h5"
+    jmk.write_map(str(ref), data, freq, width, data.shape[1] > 1)
+    assert _describe(fname) == _describe(ref)
+    return data, freq, width
+
+
+@pytest.mark.parametrize("pol,npol", [("full", 4), ("none", 1)])
+def test_cli_galaxy(tmp_path, small_skydata, pol, npol):
+    """galaxy at nside 16 × 4 channels (500 → 400 MHz): the galaxy model's
+    invariants (I > 0; Q² + U² ≤ I², the screen being tanh-saturated
+    before I multiplies it; V = 0) and the reference's bands (I std
+    10–50 K, Q/U std 0.1–4 K, tests/test_foregrounds.py)."""
+    data, freq, width = _run(tmp_path, "galaxy", "--nside", "16", "--freq",
+                             "500", "400", "4", "--pol", pol, "--seed", "7")
+    assert data.shape == (4, npol, 12 * 16**2) and data.dtype == np.float64
+    np.testing.assert_allclose(freq, [500.0, 475.0, 450.0, 425.0])
+    assert width == 25.0
+    I = data[:, 0]
+    assert np.isfinite(data).all() and (I > 0).all()
+    assert ((I.std(-1) > 10.0) & (I.std(-1) < 50.0)).all()
+    if npol == 4:
+        Q, U = data[:, 1], data[:, 2]
+        assert (Q**2 + U**2 <= I**2).all() and not data[:, 3].any()
+        qu = data[:, 1:3].std(-1)
+        assert ((qu > 0.1) & (qu < 4.0)).all()
+
+
+def test_cli_pointsource(tmp_path, small_skydata):
+    """pointsource at the reference's band size (nside 32, 16 channels over
+    400–500 MHz): I std 3–15 K, Q/U std 0.005–0.015 K, V = 0."""
+    data, _, _ = _run(tmp_path, "pointsource", "--nside", "32", "--freq", "400",
+                      "500", "16", "--pol", "full", "--seed", "2")
+    assert data.shape == (16, 4, 12 * 32**2) and np.isfinite(data).all()
+    std = data.std(-1)
+    assert ((std[:, 0] > 3.0) & (std[:, 0] < 15.0)).all()
+    assert ((std[:, 1:3] > 0.005) & (std[:, 1:3] < 0.015)).all()
+    assert not data[:, 3].any()
+
+
+def test_cli_foreground(tmp_path, small_skydata):
+    """foreground = galaxy (seed) + point sources (seed + 1): the galaxy
+    command and the point sources with the next seed add up to it."""
+    args = ("--nside", "16", "--freq", "500", "400", "4", "--pol", "full")
+    fg, freq, _ = _run(tmp_path, "foreground", *args, "--seed", "7")
+    gal, _, _ = _run(tmp_path, "galaxy", *args, "--seed", "7")
+    pts, _, _ = _run(tmp_path, "pointsource", *args, "--seed", "8")
+    assert fg.shape == (4, 4, 12 * 16**2) and np.isfinite(fg).all()
+    assert (fg[:, 0] > 0).all() and not fg[:, 3].any()
+    np.testing.assert_allclose(fg, gal + pts, rtol=0, atol=1e-12 * np.abs(fg).max())
+    res = CliRunner().invoke(tmk.cli, ["foreground", "--nside", "4", "--freq",
+                                       "400", "500", "1", "--device", "cpu"])
+    assert res.exit_code == 0 and "more than two" in res.output
+
+
+@pytest.mark.parametrize("pol,npol", [("full", 4), ("none", 1)])
+def test_cli_singlesource(tmp_path, pol, npol):
+    data, _, _ = _run(tmp_path, "singlesource", "--nside", "16", "--freq", "400",
+                      "500", "3", "--pol", pol, "--ra", "30", "--dec", "45")
+    assert data.shape == (3, npol, 12 * 16**2)
+    pix = jpix.ang2pix(16, np.radians(45.0), np.radians(30.0))[0]
+    assert np.flatnonzero(data.any(axis=(0, 1))).tolist() == [pix]
+    assert (data[:, 0, pix] == 1.0).all() and data.sum() == 3
