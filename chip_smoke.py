@@ -1897,6 +1897,208 @@ def foreground_phase(dev, nside=256, nfreq=64, seed=7):
     _clear_operators()
 
 
+FLAT_STAGES = ("pk_box", "density", "velocity", "evolution", "lightcone")
+
+
+def _rel_max(a, b):
+    return float((a.cpu() - b.cpu()).abs().max() / b.abs().max())
+
+
+def _flat_stages(st):
+    return ", ".join(f"{k} {st.get(k, 0.0):.3f}" for k in FLAT_STAGES)
+
+
+def _periodogram_check(model, box, ext, z1, z2):
+    """The density box's periodogram |FFT|² V/N² against P(k)·damping in
+    eight |k| bins up to 0.9 of the smallest Nyquist frequency, over the
+    modes off the kz = 0 and Nyquist planes (where the white noise is not
+    Hermitian): each bin within 6/√M of its mean P, the box divided by the
+    mean evolution factor that ``no_evolution`` applied."""
+    import torch
+
+    from cora_tpu_torch.signal import corr
+    from cora_tpu_torch.util import fftutil
+
+    c = model.cosmology
+    c1, c2, wx, wy = ext
+    n = np.array(box.shape)
+    za = np.asarray(corr.inverse_approx(c.comoving_distance, z1, z2)(
+        np.linspace(c1, c2, n[0])))
+    scale = np.mean(model.growth_factor(za) / model.growth_factor(model.ps_redshift)
+                    * model.prefactor(za) * model.bias_z(za))
+    w = np.array([c2 - c1, wx, wy])
+    F = torch.fft.rfftn(box / scale)
+    pk_hat = F.abs().square_() * (np.prod(w) / np.prod(n.astype(float)) ** 2)
+    del F
+    axes = fftutil.rfftfreq_axes(n, w / n / (2 * np.pi), box.device)
+    kmag = fftutil.sum_sq(axes).sqrt_()
+    pk = corr.ps_at(model.ps_vv, kmag) * torch.as_tensor(
+        model.velocity_damping(axes[0].cpu().numpy()), device=box.device)
+    inner = torch.ones_like(kmag, dtype=torch.bool)
+    inner[..., 0] = False
+    if n[-1] % 2 == 0:
+        inner[..., -1] = False
+    kny = np.pi * min(n / w)
+    edges = np.linspace(2 * np.pi / w.min(), 0.9 * kny, 9)
+    worst = 0.0
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        sel = inner & (kmag >= lo) & (kmag < hi)
+        M = int(sel.sum())
+        r = float(pk_hat[sel].mean() / pk[sel].mean())
+        worst = max(worst, abs(r - 1.0) * np.sqrt(M))
+        print(f"   |k| {lo:.4f}–{hi:.4f}: {M} modes, P̂/P = {r:.5f} "
+              f"(6/√M = {6 / np.sqrt(M):.5f})")
+    check(worst <= 6.0, f"density box periodogram within 6/√M of P(k)·damping in "
+          f"every bin (worst {worst:.2f}/√M)")
+
+
+def flatsky_phase(dev, seed=21, width=256, lmax=767, per_decade=1000):
+    """Phase 13: the flat-sky path and the correlation-function engine on
+    the card, each against the port on the CPU given the same noise
+    (``width``, ``lmax`` and ``per_decade`` cut only to rehearse it on the
+    CPU)."""
+    import torch
+
+    from cora_tpu_torch import cosmology
+    from cora_tpu_torch.foreground import gaussianfg, lofar
+    from cora_tpu_torch.signal import corrfunc
+    from cora_tpu_torch.signal.corr21cm import Corr21cm
+    from cora_tpu_torch.util import profiling
+
+    card = _card()
+    phase("13 flat-sky: Corr21cm().getfield, get_kiyo_field(refinement=2), "
+          "SCK and LOFAR fields, ps_to_corr, corr_to_clarray, exact C_ℓ")
+    t_phase = time.perf_counter()
+    cpu_gen = lambda: torch.Generator().manual_seed(seed)  # the same draws on both
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    # the reference's default geometry: 128 channels over 500–900 MHz, 128², 5°
+    cr = Corr21cm()
+    profiling.enable(True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got, t_gpu = timed(lambda: cr.getfield(device=dev, generator=cpu_gen()))
+    st = dict(profiling.stage_times)
+    peak = torch.cuda.max_memory_allocated(dev)
+    profiling.enable(False)
+    ref, t_cpu = timed(lambda: cr.getfield(device="cpu", generator=cpu_gen()))
+    err = _rel_max(got, ref)
+    print(f"   getfield 128 × 128² (default geometry): cuda {t_gpu:.3f} s "
+          f"({_flat_stages(st)}), peak {peak / 2**30:.2f} GiB; cpu {t_cpu:.3f} s; "
+          f"max|cuda − cpu|/max = {err:.3e} ({card})")
+    check(tuple(got.shape) == (128, 128, 128) and got.dtype == torch.float64
+          and bool(torch.isfinite(got).all()), "getfield: [128, 128, 128] float64, finite")
+    check(err <= 1e-10, "getfield cuda vs cpu ≤ 1e-10·max (same noise)")
+    del got, ref
+
+    # the full width: 256 channels × 256², box [262, 594, 594]
+    full = Corr21cm()
+    full.x_num = full.y_num = full.nu_num = width
+    z1, z2 = full._band_redshifts()
+    profiling.enable(True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (cube, box, ext), t_full = timed(lambda: full.get_kiyo_field_physical(
+        density_only=True, no_mean=True, no_evolution=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed)))
+    st = dict(profiling.stage_times)
+    peak = torch.cuda.max_memory_allocated(dev)
+    profiling.enable(False)
+    print(f"   full width {width} × {width}² (box {list(box.shape)}): {t_full:.3f} s — "
+          f"{_flat_stages(st)} s; peak device memory {peak / 2**30:.2f} GiB ({card})")
+    check(tuple(cube.shape) == (width,) * 3 and bool(torch.isfinite(cube).all()),
+          f"full-width cube [{width}, {width}, {width}], finite")
+    _periodogram_check(full, box, ext, z1, z2)
+    del cube, box
+    torch.cuda.empty_cache()
+    profiling.enable(True)
+    _, t_warm = timed(lambda: full.getfield(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(seed + 1)))
+    st = dict(profiling.stage_times)
+    profiling.enable(False)
+    print(f"   full width again (FFT plans warm), getfield: {t_warm:.3f} s — "
+          f"{_flat_stages(st)} s ({card})")
+    del _
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kiyo, t_kiyo = timed(lambda: cr.get_kiyo_field(
+        refinement=2, device=dev, generator=torch.Generator(device=dev).manual_seed(seed)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"   get_kiyo_field(refinement=2) 128 × 128² (default geometry): "
+          f"{t_kiyo:.3f} s, peak {peak / 2**30:.2f} GiB ({card})")
+    check(tuple(kiyo.shape) == (128, 128, 128) and bool(torch.isfinite(kiyo).all()),
+          "get_kiyo_field(refinement=2): [128, 128, 128], finite")
+    del kiyo
+
+    for model in (gaussianfg.Synchrotron(), lofar.LofarGDSE()):
+        name = type(model).__name__
+        got, t_gpu = timed(lambda: model.getfield(device=dev, generator=cpu_gen()))
+        ref, t_cpu = timed(lambda: model.getfield(device="cpu", generator=cpu_gen()))
+        err = _rel_max(got, ref)
+        print(f"   {name}.getfield {list(got.shape)}: cuda {t_gpu:.3f} s, cpu "
+              f"{t_cpu:.3f} s; max|cuda − cpu|/max = {err:.3e} ({card})")
+        check(bool(torch.isfinite(got).all()) and err <= 1e-10,
+              f"{name}.getfield cuda vs cpu ≤ 1e-10·max (same noise), finite")
+    del got, ref
+
+    # ps_to_corr at CalculateCorrelations' settings (corr0: tanh k cutoffs
+    # at 1e-4 and 1e4 around the 21cm model's P(k))
+    ps = cr.ps_vv
+    cut = lambda x, c, s, wd, i: (0.5 * (1 + np.tanh(s * (np.log10(x) - c) / wd))) ** i
+    ps0 = lambda k: cut(k, -4, 1, 0.5, 6) * cut(k, 4, -1, 0.5, 4) * ps(k)
+    kw = dict(minlogr=-1, maxlogr=5, switchlogr=1, samples_per_decade=per_decade,
+              pad_low=4, pad_high=6, richardson_n=9)
+    (rg, xg), t_gpu = timed(lambda: corrfunc.ps_to_corr(ps0, device=dev, **kw))
+    (rc, xc), t_cpu = timed(lambda: corrfunc.ps_to_corr(ps0, device="cpu", **kw))
+    err = _rel_max(xg, xc)
+    print(f"   ps_to_corr ({per_decade}/decade, richardson_n=9, pads 4/6; {rc.numel()} r): "
+          f"cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} s; max|cuda − cpu|/max = {err:.3e} "
+          f"({card})")
+    check(bool(torch.equal(rg.cpu(), rc)) and err <= 1e-10,
+          "ps_to_corr cuda vs cpu ≤ 1e-10·max")
+    pair = (rc.numpy(), xc.numpy())
+
+    # corr_to_clarray at nside 256 × 64 channels (400–800 MHz), xromb=2, q=4
+    nu = np.linspace(400.0, 800.0, 64, endpoint=False)
+    xa = cosmology.Cosmology().comoving_distance(1420.40575177 / nu - 1.0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cl, t_gpu = timed(lambda: corrfunc.corr_to_clarray(pair, lmax, xa, xromb=2, q=4,
+                                                       device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"   corr_to_clarray lmax {lmax} × 64 channels (M = {4 * lmax}, 320 radial "
+          f"nodes): {t_gpu:.3f} s, peak {peak / 2**30:.2f} GiB ({card})")
+    check(tuple(cl.shape) == (lmax + 1, 64, 64) and bool(torch.isfinite(cl).all()),
+          f"corr_to_clarray: [{lmax + 1}, 64, 64], finite")
+    sub = xa[::16]
+    a, t_gpu = timed(lambda: corrfunc.corr_to_clarray(pair, lmax, sub, xromb=2, q=4,
+                                                      device=dev))
+    b, t_cpu = timed(lambda: corrfunc.corr_to_clarray(pair, lmax, sub, xromb=2, q=4,
+                                                      device="cpu"))
+    err = _rel_max(a, b)
+    print(f"   corr_to_clarray lmax {lmax} × 4 channels: cuda {t_gpu:.3f} s, cpu "
+          f"{t_cpu:.3f} s; max|cuda − cpu|/max = {err:.3e}")
+    check(err <= 1e-10, "corr_to_clarray cuda vs cpu ≤ 1e-10·max")
+    del cl
+
+    z = 1420.40575177 / nu - 1.0
+    for l in (10, 100):
+        a, t_gpu = timed(lambda: cr.angular_powerspectrum_exact(l, z[40], z[40],
+                                                                device=dev))
+        b, t_cpu = timed(lambda: cr.angular_powerspectrum_exact(l, z[40], z[40],
+                                                                device="cpu"))
+        print(f"   exact C_ℓ at ℓ = {l}: {a:.10e} (cuda {t_gpu:.3f} s), cpu "
+              f"{b:.10e} ({t_cpu:.3f} s)")
+        check(abs(a - b) <= 1e-10 * abs(b), f"exact C_ℓ at ℓ = {l} cuda vs cpu ≤ 1e-10")
+    torch.cuda.empty_cache()
+    print(f"   phase 13 {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_phase()
@@ -1920,6 +2122,7 @@ def main():
     pol_analysis_phase(dev, reports, data, freqs)
     del data
     foreground_phase(dev)
+    flatsky_phase(dev)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",

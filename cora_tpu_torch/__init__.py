@@ -5,8 +5,10 @@ integrated C_l(ν, ν′) grid → per-ℓ covariance roots → correlated a_lm 
 Legendre stage → ring FFT stage → HEALPix maps → HDF5), the analysis
 direction (``map2alm``, ``anafast``, smoothing), the spin-weighted and
 polarised transforms, the HEALPix pixel functions and coordinate rotation,
-and the foregrounds (``makesky gaussianfg``, ``foreground``, ``galaxy``,
-``pointsource``), written in PyTorch for an NVIDIA H100.  The Legendre stages run
+the foregrounds (``makesky gaussianfg``, ``foreground``, ``galaxy``,
+``pointsource``), the flat-sky cubes (Gaussian fields, the 21cm lightcone,
+the SCK and LOFAR foregrounds), the exact C_l and the correlation-function
+engine (``signal/corrfunc.py``), written in PyTorch for an NVIDIA H100.  The Legendre stages run
 hand-written CUDA kernels (``csrc/*.cu``, built at first use by
 ``ops/_build.py``); every other stage is plain tensor code or host numpy,
 as in the JAX package.

@@ -1,7 +1,8 @@
 """Map geometry classes (port of ``cora_tpu/core/maps.py``).
 
 ``Map2d``/``Map3d``/``Sky3d`` carry the angular-patch and frequency-band
-geometry and the ``getsky``/``getpolsky`` template methods.  The synthesis
+geometry and the ``getsky``/``getpolsky``/``getfield`` template methods
+(``like_kiyo_map`` takes a kiyo-style map's geometry).  The synthesis
 itself runs in :mod:`cora_tpu_torch.core.skysim`; here every entry point
 takes an explicit ``device`` and an optional ``torch.Generator``.
 """
@@ -125,6 +126,27 @@ class Map3d(Map2d):
 
     nu_pixels = frequencies
 
+    @classmethod
+    def like_kiyo_map(cls, mapobj, *args, **kwargs):
+        """Create an object of this class with the geometry of a kiyo-style
+        map: ``mapobj.get_axis(name)`` for the freq (Hz), ra and dec
+        (degrees) axes and ``mapobj.info["dec_centre"]``."""
+        c = cls(*args, **kwargs)
+
+        freq_axis = mapobj.get_axis("freq")
+        ra_axis = mapobj.get_axis("ra")
+        dec_axis = mapobj.get_axis("dec")
+
+        ra_fact = np.cos(np.pi * mapobj.info["dec_centre"] / 180.0)
+        c.x_width = (max(ra_axis) - min(ra_axis)) * ra_fact
+        c.y_width = max(dec_axis) - min(dec_axis)
+        c.x_num, c.y_num = (len(ra_axis), len(dec_axis))
+
+        c.nu_lower = min(freq_axis) / 1.0e6
+        c.nu_upper = max(freq_axis) / 1.0e6
+        c.nu_num = len(freq_axis)
+        return c
+
 
 class Sky3d(Map3d):
     """Base class for full-sky multi-frequency Gaussian map synthesis.
@@ -146,6 +168,10 @@ class Sky3d(Map3d):
 
     def mean_nu(self, freq):
         return np.zeros_like(np.asarray(freq, dtype=np.float64))
+
+    def getfield(self, device="cuda", generator=None, noise=None):
+        """Flat-sky realisation cube [freq, x, y]; models override it."""
+        raise NotImplementedError("Not implemented in base class.")
 
     def _clarray(self, lmax=None):
         from . import skysim

@@ -39,3 +39,13 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
     set_f32_contract()
     return dev
+
+
+def as_float64(x, device=None) -> torch.Tensor:
+    """``x`` as a float64 tensor: a tensor stays on its own device unless
+    ``device`` is given; an array goes to ``device`` (default ``"cuda"``,
+    resolved as :func:`resolve_device` does)."""
+    if device is None and torch.is_tensor(x):
+        return x.to(torch.float64)
+    return torch.as_tensor(x, dtype=torch.float64,
+                           device=resolve_device("cuda" if device is None else device))

@@ -4,14 +4,18 @@ the angular and frequency parts of ``cora_tpu/foreground/gaussianfg.py``.
 C_l(ν, ν') = A_l · B(ν, ν'): a power-law angular part and a log-normal
 frequency correlation (SCK, astro-ph/0408515), in Kelvin.  Full-sky
 realisations go through :meth:`cora_tpu_torch.core.maps.Sky3d.getsky`;
-the flat-sky field (``generate_weight``/``getfield``) is not ported yet.
+the flat-sky cube (``getfield``) weights an angular Gaussian field by the
+frequency covariance's root, float64 on ``device``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..core import maps
+from ..core import gaussianfield, maps
+from ..device import resolve_device
+from ..util import fftutil, linalg
 from ..util import interpolation as cs
 
 
@@ -28,6 +32,51 @@ class ForegroundMap(maps.Sky3d):
 
     def angular_powerspectrum(self, l, nu1, nu2):
         return self.angular_ps(l) * self.frequency_covariance(nu1, nu2)
+
+    _weight_gen = False
+
+    def generate_weight(self, regen=False):
+        """Pregenerate the frequency covariance's root and the angular
+        field.  The root is taken on the host in float64
+        (:func:`linalg.matrix_root_manynull`: Cholesky, else clipped eigh),
+        so every device draws from the same root; the angular field's P(l)
+        is ``angular_ps`` on the host (a user-overridable numpy method)."""
+        if self._weight_gen and not regen:
+            return
+
+        f1, f2 = np.meshgrid(self.nu_pixels, self.nu_pixels)
+        ch = torch.as_tensor(self.frequency_covariance(f1, f2), dtype=torch.float64)
+
+        self._freq_weight, self._num_corr_freq = linalg.matrix_root_manynull(ch)
+
+        rf = gaussianfield.RandomFieldA2.like_map(self)
+        rf.powerspectrum = lambda karray: torch.as_tensor(
+            self.angular_ps(((karray**2).sum(dim=2) ** 0.5).cpu().numpy()),
+            dtype=torch.float64, device=karray.device)
+        self._ang_field = rf
+        self._weight_gen = True
+
+    def getfield(self, device="cuda", generator=None, noise=None):
+        """Flat-sky realisation cube [freq, x, y] on ``device``
+        (``y_num - 1`` columns for an odd ``y_num``, as the reference's
+        ``irfft``).  ``noise``: a pair, the angular field's complex white
+        noise (see :meth:`RandomField.getfield`) and the real N(0, 1)
+        frequency noise [num_corr_freq, x_num, y_num//2 + 1]."""
+        dev = resolve_device(device)
+        self.generate_weight()
+        gen = self._generator(generator, dev) if noise is None else None
+        nang, ngauss = (None, None) if noise is None else noise
+
+        aff = torch.fft.rfftn(self._ang_field.getfield(dev, gen, nang))
+
+        s2 = (self._num_corr_freq,) + tuple(aff.shape)
+        if ngauss is None:
+            gauss = gaussianfield.standard_normal(s2, dev, gen)
+        else:
+            gauss = gaussianfield.as_noise(ngauss, s2, dev, torch.float64)
+        norm = torch.tensordot(self._freq_weight.to(dev), gauss, dims=([1], [0]))
+
+        return fftutil.irfft(torch.fft.ifft(norm * aff[None, :, :], dim=1), dim=2)
 
 
 class ForegroundSCK(ForegroundMap):

@@ -8,7 +8,9 @@ whole path on ``device``: on CUDA the C_l engine of
 :mod:`cora_tpu_torch.signal.clfast` builds its tables, the channel-integrated
 C_l grid and the covariance roots there in float64 (the JAX package's
 accelerator path), else the host f64 grid (``Sky3d.getsky``); then the
-streamed synthesis.
+streamed synthesis.  ``getfield``/``get_kiyo_field*`` realise the flat-sky
+lightcone cube (:mod:`cora_tpu_torch.signal.realisation`) on ``device``;
+the shipped P(k) takes tensors, so P(k) on its box is evaluated there.
 """
 
 from __future__ import annotations
@@ -103,7 +105,13 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
             redshift = 1.5
             data = np.load(os.path.join(_DATA_DIR, "ps_z1.5.npz"))
             c1 = cs.LogSpline(np.dstack((data["k"], data["ps"]))[0])
-            ps = lambda k: np.exp(-0.5 * k**2 / self._kstar**2) * np.asarray(c1(k))
+
+            def ps(k):
+                if torch.is_tensor(k):
+                    return torch.exp(-0.5 * k**2 / self._kstar**2) * c1(k)
+                return np.exp(-0.5 * k**2 / self._kstar**2) * np.asarray(c1(k))
+
+            ps.takes_tensors = True
 
         self._sigma_v = sigma_v
 
@@ -177,10 +185,51 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
     def mean_nu(self, freq):
         return self.mean(constants.nu21 / np.asarray(freq, dtype=np.float64) - 1.0)
 
+    def _band_redshifts(self):
+        return (constants.nu21 / self.nu_upper - 1.0,
+                constants.nu21 / self.nu_lower - 1.0)
+
+    def getfield(self, device="cuda", generator=None, noise=None):
+        """A flat-sky realisation cube [freq, x, y] of the 21cm signal on
+        ``device``, channels in the order of ``frequencies`` (ascending):
+        the lightcone of :meth:`realisation`, uniform in scale factor,
+        flipped along frequency.  ``noise``: the box's complex white noise
+        (see :meth:`RandomField.getfield`)."""
+        z1, z2 = self._band_redshifts()
+        dev = resolve_device(device)
+        return self.realisation(
+            z1, z2, self.x_width, self.y_width, self.nu_num, self.x_num, self.y_num,
+            zspace=False, device=dev, generator=self._generator(generator, dev),
+            noise=noise,
+        ).flip(0)
+
+    def get_kiyo_field(self, refinement=1, device="cuda", generator=None, noise=None):
+        """A realisation of the 21cm signal (in K), in redshift order."""
+        z1, z2 = self._band_redshifts()
+        dev = resolve_device(device)
+        return self.realisation(
+            z1, z2, self.x_width, self.y_width, self.nu_num, self.x_num, self.y_num,
+            refinement=refinement, zspace=False, device=dev,
+            generator=self._generator(generator, dev), noise=noise,
+        )
+
+    def get_kiyo_field_physical(self, refinement=1, density_only=False,
+                                no_mean=False, no_evolution=False, device="cuda",
+                                generator=None, noise=None):
+        """A realisation plus the physical-coordinate box and its extent
+        (in K): ``(cube, box, (c1, c2, width_x, width_y))``."""
+        z1, z2 = self._band_redshifts()
+        dev = resolve_device(device)
+        return self.realisation(
+            z1, z2, self.x_width, self.y_width, self.nu_num, self.x_num, self.y_num,
+            refinement=refinement, zspace=False, report_physical=True,
+            density_only=density_only, no_mean=no_mean, no_evolution=no_evolution,
+            device=dev, generator=self._generator(generator, dev), noise=noise,
+        )
+
     def get_pwrspec(self, k_vec):
         """Power spectrum of the signal averaged over the band."""
-        z1 = constants.nu21 / self.nu_upper - 1.0
-        z2 = constants.nu21 / self.nu_lower - 1.0
+        z1, z2 = self._band_redshifts()
         return self.powerspectrum_1D(k_vec, z1, z2, 256)
 
 

@@ -10,13 +10,16 @@ in (log x, log y) space.
 Evaluation spells the cubic terms as products (``a*a*a``, ``h*h``) in the
 order the JAX package's native evaluator uses, so large-batch tables built
 here (the P(k) grid behind the C_l lookup) match it to the last bits.
-Nothing on the synthesis path evaluates a spline on a device, so the
-jittable ``spline_eval`` has no counterpart here.
+:func:`spline_eval` is the same evaluation on tensors, on their device (the
+flat-sky P(k) box, the correlation-function lookups of
+:mod:`cora_tpu_torch.signal.corrfunc`); the splines dispatch to it when
+called with a tensor.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class InterpolationException(Exception):
@@ -98,6 +101,36 @@ def spline_eval_np(x_grid, y_grid, y2, x):
     return out[0] if scalar else out
 
 
+def spline_eval(x_grid, y_grid, y2, x):
+    """Evaluate the natural cubic spline (x_grid, y_grid, y2) at the tensor
+    ``x``, on its device: :func:`spline_eval_np`'s terms and its linear
+    extrapolation past both ends."""
+    dev, dt = x.device, torch.float64
+    x_grid = torch.as_tensor(x_grid, dtype=dt, device=dev)
+    y_grid = torch.as_tensor(y_grid, dtype=dt, device=dev)
+    y2 = torch.as_tensor(y2, dtype=dt, device=dev)
+    x = x.to(dt)
+
+    n = x_grid.shape[0]
+    kl = (torch.searchsorted(x_grid, x.contiguous(), right=True) - 1).clamp_(0, n - 2)
+    kh = kl + 1
+    xl, xh = x_grid[kl], x_grid[kh]
+    h = xh - xl
+    a = (xh - x) / h
+    b = (x - xl) / h
+    c = (a * a * a - a) * h * h / 6.0
+    d = (b * b * b - b) * h * h / 6.0
+    out = a * y_grid[kl] + b * y_grid[kh] + c * y2[kl] + d * y2[kh]
+
+    h0 = x_grid[1] - x_grid[0]
+    s0 = (y_grid[1] - y_grid[0]) / h0 - h0 * y2[1] / 6.0
+    h1 = x_grid[n - 1] - x_grid[n - 2]
+    s1 = (y_grid[n - 1] - y_grid[n - 2]) / h1 + h1 * y2[n - 2] / 6.0
+    out = torch.where(x < x_grid[0], s0 * (x - x_grid[0]) + y_grid[0], out)
+    return torch.where(x >= x_grid[n - 1], s1 * (x - x_grid[n - 1]) + y_grid[n - 1],
+                       out)
+
+
 def _stack_data(data1, data2=None):
     if data2 is None:
         data = np.asarray(data1, dtype=np.float64)
@@ -132,6 +165,8 @@ class CubicSpline:
         self.y2 = natural_spline_coefficients(self.x, self.y)
 
     def value(self, x):
+        if torch.is_tensor(x):
+            return spline_eval(self.x, self.y, self.y2, x)
         return spline_eval_np(self.x, self.y, self.y2, x)
 
     def __call__(self, x):
@@ -147,7 +182,17 @@ class LogSpline:
             raise InterpolationException("Data must be non-negative.")
         self._spline = CubicSpline(np.log(data))
 
+    @classmethod
+    def fromfile(cls, file, colspec=None):
+        """Build from two columns (default the first two) of a text file."""
+        return cls(np.loadtxt(file, usecols=[0, 1] if colspec is None else colspec))
+
     def value(self, x):
+        if torch.is_tensor(x):
+            pos = x > 0.0
+            lx = torch.log(torch.where(pos, x.to(torch.float64), 1.0))
+            v = torch.exp(self._spline.value(lx))
+            return torch.where(pos, v, 0.0)
         xa = np.asarray(x, dtype=np.float64)
         pos = xa > 0.0
         with np.errstate(divide="ignore", invalid="ignore"):
