@@ -147,6 +147,33 @@ Phases (each prints its own lines; any failure exits non-zero):
               same-noise comparison with cora_tpu in the CPU tests is what
               decides correctness); CombinedPointSources I std 3–15 K, Q/U
               std 0.005–0.015 K.
+13. flat-sky — getfield, get_kiyo_field(refinement=2), the SCK and LOFAR
+              cubes, ps_to_corr, corr_to_clarray and the exact C_ℓ on the
+              card against the CPU on the same noise (≤ 1e-10·max), the
+              full-width lightcone (256 channels × 256²) with its stages,
+              peak memory and periodogram.
+14. LSS       — the chain CalculateCorrelations → CalculateMultiFrequency-
+              AngularPowerSpectrum → GenerateInitialLSSFromCl →
+              GeneratePolynomialBias(HI) → ZeldovichDynamics(sph) →
+              FingersOfGod(HI) → AddCorrelatedShotNoise(log_M_HI_g 10) →
+              BiasedLSSToMap(use_mean_21cmT) at nside 32 × 16 channels
+              (500–550 MHz) on the card and on the CPU from the same draws
+              (CPU roots, ξ and shot noise): every product ≤ 1e-10·max
+              (pixel flips counted, ≤ 1e-6 of the particles, their pixel
+              columns set aside); the deposit alone given the same
+              positions, pixel ids and vectors ≤ 1e-12·max (and whether
+              two CUDA deposits give the same bits, printed).  Then
+              Pipeline([...]).run() of that chain at nside 256 × 256
+              channels (400–800 MHz), counters reset just before: time and
+              peak memory per task, K4 f64 and K3 f64 launched and no f32
+              kernel; each channel's initial δ mean square within 5% of
+              Σ(2ℓ+1)[R Rᵀ]_δδ/4π of the roots it was drawn with (its
+              ratio to the raw C_ℓ^δδ sum printed: clipping the joint
+              covariance's negative modes adds δ variance, as in
+              cora_tpu); mass conserved ≤ 1e-10; the map [256, 4, 786432]
+              float64, finite, Q/U/V exactly 0; K3 f64 (spin 1, L = 513)
+              against its plain version ≤ 1e-10·max at the shape the
+              gradient launched, timed beside its bound.
 
 The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phase 5b:
 nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
@@ -158,6 +185,7 @@ The line before the last is the kernel report (JSON); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1693,13 +1721,15 @@ def _record_k4_shapes(shapes):
 
 
 def _k4_at_path_shapes(dev, shapes):
-    """K4 against its plain version at each shape the foreground command
-    launched it with, on that operator's device-built Λ."""
+    """K4 against its plain version at each shape a run launched it with
+    (``_record_k4_shapes``), on that operator's device-built Λ, with its
+    bound and the per-chunk bmm's time."""
     import torch
 
     from cora_tpu_torch.healpix import sht
     from cora_tpu_torch.ops import legendre as k4
 
+    card = _card()
     for (nside, lmax, F2, f64), calls in sorted(shapes.items()):
         op = sht.get_sht(nside, lmax, device=dev)
         dtype = torch.float64 if f64 else torch.float32
@@ -1716,8 +1746,12 @@ def _k4_at_path_shapes(dev, shapes):
                 name, nside, run_k, run_p,
                 lambda: _k4_run(k4.legendre_contract_plain, lam.double(), desc,
                                 A.double(), R), reps=(3, 1), tol=1e-5)
+        lib_ms = _cuda_time_ms(lambda: _k4_library(lam, desc, A, R), 3)
+        flops, nbytes = _k4_work(lam, desc, A, R)
+        bound_ms, bound_by = _bound(*flops, nbytes, A.element_size())
         print(f"   {name} nside={nside}: {calls} launches on the path; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, median)")
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, per-chunk bmm {lib_ms:.3f} ms "
+              f"(CUDA events, median), bound {bound_ms:.3f} ms ({bound_by}) ({card})")
         del lam, A
         torch.cuda.empty_cache()
 
@@ -2099,6 +2133,351 @@ def flatsky_phase(dev, seed=21, width=256, lmax=767, per_decade=1000):
     print(f"   phase 13 {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+LSS_TASKS = "cora_tpu_torch.signal.lss."
+# The reference's Σ(2ℓ+1)[R Rᵀ]_δδ / Σ(2ℓ+1)C_ℓ^δδ over channels (min,
+# mean, max) at nside 32 × 16 channels over 500–550 MHz, 100 per decade:
+# the δ variance its clipped roots of the joint (φ, δ) covariance realise.
+# Printed by tests/test_torch_lss.py::test_own_roots_realise_reference_covariance
+# (run it with -s).
+REF_DELTA_RATIO = (1.0454634064055146, 1.2627866666265395, 1.3217992261848923)
+
+
+def _delta_variance_ratio(R, dd):
+    """Σ(2ℓ+1)[R Rᵀ]_δδ / Σ(2ℓ+1)C_ℓ^δδ per channel, for roots R of the
+    joint covariance and its δδ block ``dd``."""
+    nz = dd.shape[-1]
+    w = 2 * np.arange(dd.shape[0])[:, None] + 1.0
+    real = R.square().sum(-1)[:, nz:].cpu().numpy()
+    return (w * real).sum(0) / (w * dd.diagonal(dim1=-2, dim2=-1).cpu().numpy()).sum(0)
+
+
+def lss_specs(nside, freqs, per_decade=1000):
+    """The docs' LSS chain (docs/simulation.md:70-91, with the FoG and
+    shot-noise tasks) as the list of dicts ``Pipeline`` takes."""
+    t = lambda name, **kw: dict(type=LSS_TASKS + name, **kw)
+    return [
+        t("CalculateCorrelations", out="corr",
+          params={"samples_per_decade": per_decade}),
+        t("CalculateMultiFrequencyAngularPowerSpectrum", **{"in": "corr"}, out="aps",
+          params={"nside": nside, "frequencies": freqs}),
+        t("GenerateInitialLSSFromCl", requires="aps", out="initial",
+          params={"start_seed": 14}),
+        t("GeneratePolynomialBias", **{"in": "initial"}, out="biased",
+          params={"model": "HI"}),
+        t("ZeldovichDynamics", **{"in": ["initial", "biased"]}, out="final",
+          params={"sph": True}),
+        t("FingersOfGod", **{"in": "final"}, out="fog", params={"model": "HI"}),
+        t("AddCorrelatedShotNoise", requires="initial", **{"in": "fog"}, out="noisy",
+          params={"log_M_HI_g": 10}),
+        t("BiasedLSSToMap", **{"in": "noisy"}, out="map",
+          params={"use_mean_21cmT": True}),
+    ]
+
+
+def _lss_chain(device, nside, freqs, xi, roots, shot, per_decade):
+    """The chain task by task on ``device``, handed the white noise ``xi``,
+    the roots and the shot noise; returns every product and the
+    displacements the Zel'dovich task computed."""
+    from cora_tpu_torch.signal import lss
+
+    cfg = lambda **kw: dict(kw, device=str(device))
+    out = {}
+    cc = lss.CalculateCorrelations.from_config(cfg(samples_per_decade=per_decade))
+    cc.setup()
+    out["corr"] = cc.process()
+    out["aps"] = lss.CalculateMultiFrequencyAngularPowerSpectrum.from_config(
+        cfg(nside=nside, frequencies=freqs)).process(out["corr"])
+    gen = lss.GenerateInitialLSSFromCl.from_config(cfg(start_seed=14))
+    gen.setup(out["aps"])
+    out["initial"] = gen.process(noise=xi, roots=roots)
+    bias = lss.GeneratePolynomialBias.from_config(cfg(model="HI"))
+    bias.setup()
+    out["biased"] = bias.process(out["initial"])
+    zd = lss.ZeldovichDynamics.from_config(cfg(sph=True))
+    out["final"] = zd.process(out["initial"], out["biased"])
+    out["psi"], out["delta_m"] = zd.displacement(out["initial"], out["biased"])
+    fog = lss.FingersOfGod.from_config(cfg(model="HI"))
+    fog.setup()
+    out["fog"] = fog.process(out["final"])
+    fog_delta = out["fog"].delta.clone()
+    sn = lss.AddCorrelatedShotNoise.from_config(cfg(log_M_HI_g=10))
+    sn.setup(out["initial"])
+    out["noisy"] = sn.process(out["fog"], noise=shot)
+    out["fog_delta"] = fog_delta
+    out["map"] = lss.BiasedLSSToMap.from_config(cfg(use_mean_21cmT=True)).process(
+        out["noisy"])
+    return out
+
+
+def lss_parity(dev, nside=32, nfreq=16, per_decade=100):
+    """The chain at nside 32 × 16 channels on the card and on the CPU from
+    the same draws: every product within 1e-10·max (the final fields away
+    from the pixel columns a particle that changed pixel between the
+    devices touches), and the deposit alone given the same positions,
+    pixel ids and vectors within 1e-12·max."""
+    import torch
+
+    from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.healpix import pixel
+    from cora_tpu_torch.ops import pmesh
+    from cora_tpu_torch.signal import lss
+    from cora_tpu_torch.util import linalg
+
+    freqs = [500.0, 550.0, nfreq]
+    cpu = torch.device("cpu")
+    L, npix = 3 * nside, 12 * nside**2
+    g = torch.Generator().manual_seed(14)
+    xi = linalg.complex_std_normal((L, 2 * nfreq, L), g, torch.float64)
+    shot = torch.randn((nfreq, npix), generator=g, dtype=torch.float64)
+
+    t0 = time.perf_counter()
+    # the roots of the CPU's joint covariance, for both devices (eigh's
+    # eigenvector signs differ between CPU and CUDA)
+    cc = lss.CalculateCorrelations.from_config(dict(samples_per_decade=per_decade,
+                                                    device="cpu"))
+    cc.setup()
+    aps = lss.CalculateMultiFrequencyAngularPowerSpectrum.from_config(
+        dict(nside=nside, frequencies=freqs, device="cpu")).process(cc.process())
+    roots = skysim.correlated_roots(lss.joint_cl(aps))
+    ref = _lss_chain(cpu, nside, freqs, xi, roots, shot, per_decade)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = _lss_chain(dev, nside, freqs, xi, roots, shot, per_decade)
+    torch.cuda.synchronize(dev)
+    t_gpu = time.perf_counter() - t0
+    print(f"   chain nside {nside} × {nfreq} channels (500–550 MHz, "
+          f"{per_decade}/decade): cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} s")
+
+    # pixel flips: particles whose pixel or radial bin differs between the
+    # devices, and the pixel columns their 9-neighbour supports touch
+    chi = np.asarray(ref["final"].chi)
+    order = torch.as_tensor(np.argsort(chi))
+    chi_asc = torch.as_tensor(chi)[order]
+    geo = pmesh.sph_geometry(nside, cpu)
+    ids = [pmesh.sph_particles(geo["angpos"], r["psi"].cpu()[:, order], chi_asc,
+                               chi_asc, nside)[1::2] for r in (got, ref)]  # pixel, bin
+    flip = (ids[0][0] != ids[1][0]) | (ids[0][1] != ids[1][1])
+    nflip, npart = int(flip.sum()), flip.numel()
+    masked = torch.zeros(npix, dtype=torch.bool)
+    for pix, _ in ids:
+        masked[geo["nn_ind"][pix[flip]].clamp_min(0).reshape(-1)] = True
+    print(f"   particles whose pixel or radial bin differs cuda vs cpu: {nflip} of "
+          f"{npart}; pixel columns set aside: {int(masked.sum())}")
+    check(nflip <= 1e-6 * npart, "pixel flips ≤ 1e-6 of the particles")
+
+    worst = 0.0
+    for key, get in (("corr0", lambda c: c["corr"].datasets["corr0"]),
+                     ("corr2", lambda c: c["corr"].datasets["corr2"]),
+                     ("corr4", lambda c: c["corr"].datasets["corr4"]),
+                     ("Cl_delta_delta", lambda c: c["aps"].Cl_delta_delta),
+                     ("Cl_phi_delta", lambda c: c["aps"].Cl_phi_delta),
+                     ("Cl_phi_phi", lambda c: c["aps"].Cl_phi_phi),
+                     ("initial delta", lambda c: c["initial"].delta),
+                     ("initial phi", lambda c: c["initial"].phi),
+                     ("biased", lambda c: c["biased"].delta),
+                     ("final", lambda c: c["final"].delta[:, ~masked]),
+                     ("FoG", lambda c: c["fog_delta"][:, ~masked]),
+                     ("shot noise added", lambda c: c["noisy"].delta[:, ~masked]),
+                     ("map", lambda c: c["map"].map[:, :, ~masked])):
+        a, b = get(got).cpu(), get(ref)
+        err = float((a - b).abs().max() / b.abs().max())
+        worst = max(worst, err)
+        print(f"   {key:17s} max|cuda − cpu|/max = {err:.3e}")
+        check(err <= 1e-10, f"LSS {key}: cuda vs cpu ≤ 1e-10·max (same draws)")
+
+    # the card's own roots of its own C_ℓ (the task's path without roots=):
+    # R Rᵀ against the CPU roots' (sign-invariant), and the δ variance they
+    # realise against the reference's reading at this size
+    own = skysim.correlated_roots(lss.joint_cl(got["aps"]))
+    err = _rel_max(own @ own.transpose(1, 2), roots @ roots.transpose(1, 2))
+    ratio = _delta_variance_ratio(own, got["aps"].Cl_delta_delta)
+    stats = tuple(float(x) for x in (ratio.min(), ratio.mean(), ratio.max()))
+    print(f"   the card's own roots: max|R Rᵀ − R Rᵀ(cpu)|/max = {err:.3e}; δ variance "
+          f"over Σ(2ℓ+1)C_ℓ^δδ min {stats[0]!r} mean {stats[1]!r} max {stats[2]!r} "
+          f"(cora_tpu on the CPU: {REF_DELTA_RATIO})")
+    check(err <= 1e-10, "the card's joint-covariance roots: R Rᵀ within 1e-10·max of "
+          "the CPU's")
+    check(all(abs(a / b - 1) <= 1e-8 for a, b in zip(stats, REF_DELTA_RATIO)),
+          "the δ variance the card's roots realise within 1e-8 of cora_tpu's")
+    del own
+
+    # the deposit alone: the same displaced positions, pixel ids and vectors
+    # (from the CPU) on both devices
+    psi = ref["psi"][:, order]
+    db = ref["biased"].delta[order]
+    dm = ref["delta_m"][order]
+    parts = pmesh.sph_particles(geo["angpos"], psi, chi_asc, chi_asc, nside)
+    vec = pmesh.particle_vectors(parts[0])
+    scaling = (1.0 + dm).clamp(0.1, 3.0).pow(-1.0 / 3).reshape(-1)
+    sigma_chi = float(np.mean(np.abs(np.diff(chi))) / 2)
+    outs = []
+    for d in (dev, dev, cpu):
+        gd = pmesh.sph_geometry(nside, d)
+        out = torch.zeros((nfreq, npix), dtype=torch.float64, device=d)
+        pmesh.sph_deposit(out, (1.0 + db).reshape(-1).to(d), scaling.to(d),
+                          *(p.to(d) for p in parts), chi_asc.to(d), gd, nside,
+                          pixel.nside2resol(nside) / 2, sigma_chi,
+                          new_ang_vec=vec.to(d))
+        outs.append(out.cpu())
+    err = float((outs[0] - outs[2]).abs().max() / outs[2].abs().max())
+    same = bool(torch.equal(outs[0], outs[1]))
+    print(f"   deposit alone, same positions: max|cuda − cpu|/max = {err:.3e}; two "
+          f"cuda runs give the same bits: {same} (max|Δ|/max "
+          f"{float((outs[0] - outs[1]).abs().max() / outs[2].abs().max()):.3e})")
+    check(err <= 1e-12, "SPH deposit cuda vs cpu ≤ 1e-12·max given the same positions")
+    mass = float((1 + got["final"].delta).sum() / (1 + got["biased"].delta).sum() - 1)
+    check(abs(mass) <= 1e-10, f"mass conserved on the card at nside {nside} "
+          f"(relative {mass:.3e})")
+    del got, ref
+    torch.cuda.empty_cache()
+
+
+def _record_k3_shapes(shapes):
+    """A stand-in for the spin transforms' K3 synthesis entry that records
+    each call's table and plane shapes and launches the kernel as before."""
+    from cora_tpu_torch.ops import wigner as k3
+
+    def contract(*args):
+        x = args[-1]
+        key = (tuple(args[0].shape), tuple(x.shape), str(x.dtype))
+        shapes[key] = shapes.get(key, 0) + 1
+        return k3.wigner_contract(*args)
+
+    return contract
+
+
+def lss_phase(dev, nside=256, nfreq=256, per_decade=1000):
+    """Phase 14: the LSS chain through ``Pipeline([...]).run()`` at nside
+    256 × 256 channels over 400–800 MHz (``nside``, ``nfreq`` and
+    ``per_decade`` cut only to rehearse it on the CPU), after the chain's
+    cuda-vs-cpu parity at nside 32 × 16."""
+    import torch
+    from unittest import mock
+
+    from cora_tpu_torch import pipeline
+    from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.healpix import sht, spin
+    from cora_tpu_torch.ops import wigner as k3
+    from cora_tpu_torch.signal import lss
+    from cora_tpu_torch.util import profiling
+
+    card = _card()
+    phase(f"14 LSS: the chain CalculateCorrelations → … → BiasedLSSToMap, cuda vs cpu "
+          f"at nside 32 × 16, then Pipeline.run() at nside {nside} × {nfreq} channels")
+    t_phase = time.perf_counter()
+    _clear_operators()
+    lss_parity(dev)
+    _clear_operators()
+
+    freqs = [400.0, 800.0, nfreq, False]
+    k3_shapes, k4_shapes, peaks = {}, {}, {}
+    stage_fn = pipeline.stage
+
+    @contextlib.contextmanager
+    def stage_peak(name, device=None):  # each task's own peak memory
+        torch.cuda.reset_peak_memory_stats(dev)
+        with stage_fn(name, device):
+            yield
+        peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated(dev))
+
+    profiling.enable(True)
+    torch.cuda.empty_cache()
+    with contextlib.ExitStack() as patches:
+        for mod, name, fn in ((sht, "legendre_contract", _record_k4_shapes(k4_shapes)),
+                              (spin, "wigner_contract", _record_k3_shapes(k3_shapes)),
+                              (pipeline, "stage", stage_peak)):
+            patches.enter_context(mock.patch.object(mod, name, fn))
+        _reset_counts()
+        t0 = time.perf_counter()
+        products = pipeline.Pipeline(lss_specs(nside, freqs, per_decade)).run()
+        torch.cuda.synchronize(dev)
+        total = time.perf_counter() - t0
+    n = _counts()
+    st = dict(profiling.stage_times)
+    profiling.enable(False)
+    peak = max(peaks.values())
+    for name, secs in st.items():
+        if name.startswith("task:"):
+            print(f"   {name[5:]:45s} {secs:9.3f} s, peak {peaks[name] / 2**30:6.2f} GiB")
+    print(f"   total Pipeline.run {total:.3f} s; peak device memory {peak / 2**30:.2f} "
+          f"GiB; launches {json.dumps({k: v for k, v in n.items() if v})} ({card})")
+    check(n["legendre_contract_f64"] > 0 and n["wigner_contract_f64"] > 0,
+          "the chain launched legendre_contract_f64 (K4: the draw's synthesis, the "
+          "gradient's analysis) and wigner_contract_f64 (K3: the spin-1 gradient)")
+    check(all(n[k] == 0 for k in ("scan_contract", "scan_project", "wigner_contract",
+                                  "wigner_project", "legendre_contract")),
+          "the chain launched no float32 kernel")
+
+    # The initial δ's mean square per channel against Σ(2ℓ+1)C_ℓ/4π of the
+    # covariance the roots realise and of the C_ℓ^δδ block itself.  The
+    # joint (φ, δ) matrix has negative modes (φφ is ~1e9 times δδ), and the
+    # clipped root drops them: R Rᵀ − C is then bounded by the sum of the
+    # negative eigenvalues, and the δ variance it adds by what cora_tpu's
+    # own roots add at a size the CPU runs (REF_DELTA_RATIO).
+    aps, init = products["aps"][0], products["initial"][0]
+    cla = lss.joint_cl(aps)
+    R = skysim.correlated_roots(cla)
+    evals = torch.linalg.eigvalsh(cla)
+    drop = (R @ R.transpose(1, 2) - cla).abs().amax(dim=(1, 2))
+    bound = (-evals).clamp_min(0).sum(-1) + 1e-11 * evals.amax(-1)
+    print(f"   joint covariance: max over ℓ of max|R Rᵀ − C_ℓ| / λ_max "
+          f"{float((drop / evals.amax(-1)).max()):.3e}, of its bound "
+          f"(Σ|λ<0| + 1e-11·λ_max) / λ_max {float((bound / evals.amax(-1)).max()):.3e}")
+    check(bool((drop <= bound).all()), "the roots realise C_ℓ up to its negative modes: "
+          "max|R Rᵀ − C_ℓ| ≤ Σ|λ<0| + 1e-11·λ_max at every ℓ")
+    ms = init.delta.square().mean(dim=1).cpu().numpy()
+    w = (2 * np.arange(3 * nside) + 1.0)[:, None] / (4 * np.pi)
+    real = (w * R.square().sum(-1)[:, nfreq:].cpu().numpy()).sum(0)
+    raw = (w * aps.Cl_delta_delta.diagonal(dim1=-2, dim2=-1).cpu().numpy()).sum(0)
+    r_real, r_raw = ms / real, ms / raw
+    print(f"   initial δ mean square / Σ(2ℓ+1)[R Rᵀ]_δδ/4π: min {r_real.min():.4f} "
+          f"max {r_real.max():.4f}; / Σ(2ℓ+1)C_ℓ^δδ/4π: min {r_raw.min():.4f} "
+          f"max {r_raw.max():.4f} (cora_tpu's roots at nside 32 × 16: "
+          f"{REF_DELTA_RATIO[0]:.4f}–{REF_DELTA_RATIO[2]:.4f})")
+    check(np.all(np.abs(r_real - 1.0) < 0.05), "every channel's initial δ variance "
+          "within 5% of the realised covariance's C_ℓ sum")
+    check(r_raw.min() > 0.95 and r_raw.max() < 1.05 * REF_DELTA_RATIO[2],
+          "every channel's initial δ variance over Σ(2ℓ+1)C_ℓ^δδ/4π above 0.95 and within "
+          "5% of the most cora_tpu's roots realise at nside 32 × 16")
+    del cla, R, evals
+    m_in = float((1 + products["biased"][0].delta).sum())
+    m_out = float((1 + products["final"][0].delta).sum())
+    print(f"   mass: Σ(1 + δ_bias) = {m_in:.12e}, Σ(1 + δ_final) = {m_out:.12e}")
+    check(abs(m_out - m_in) <= 1e-10 * m_in, "the deposit conserves mass within 1e-10")
+    m = products["map"][0].map
+    check(tuple(m.shape) == (nfreq, 4, 12 * nside**2) and m.dtype == torch.float64,
+          f"map [{nfreq}, 4, {12 * nside**2}] float64")
+    check(bool(torch.isfinite(m).all()) and not bool(m[:, 1:].any()),
+          "every pixel finite, Q/U/V exactly 0")
+    del products, aps, init, m
+    _clear_operators()
+    torch.cuda.empty_cache()
+
+    # K4 and K3 against their plain versions at the shapes the chain gave
+    # them (K3: the gradient's spin 1, float64)
+    _k4_at_path_shapes(dev, k4_shapes)
+    _clear_operators()
+    torch.cuda.empty_cache()
+    op = spin.get_spin_sht(nside, 2 * nside, 1, device=dev)
+    t64 = op.tables(True)
+    for (tab_shape, x_shape, dtype), calls in sorted(k3_shapes.items()):
+        check(dtype == "torch.float64", f"gradient K3 call in {dtype}")
+        F2, L = x_shape[0], x_shape[1]
+        x, _ = _wigner_inputs(op, F2, 14, torch.float64)
+        name = f"wigner_contract_f64 s=1 L={L} F2={F2}"
+        err, ms, plain_ms = _compare64(name, nside, lambda: (k3.wigner_contract(*t64[1], x),),
+                                       lambda: (k3.wigner_contract_plain(*t64[1], x),),
+                                       reps=(5, 1))
+        flops, nbytes = _k3_work(op, t64[1], x, F2)
+        bound_ms, bound_by = _bound(*flops, nbytes, 8)
+        print(f"   {name}: {calls} launches on the path; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of it ({card})")
+        del x
+    _clear_operators()
+    print(f"   phase 14 {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_phase()
@@ -2123,6 +2502,7 @@ def main():
     del data
     foreground_phase(dev)
     flatsky_phase(dev)
+    lss_phase(dev)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",

@@ -12,6 +12,10 @@ tables (isolating the kernel and the ring stage from table construction).
 
     desc = op.lambda_desc()[0]                       # cached mode: Λ chunks
     op.load_lambda(lambda_chunks_from_numpy(d["lam"], desc, op.nhalf))
+
+The LSS pipeline's state is its containers:
+:func:`container_from_numpy` builds a port container from a reference
+container's numpy dicts.
 """
 
 from __future__ import annotations
@@ -102,3 +106,24 @@ def lambda_chunks_from_numpy(chunks, desc, nh: int) -> list:
             raise ValueError("Λ chunk has non-zero rows beyond the port's chunk")
         out.append(np.ascontiguousarray(c[:, :nrows]))
     return out
+
+
+def container_from_numpy(cls, index_map: dict, datasets: dict, attrs: dict, device,
+                         dataset_attrs: dict | None = None):
+    """A port container of class ``cls`` from a reference container's numpy
+    dicts (``index_map``, ``datasets``, ``attrs`` and, for interpolated
+    functions, the per-dataset attributes ``_ds_attrs``), its datasets on
+    ``device``: any stage of the reference's LSS chain handed to the next
+    task of the port.  Arrays are copied."""
+    from .core.containers import ContainerBase, as_dataset
+
+    c = cls.__new__(cls)
+    ContainerBase.__init__(c, skip_datasets=True, device=device)
+    c.index_map = {k: np.array(v) for k, v in index_map.items()}
+    c.datasets = {k: as_dataset(np.array(v), c.device) for k, v in datasets.items()}
+    c.attrs = {k: (dict(v) if isinstance(v, dict) else v) for k, v in attrs.items()}
+    for name, a in (dataset_attrs or {}).items():
+        c._dataset_attrs(name).update(a)
+    if hasattr(c, "_finish_setup"):
+        c._finish_setup()
+    return c

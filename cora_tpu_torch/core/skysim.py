@@ -177,21 +177,29 @@ def draw_alm_from_roots(roots, xi=None, generator=None,
     return alm.movedim(0, 1)
 
 
+def correlated_roots(corr):
+    """Per-ℓ roots R [L, nz, nz] of C_l(z, z') [L, nz, nz], on its device
+    and in its float dtype: a 1e-14·max-diagonal jitter per ℓ, then the
+    clipped-eigh root (:func:`cora_tpu_torch.util.linalg.batch_matrix_root`),
+    so R Rᵀ = C_l + jitter up to the clipped modes.  The roots of
+    ``cora_tpu/core/skysim.py`` ``draw_correlated_alm``.
+    """
+    nz = corr.shape[-1]
+    cmax = corr.diagonal(dim1=-2, dim2=-1).abs().max(dim=-1, keepdim=True).values
+    eye = torch.eye(nz, dtype=corr.dtype, device=corr.device)
+    return linalg.batch_matrix_root(corr + (cmax * 1e-14)[..., None] * eye)
+
+
 def draw_correlated_alm(corr, generator=None, xi=None, dtype=torch.complex128):
-    """a_lm [nz, L, L] with per-ℓ covariance C_l(z, z') [L, nz, nz]: a
-    1e-14·max-diagonal jitter per ℓ, the clipped-eigh root
-    (:func:`cora_tpu_torch.util.linalg.batch_matrix_root`), times the
-    complex standard normal ``xi`` [L, nz, L] (drawn from ``generator``
-    when not given), zero for m > ℓ.  Runs on the device ``corr`` lies on
-    (numpy: the CPU) in ``dtype`` (complex128 or complex64).  Port of
+    """a_lm [nz, L, L] with per-ℓ covariance C_l(z, z') [L, nz, nz]: the
+    roots of :func:`correlated_roots` times the complex standard normal
+    ``xi`` [L, nz, L] (drawn from ``generator`` when not given), zero for
+    m > ℓ.  Runs on the device ``corr`` lies on (numpy: the CPU) in
+    ``dtype`` (complex128 or complex64).  Port of
     ``cora_tpu/core/skysim.py`` ``draw_correlated_alm``.
     """
     rdt = torch.float64 if dtype == torch.complex128 else torch.float32
-    corr = torch.as_tensor(corr).to(rdt)
-    L, nz, _ = corr.shape
-    cmax = corr.diagonal(dim1=-2, dim2=-1).abs().max(dim=-1, keepdim=True).values
-    eye = torch.eye(nz, dtype=rdt, device=corr.device)
-    roots = linalg.batch_matrix_root(corr + (cmax * 1e-14)[..., None] * eye)
+    roots = correlated_roots(torch.as_tensor(corr).to(rdt))
     return draw_alm_from_roots(roots, xi=xi, generator=generator, dtype=dtype)
 
 

@@ -5,7 +5,7 @@ The host float64 half of the JAX module: coefficient construction
 solve with natural boundaries) and evaluation (:func:`spline_eval_np`,
 linear extrapolation past both ends from the end-interval secant slope
 corrected by the adjacent second derivative).  ``LogSpline`` interpolates
-in (log x, log y) space.
+in (log x, log y) space, ``SinhSpline`` in arcsinh-scaled space.
 
 Evaluation spells the cubic terms as products (``a*a*a``, ``h*h``) in the
 order the JAX package's native evaluator uses, so large-batch tables built
@@ -204,3 +204,32 @@ class LogSpline:
 
     def __call__(self, x):
         return self.value(x)
+
+
+class SinhSpline:
+    """Cubic spline in arcsinh-scaled space (the reference's
+    ``SinhInterpolater``): interpolates ``arcsinh(f / f_t)`` against
+    ``arcsinh(x / x_t)``, log-like for values beyond the thresholds and
+    linear below them, so zeros and negative values are fine."""
+
+    def __init__(self, data, x_t=None, f_t=None):
+        if x_t is None or f_t is None:
+            raise InterpolationException("Thresholds x_t and f_t are required.")
+        self.x_t = float(x_t)
+        self.f_t = float(f_t)
+        data = np.asarray(data, dtype=np.float64)
+        self._spline = CubicSpline(np.arcsinh(data / np.array([self.x_t, self.f_t])))
+
+    def value(self, x):
+        if torch.is_tensor(x):
+            return self.f_t * torch.sinh(
+                self._spline.value(torch.arcsinh(x.to(torch.float64) / self.x_t)))
+        return self.f_t * np.sinh(spline_eval_np(
+            self._spline.x, self._spline.y, self._spline.y2,
+            np.arcsinh(np.asarray(x, dtype=np.float64) / self.x_t)))
+
+    def __call__(self, x):
+        return self.value(x)
+
+
+SinhInterpolater = SinhSpline

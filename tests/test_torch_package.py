@@ -33,7 +33,9 @@ bad = sorted(n for n in sys.modules
              or n == "cora_tpu")
 print(len([n for n in sys.modules if n.startswith("cora_tpu_torch")]))
 assert not bad, bad
-assert "cora_tpu_torch.ops.legendre" in sys.modules
+for name in ("ops.legendre", "ops.pmesh", "util.pmesh", "core.containers", "pipeline",
+             "signal.lss", "signal.lssutil", "signal.lssmodels", "signal.lsscontainers"):
+    assert "cora_tpu_torch." + name in sys.modules, name
 """
 
 
@@ -45,7 +47,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           env=env, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 16
+    assert int(proc.stdout.split()[-1]) >= 24
 
 
 def test_port_sources_never_import_jax():
