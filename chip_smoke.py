@@ -161,8 +161,8 @@ Phases (each prints its own lines; any failure exits non-zero):
               (CPU roots, ξ and shot noise): every product ≤ 1e-10·max
               (pixel flips counted, ≤ 1e-6 of the particles, their pixel
               columns set aside); the deposit alone given the same
-              positions, pixel ids and vectors ≤ 1e-12·max (and whether
-              two CUDA deposits give the same bits, printed).  Then
+              positions, pixel ids and vectors ≤ 1e-12·max, and two CUDA
+              deposits give the same bits (the ordered scatter).  Then
               Pipeline([...]).run() of that chain at nside 256 × 256
               channels (400–800 MHz), counters reset just before: time and
               peak memory per task, K4 f64 and K3 f64 launched and no f32
@@ -174,6 +174,26 @@ Phases (each prints its own lines; any failure exits non-zero):
               float64, finite, Q/U/V exactly 0; K3 f64 (spin 1, L = 513)
               against its plain version ≤ 1e-10·max at the shape the
               gradient launched, timed beside its bound.
+15. parallel  — cora_tpu_torch.parallel in a world of 1 on NCCL (one card;
+              the process group is destroyed when the phase ends).  At the
+              flagship, on phase 5's roots: synthesize_cube_sharded (cached,
+              K4 f32) against the single-device streamed cube from the same
+              seeds (≤ 1e-6 RMS, bits compared), mkfullsky_sharded (each
+              channel's variance within 5% of Σ(2ℓ+1)C_ℓ/4π), and
+              synthesize_cube_sims_sharded of 2 sims in scan mode (K1 f32;
+              sim 1 against a single-sim run of its seed).  On phase 14's
+              products at nside 256 × 256: initial_lss_sharded (≤ 1e-9·max
+              of the task's draw), gradient_sharded (≤ 1e-10·max of
+              lssutil.gradient), linear_dynamics_sharded and fog_sharded
+              (≤ 1e-9·max of the tasks), shot_noise_sharded (keyed, per-row
+              std within 1%), zeldovich_sharded twice (≤ 1e-7·max of the
+              task, the same bits twice, mass ≤ 1e-10).  corr_to_clarray(
+              mesh=) at 767 × 64 channels (≤ 1e-12·max of the call without).
+              save_sharded / restore_sharded of 64 channels of the cube onto
+              other placements (bit for bit, GB/s each way) and a container
+              round trip of phase 14's Zel'dovich field, in a temporary
+              directory.  Every step prints its time, peak memory and K1 /
+              K3 / K4 launches; the sharded paths must launch K1, K3, K4.
 
 The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phase 5b:
 nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
@@ -988,7 +1008,8 @@ def _clear_operators():
 
 
 def main_phase(dev, reports, cfg=FLAGSHIP):
-    """Returns the cube [nfreq, npix] and each channel's C_ℓ(ν,ν) [L, nfreq]."""
+    """Returns the cube [nfreq, npix], each channel's C_ℓ(ν,ν) [L, nfreq] and
+    the covariance roots [L, nfreq, nfreq] (float64, on the host)."""
     import torch
 
     from cora_tpu_torch.core import skysim
@@ -1133,7 +1154,7 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
     check(rel <= 1e-5, "device-built vs host-built Λ maps RMS ≤ 1e-5")
     del grids
     torch.cuda.empty_cache()
-    return sky, cl_diag
+    return sky, cl_diag, roots.cpu()
 
 
 def checkpoint_cache_phase(dev, nsides=(128, 512)):
@@ -2131,6 +2152,7 @@ def flatsky_phase(dev, seed=21, width=256, lmax=767, per_decade=1000):
         check(abs(a - b) <= 1e-10 * abs(b), f"exact C_ℓ at ℓ = {l} cuda vs cpu ≤ 1e-10")
     torch.cuda.empty_cache()
     print(f"   phase 13 {time.perf_counter() - t_phase:.1f} s ({card})")
+    return pair
 
 
 LSS_TASKS = "cora_tpu_torch.signal.lss."
@@ -2325,11 +2347,95 @@ def lss_parity(dev, nside=32, nfreq=16, per_decade=100):
           f"cuda runs give the same bits: {same} (max|Δ|/max "
           f"{float((outs[0] - outs[1]).abs().max() / outs[2].abs().max()):.3e})")
     check(err <= 1e-12, "SPH deposit cuda vs cpu ≤ 1e-12·max given the same positions")
+    check(same, "two CUDA deposits of the same particles give the same bits")
     mass = float((1 + got["final"].delta).sum() / (1 + got["biased"].delta).sum() - 1)
     check(abs(mass) <= 1e-10, f"mass conserved on the card at nside {nside} "
           f"(relative {mass:.3e})")
     del got, ref
     torch.cuda.empty_cache()
+
+
+def _record_first_scatter(batch):
+    """The deposit's ordered scatter-add, keeping a copy of its first call's
+    flat indices and weights (one batch of 2^22 particles' worth of whole
+    χ slices, 27 updates each) in ``batch``."""
+    from cora_tpu_torch.ops import pmesh
+
+    index_add = pmesh.index_add
+
+    def record(out, dim, index, source):
+        if not batch:
+            batch.update(cells=out.numel(), index=index.clone(), source=source.clone())
+        return index_add(out, dim, index, source)
+
+    return record
+
+
+def _atomic_index_add(out, dim, index, source):
+    return out.index_add_(dim, index, source)
+
+
+def _scatter_timing(dev, batch, reps=5):
+    """Phase 14's first deposit batch, scattered into a zeroed grid of the
+    chain's size: the ordered scatter of the port, the atomic
+    ``index_add_`` and torch's deterministic ``index_add_``, CUDA events."""
+    import torch
+
+    from cora_tpu_torch.ops import scatter
+
+    idx, src = batch["index"], batch["source"]
+    out = torch.zeros(batch["cells"], dtype=torch.float64, device=dev)
+
+    def deterministic():
+        torch.use_deterministic_algorithms(True)
+        try:
+            out.index_add_(0, idx, src)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    ms = {name: _cuda_time_ms(fn, reps) for name, fn in (
+        ("ordered", lambda: scatter.index_add(out, 0, idx, src)),
+        ("atomic", lambda: _atomic_index_add(out, 0, idx, src)),
+        ("deterministic", deterministic))}
+    print(f"   phase 14's first deposit batch ({idx.numel()} f64 updates into "
+          f"{int(torch.unique(idx).numel())} of {batch['cells']} cells): ordered scatter "
+          f"{ms['ordered']:.3f} ms, atomic index_add_ {ms['atomic']:.3f} ms, torch's "
+          f"deterministic index_add_ {ms['deterministic']:.3f} ms ({_card()})")
+    del idx, src, out
+    batch.clear()
+
+
+def _zeldovich_timing(dev, init, biased, final):
+    """ZeldovichDynamics on phase 14's fields with the ordered scatter and
+    with the atomic ``index_add_`` in its place, interleaved (ordered,
+    atomic, atomic, ordered); the ordered runs must give the chain's bits."""
+    import torch
+    from unittest import mock
+
+    from cora_tpu_torch.ops import pmesh
+    from cora_tpu_torch.signal import lss
+
+    secs, first = {"ordered": [], "atomic": []}, {}
+    for name in ("ordered", "atomic", "atomic", "ordered"):
+        with contextlib.ExitStack() as patches:
+            if name == "atomic":
+                patches.enter_context(mock.patch.object(pmesh, "index_add", _atomic_index_add))
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            delta = lss.ZeldovichDynamics.from_config({"sph": True}).process(init, biased).delta
+            torch.cuda.synchronize(dev)
+        secs[name].append(time.perf_counter() - t0)
+        if name == "ordered":
+            check(bool(torch.equal(delta, final.delta)), "ZeldovichDynamics with the ordered "
+                  "scatter gives the chain's bits again")
+        first.setdefault(name, delta)
+        del delta
+    err = _rel_max(first["atomic"], first["ordered"])
+    print(f"   ZeldovichDynamics at full width: ordered scatter "
+          f"{', '.join(f'{t:.3f}' for t in secs['ordered'])} s, atomic index_add_ "
+          f"{', '.join(f'{t:.3f}' for t in secs['atomic'])} s; max|atomic − ordered|/max = "
+          f"{err:.3e} ({_card()})")
+    del first
 
 
 def _record_k3_shapes(shapes):
@@ -2357,6 +2463,7 @@ def lss_phase(dev, nside=256, nfreq=256, per_decade=1000):
     from cora_tpu_torch import pipeline
     from cora_tpu_torch.core import skysim
     from cora_tpu_torch.healpix import sht, spin
+    from cora_tpu_torch.ops import pmesh
     from cora_tpu_torch.ops import wigner as k3
     from cora_tpu_torch.signal import lss
     from cora_tpu_torch.util import profiling
@@ -2370,7 +2477,7 @@ def lss_phase(dev, nside=256, nfreq=256, per_decade=1000):
     _clear_operators()
 
     freqs = [400.0, 800.0, nfreq, False]
-    k3_shapes, k4_shapes, peaks = {}, {}, {}
+    k3_shapes, k4_shapes, peaks, batch = {}, {}, {}, {}
     stage_fn = pipeline.stage
 
     @contextlib.contextmanager
@@ -2385,6 +2492,7 @@ def lss_phase(dev, nside=256, nfreq=256, per_decade=1000):
     with contextlib.ExitStack() as patches:
         for mod, name, fn in ((sht, "legendre_contract", _record_k4_shapes(k4_shapes)),
                               (spin, "wigner_contract", _record_k3_shapes(k3_shapes)),
+                              (pmesh, "index_add", _record_first_scatter(batch)),
                               (pipeline, "stage", stage_peak)):
             patches.enter_context(mock.patch.object(mod, name, fn))
         _reset_counts()
@@ -2449,7 +2557,12 @@ def lss_phase(dev, nside=256, nfreq=256, per_decade=1000):
           f"map [{nfreq}, 4, {12 * nside**2}] float64")
     check(bool(torch.isfinite(m).all()) and not bool(m[:, 1:].any()),
           "every pixel finite, Q/U/V exactly 0")
+    keep = {k: products[k][0] for k in ("aps", "initial", "biased", "final")}
     del products, aps, init, m
+    _clear_operators()
+    torch.cuda.empty_cache()
+    _scatter_timing(dev, batch)
+    _zeldovich_timing(dev, keep["initial"], keep["biased"], keep["final"])
     _clear_operators()
     torch.cuda.empty_cache()
 
@@ -2476,6 +2589,318 @@ def lss_phase(dev, nside=256, nfreq=256, per_decade=1000):
         del x
     _clear_operators()
     print(f"   phase 14 {time.perf_counter() - t_phase:.1f} s ({card})")
+    return keep
+
+
+PARALLEL_KEY = 2024  # the key of phase 15's keyed draws
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _sharded_steps(dev, card):
+    """A runner that times a step (synchronised), its peak memory and its
+    K1/K3/K4 launches, prints them and keeps them in ``steps``."""
+    import torch
+
+    steps = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        n = _counts()
+        k = {"K1": n["scan_contract"] + n["scan_contract_f64"],
+             "K3": n["wigner_contract"] + n["wigner_contract_f64"],
+             "K4": n["legendre_contract"] + n["legendre_contract_f64"]}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        steps[name] = dict(seconds=secs, peak_gib=peak, **k)
+        print(f"   step {name:34s} {secs:8.3f} s, peak {peak:6.2f} GiB, launches "
+              f"K1 {k['K1']} K3 {k['K3']} K4 {k['K4']} "
+              f"({', '.join(f'{e} {v}' for e, v in n.items() if v) or 'none'}) ({card})")
+        return out
+
+    return run, steps
+
+
+def parallel_phase(dev, roots, lss, pair, cfg=FLAGSHIP, cl_lmax=767):
+    """Phase 15: the parallel and IO layer in a world of 1 on NCCL (one
+    card: NCCL takes one GPU per rank).  ``roots``: phase 5's covariance
+    roots [L, nfreq, nfreq]; ``lss``: phase 14's products (aps, initial,
+    biased, final); ``pair``: phase 13's correlation function (r, ξ).
+    ``cfg`` and ``cl_lmax`` are cut only to rehearse it on the CPU (gloo)."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from cora_tpu_torch import cosmology
+    from cora_tpu_torch.parallel import checkpoint as ck
+    from cora_tpu_torch.parallel import distributed as pd
+    from cora_tpu_torch.parallel import mesh as pm
+    from cora_tpu_torch.signal import corrfunc
+
+    card = _card()
+    phase("15 parallel and IO: a world of 1 on NCCL — the sharded synthesis at the "
+          "flagship, the sharded LSS programs at nside 256 × 256, corr_to_clarray(mesh=), "
+          "sharded checkpoints")
+    t_phase = time.perf_counter()
+    check(pd.initialize(device=dev.type, init_method=f"tcp://localhost:{_free_port()}",
+                        world_size=1, rank=0, timeout=timedelta(seconds=300))
+          and dist.get_backend() == pd.backend_for(dev),
+          f"process group: {dist.get_backend()}, world of {dist.get_world_size()}")
+    run, steps = _sharded_steps(dev, card)
+    try:
+        mesh = pm.make_mesh(device=dev.type)
+        with tempfile.TemporaryDirectory() as cdir:
+            os.environ["CORA_TPU_TORCH_CACHE"] = cdir  # one rows build for both modes
+            try:
+                cube64 = _parallel_flagship(dev, run, mesh, roots, cfg)
+            finally:
+                os.environ["CORA_TPU_TORCH_CACHE"] = ""
+                _clear_operators()
+        torch.cuda.empty_cache()
+        _parallel_lss(dev, run, mesh, lss)
+        final = lss["final"]
+        lss.clear()
+        torch.cuda.empty_cache()
+
+        nu = np.linspace(400.0, 800.0, 64, endpoint=False)
+        xa = cosmology.Cosmology().comoving_distance(1420.40575177 / nu - 1.0)
+        kw = dict(xromb=2, q=4, device=dev)
+        a = run(f"corr_to_clarray(mesh=) {cl_lmax} × 64",
+                lambda: corrfunc.corr_to_clarray(pair, cl_lmax, xa, mesh=mesh, **kw))
+        b = run(f"corr_to_clarray {cl_lmax} × 64",
+                lambda: corrfunc.corr_to_clarray(pair, cl_lmax, xa, **kw))
+        err = _rel_max(a, b)
+        print(f"   corr_to_clarray(mesh=) vs without: max|Δ|/max = {err:.3e}, same bits "
+              f"{bool(torch.equal(a, b))}")
+        check(err <= 1e-12, "corr_to_clarray(mesh=) within 1e-12·max of the call without mesh")
+        del a, b
+        _parallel_checkpoints(dev, run, mesh, ck, steps, cube64, final)
+    finally:
+        dist.destroy_process_group()
+    for name, ks in (("synthesize_cube_sharded (cached)", ("K4",)),
+                     ("mkfullsky_sharded (cached)", ("K4",)),
+                     ("synthesize_cube_sims_sharded 2 sims (scan)", ("K1",)),
+                     ("initial_lss_sharded (K4 f64)", ("K4",)),
+                     ("gradient_sharded (K4, K3 f64)", ("K3", "K4")),
+                     ("zeldovich_sharded (K4, K3 f64, deposit)", ("K3", "K4"))):
+        check(all(steps[name][k] > 0 for k in ks), f"{name} launched {' and '.join(ks)}")
+    print(f"   phase 15 {time.perf_counter() - t_phase:.1f} s ({card})")
+    return steps
+
+
+def _rms_rel(a, b):
+    d = (a.double() - b.double()).square().mean().sqrt()
+    return float(d / b.double().square().mean().sqrt())
+
+
+def _parallel_flagship(dev, run, mesh, roots, cfg):
+    """The sharded synthesis programs at the flagship; returns 64 channels
+    of the sharded cube's maps for the checkpoint."""
+    import torch
+
+    from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.parallel import mesh as pm
+
+    nside, lmax, nz = cfg["nside"], 3 * cfg["nside"] - 1, cfg["nfreq"]
+    op = run("cached operator and Λ (f32)", lambda: sht.get_sht(nside, lmax, device=dev))
+    t = run("Λ tables", lambda: op.tables(False))
+    cube = run("synthesize_cube_sharded (cached)", lambda: pm.synthesize_cube_sharded(
+        op, t, roots, PARALLEL_KEY, mesh, fchunk=16).to_local())
+    check(tuple(cube.shape[:2]) == (nz, 4 * nside - 1) and bool(torch.isfinite(cube).all()),
+          f"sharded cube [{nz}, {4 * nside - 1}, {cube.shape[2]}] float32, finite")
+    maps = op.grid_to_map(cube)
+    del cube
+    ref = torch.empty_like(maps)
+
+    def streamed():
+        for z_lo, m in skysim.mkfullsky_streamed(
+                None, nside, device=dev, roots=roots, fchunk=16, op=op,
+                generator=torch.Generator().manual_seed(PARALLEL_KEY)):
+            ref[z_lo:z_lo + m.shape[0]] = m
+
+    run("single-device streamed cube", streamed)
+    rel = _rms_rel(maps, ref)
+    print(f"   sharded vs single-device streamed cube: RMS(Δ)/RMS = {rel:.3e}, same bits "
+          f"{bool(torch.equal(maps, ref))}")
+    check(rel <= 1e-6, "synthesize_cube_sharded within 1e-6 RMS of the single-device cube "
+          "from the same seeds")
+    cube64 = maps[:64].clone()
+    del maps, ref
+
+    R = roots.to(dev)
+    corr = torch.bmm(R, R.transpose(1, 2))
+    del R
+    sky = run("mkfullsky_sharded (cached)", lambda: pm.mkfullsky_sharded(
+        corr, nside, lmax, PARALLEL_KEY, mesh).to_local())
+    var = op.grid_to_map(sky).double().square().mean(dim=1).cpu().numpy()
+    del sky
+    ell = np.arange(lmax + 1)[:, None]
+    expect = ((2 * ell + 1) * corr.diagonal(dim1=1, dim2=2).cpu().numpy()).sum(0) / (4 * np.pi)
+    ratio = var / expect
+    print(f"   mkfullsky_sharded variance / Σ(2ℓ+1)C_ℓ/4π: min {ratio.min():.4f} "
+          f"max {ratio.max():.4f}")
+    check(np.all(np.abs(ratio - 1) < 0.05), "every channel's variance within 5% of its C_ℓ sum")
+
+    # the same program handed ξ, against the single-device cube of the same
+    # roots (correlated_roots of the same C_ℓ on the card) and ξ
+    g = torch.Generator(device=dev).manual_seed(PARALLEL_KEY)
+    pairs = torch.randn((lmax + 1, nz, 2, lmax + 1), generator=g, device=dev)
+    xi = torch.complex(pairs[:, :, 0], pairs[:, :, 1]) * np.float32(0.5**0.5)
+    sky = run("mkfullsky_sharded given ξ (cached)", lambda: pm.mkfullsky_sharded(
+        corr, nside, lmax, None, mesh, xi=xi).to_local())
+    del xi
+    maps = op.grid_to_map(sky)
+    del sky
+    R = skysim.correlated_roots(corr.double())
+    ref = run("skysim.mkfullsky, same roots and ξ", lambda: skysim.mkfullsky(
+        None, nside, device=dev, roots=R, xi=pairs, op=op))
+    del R, pairs
+    rel = _rms_rel(maps, ref)
+    print(f"   mkfullsky_sharded given ξ vs skysim.mkfullsky of the same roots and ξ: "
+          f"RMS(Δ)/RMS = {rel:.3e}, max|Δ|/max = "
+          f"{float((maps - ref).abs().max() / ref.abs().max()):.3e}")
+    check(rel <= 1e-6, "mkfullsky_sharded within 1e-6 RMS of the single-device synthesis "
+          "of the same roots and ξ")
+    del maps, ref, corr, op, t
+    _clear_operators()
+    torch.cuda.empty_cache()
+
+    op_s = run("scan operator", lambda: sht.get_sht(nside, lmax, legendre_mode="scan",
+                                                    device=dev))
+    t_s = run("scan tables (rows from the disk cache)", lambda: op_s.tables(False))
+    sims_mesh = pm.make_mesh(axis_name="sim", device=dev.type)
+    sims = run("synthesize_cube_sims_sharded 2 sims (scan)",
+               lambda: pm.synthesize_cube_sims_sharded(op_s, t_s, roots, PARALLEL_KEY, 2,
+                                                       sims_mesh, fchunk=16).to_local())
+    one = run("single sim of fold_in(key, 1) (scan)", lambda: pm.synthesize_cube_sharded(
+        op_s, t_s, roots, pm.fold_in(PARALLEL_KEY, 1), mesh, fchunk=16).to_local())
+    rel = _rms_rel(sims[1], one)
+    print(f"   sim 1 vs a single-sim run of its seed: RMS(Δ)/RMS = {rel:.3e}, same bits "
+          f"{bool(torch.equal(sims[1], one))}; sims 0 and 1 differ: "
+          f"{not bool(torch.equal(sims[0], sims[1]))}")
+    check(rel <= 1e-6 and not bool(torch.equal(sims[0], sims[1])),
+          "sim 1 is the single-sim cube of its seed (≤ 1e-6 RMS); the two sims differ")
+    del sims, one, op_s, t_s
+    return cube64
+
+
+def _parallel_lss(dev, run, mesh, lss):
+    """The sharded LSS programs on phase 14's products, against the
+    unsharded tasks at the CPU tests' tolerances."""
+    import torch
+
+    from cora_tpu_torch.parallel import lss as plss
+    from cora_tpu_torch.signal import lss as tlss, lssutil
+
+    aps, init, biased, final = (lss[k] for k in ("aps", "initial", "biased", "final"))
+    nz = len(aps.chi)
+    sky = run("initial_lss_sharded (K4 f64)", lambda: plss.initial_lss_sharded(
+        tlss.joint_cl(aps), init.nside, 14, mesh).to_local())
+    for name, got, ref in (("φ", sky[:nz], init.phi), ("δ", sky[nz:], init.delta)):
+        err = _rel_max(got, ref)
+        print(f"   initial {name}: max|sharded − task|/max = {err:.3e}")
+        check(err <= 1e-9, f"initial_lss_sharded {name} within 1e-9·max of the task's")
+    del sky
+
+    c = biased.cosmology
+    chi, za = biased.chi, biased.redshift
+    D = c.growth_factor(za) / c.growth_factor(0)
+    fr = c.growth_rate(za)
+    g = run("gradient_sharded (K4, K3 f64)",
+            lambda: plss.gradient_sharded(init.phi, chi, mesh).to_local())
+    ref = lssutil.gradient(init.phi, chi)
+    err = _rel_max(g, ref)
+    print(f"   gradient: max|sharded − lssutil.gradient|/max = {err:.3e}")
+    check(err <= 1e-10, "gradient_sharded within 1e-10·max of lssutil.gradient")
+    del g, ref
+
+    lin = run("linear_dynamics_sharded", lambda: plss.linear_dynamics_sharded(
+        init.phi, init.delta, biased.delta, chi, D, D * fr, mesh).to_local())
+    ref = tlss.LinearDynamics.from_config({}).process(init, biased).delta
+    err = _rel_max(lin, ref)
+    print(f"   linear dynamics: max|sharded − task|/max = {err:.3e}")
+    check(err <= 1e-9, "linear_dynamics_sharded within 1e-9·max of LinearDynamics")
+    del lin, ref
+
+    fog = tlss.FingersOfGod.from_config({"model": "HI"})
+    fog.setup()
+    K = lssutil.exponential_FoG_kernel(chi, fog._sigma_P(za), c.growth_factor(za))
+    got = run("fog_sharded", lambda: plss.fog_sharded(K, final.delta, mesh).to_local())
+    err = _rel_max(got, fog.process(final).delta)
+    print(f"   FoG: max|sharded − task|/max = {err:.3e}")
+    check(err <= 1e-9, "fog_sharded within 1e-9·max of FingersOfGod")
+    del got
+
+    std = np.linspace(0.5, 1.5, nz)
+    shot = [run("shot_noise_sharded", lambda: plss.shot_noise_sharded(
+        99, std, tuple(final.delta.shape), mesh).to_local()) for _ in range(2)]
+    rs = shot[0].std(dim=1).cpu().numpy() / std
+    print(f"   shot noise: per-row std / requested {rs.min():.4f}–{rs.max():.4f}")
+    check(bool(torch.equal(shot[0], shot[1])) and np.all(np.abs(rs - 1) < 0.01),
+          "shot_noise_sharded keyed (the same bits twice), per-row std within 1%")
+    del shot
+
+    zs = [run("zeldovich_sharded (K4, K3 f64, deposit)", lambda: plss.zeldovich_sharded(
+        init.phi, init.delta, biased.delta, chi, D, fr, init.nside, mesh).to_local())
+        for _ in range(2)]
+    err = _rel_max(zs[0], final.delta)
+    mass = float((1 + zs[0]).sum() / (1 + biased.delta).sum() - 1)
+    print(f"   Zel'dovich: max|sharded − task|/max = {err:.3e}; mass {mass:.3e}; same bits "
+          f"twice {bool(torch.equal(zs[0], zs[1]))}")
+    check(err <= 1e-7, "zeldovich_sharded within 1e-7·max of ZeldovichDynamics")
+    check(abs(mass) <= 1e-10, "the sharded deposit conserves mass within 1e-10")
+    check(bool(torch.equal(zs[0], zs[1])), "the sharded deposit gives the same bits twice")
+    del zs
+
+
+def _parallel_checkpoints(dev, run, mesh, ck, steps, maps, final):
+    """save_sharded/restore_sharded of 64 channels of the flagship cube and a
+    round trip of phase 14's Zel'dovich field (a BiasedLSS), in a temporary
+    directory."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from cora_tpu_torch.parallel import mesh as pm
+    from cora_tpu_torch.signal.lsscontainers import BiasedLSS
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cube")
+        run("save_sharded (64 channels, f32)", lambda: ck.save_sharded(
+            path, {"maps": pm.shard_over(maps, mesh, 0)}))
+        like = ck.abstract_like({"maps": maps}, mesh=mesh, pspecs={"maps": [Shard(1)]})
+        back = run("restore_sharded (pixel-sharded)", lambda: ck.restore_sharded(path, like))
+        gb = maps.numel() * 4 / 1e9
+        s_w = steps["save_sharded (64 channels, f32)"]["seconds"]
+        s_r = steps["restore_sharded (pixel-sharded)"]["seconds"]
+        print(f"   checkpoint {gb:.3f} GB: write {gb / s_w:.3f} GB/s, read {gb / s_r:.3f} GB/s")
+        check(bool(torch.equal(back["maps"].full_tensor(), maps)),
+              "the sharded checkpoint restores onto other placements bit for bit")
+        del back, maps
+
+        path = os.path.join(d, "lss")
+        run("save_container (BiasedLSS, 1.6 GB)", lambda: ck.save_container(
+            path, final, arrays={"delta": pm.shard_over(final.delta, mesh, 0)}))
+        back = run("load_container (χ-sharded → pixel-sharded)", lambda: ck.load_container(
+            path, mesh=mesh, pspecs={"delta": [Shard(1)]}))
+        plain = run("load_container (tensors)", lambda: ck.load_container(path, device=dev))
+        check(type(back) is BiasedLSS and type(plain) is BiasedLSS
+              and bool(torch.equal(back.delta.full_tensor(), final.delta))
+              and bool(torch.equal(plain.delta, final.delta))
+              and back.attrs["cosmology"] == final.attrs["cosmology"]
+              and all(np.array_equal(plain.index_map[k], v) for k, v in final.index_map.items()),
+              "container checkpoint: class, dataset, attrs and index maps restored")
 
 
 def main():
@@ -2490,7 +2915,7 @@ def main():
     wigner_phase(dev, reports)
     legendre_phase(dev, reports)
     parity_phase(dev)
-    sky, cl_diag = main_phase(dev, reports)
+    sky, cl_diag, roots = main_phase(dev, reports)
     analysis_phase(dev, reports, sky, cl_diag)
     del sky
     checkpoint_cache_phase(dev)  # after 6, which reuses phase 5's operator
@@ -2501,8 +2926,9 @@ def main():
     pol_analysis_phase(dev, reports, data, freqs)
     del data
     foreground_phase(dev)
-    flatsky_phase(dev)
-    lss_phase(dev)
+    pair = flatsky_phase(dev)
+    lss = lss_phase(dev)
+    parallel_phase(dev, roots, lss, pair)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",

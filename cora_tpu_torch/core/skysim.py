@@ -106,6 +106,41 @@ def _chunk_seeds(generator, nchunk):
                          device=generator.device).tolist()
 
 
+def fold_in(key: int, data: int) -> int:
+    """A 62-bit seed derived from ``key`` and ``data`` (the counterpart of
+    ``jax.random.fold_in``): distinct pairs give unrelated seeds."""
+    state = np.random.SeedSequence([int(key), int(data)]).generate_state(1, np.uint64)
+    return int(state[0] >> np.uint64(2))
+
+
+def keyed_normal_rows(key, rows, row_shape, dtype=torch.float64, device="cpu"):
+    """Standard normal rows [len(rows), *row_shape]: row r from its own
+    generator on ``device``, seeded ``fold_in(key, r)``, so any subset of
+    rows is drawn alike whoever draws it (a sharded fill, the whole)."""
+    rows = list(rows)
+    out = torch.empty((len(rows),) + tuple(row_shape), dtype=dtype, device=device)
+    for i, r in enumerate(rows):
+        out[i] = torch.randn(tuple(row_shape), dtype=dtype, device=device,
+                             generator=torch.Generator(device=device).manual_seed(
+                                 fold_in(key, r)))
+    return out
+
+
+def keyed_xi(key, L, rows, nz, dtype=torch.complex128, device="cpu"):
+    """Complex standard normal ξ [len(rows), nz, L] of the ℓ rows ``rows``
+    of an [L, nz, L] draw: row ℓ from its own generator on ``device``,
+    seeded by the ℓ-th of L seeds drawn from ``key``, so an ℓ-sharded draw
+    holds only its own rows and gives the numbers of the whole."""
+    seeds = torch.randint(0, 2**62, (L,), generator=torch.Generator().manual_seed(int(key)))
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    rows = list(rows)
+    out = torch.empty((len(rows), nz, L), dtype=dtype, device=device)
+    for i, l in enumerate(rows):
+        out[i] = linalg.complex_std_normal(
+            (nz, L), torch.Generator(device=device).manual_seed(int(seeds[l])), dtype=rdt)
+    return out
+
+
 def mkfullsky_streamed(corr, nside, *, device="cuda", generator=None, xi=None,
                        roots=None, fchunk=16, op=None):
     """Generator: the correlated sky cube in frequency chunks.

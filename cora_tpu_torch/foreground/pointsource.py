@@ -9,8 +9,9 @@ The populations are host numpy, drawn from a ``numpy.random.Generator``
 seeded with the model's ``seed`` in the reference's order, so a seed gives
 the reference's sources, spectra, pixels and polarisation fractions.  The
 maps are built on ``device``: each source's spectrum is added onto its
-pixel by one ``index_add_`` per Stokes map (the reference's ``np.add.at``),
-and the Faraday rotation runs on the painted cube.
+pixel by one ordered scatter-add per Stokes map (the reference's
+``np.add.at``, the same bits on every run), and the Faraday rotation runs
+on the painted cube.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .. import constants
 from ..core import maps
 from ..device import resolve_device
 from ..healpix import pixel as hpx
+from ..ops.scatter import index_add
 from . import gaussianfg
 from . import poisson as ps
 from . import skydata
@@ -41,7 +43,7 @@ def _jy_to_k(freq, pxarea):
 def _paint(maps_, ix, flux):
     """Add each source's spectrum flux [src, freq] onto its pixel ix [src] of
     maps_ [freq, npix] (a view is written in place)."""
-    maps_.index_add_(1, ix, flux.T)
+    index_add(maps_, 1, ix, flux.T)
 
 
 def faraday_rotate(polmap, rm_map, frequencies):

@@ -3,10 +3,11 @@ grids (port of ``cora_tpu/ops/pmesh.py``).
 
 SPH-style Gaussian mass assignment over the 9 nearest-neighbour pixels and
 ±1 radial bins, normalised per particle, so the deposit conserves mass.
-The scatter is ``index_add_`` on the flattened [nchi·npix] output, as the
-JAX package's is an XLA scatter-add outside any Pallas kernel.  On CUDA
-``index_add_`` adds float64 with atomics, in whatever order the threads
-run: two runs can differ in the last bits.
+The scatter adds onto the flattened [nchi·npix] output, as the JAX
+package's XLA scatter-add does outside any Pallas kernel, and like it gives
+the same bits on every run: each cell's contributions are summed in
+particle order (:func:`cora_tpu_torch.ops.scatter.index_add`), not in the
+order CUDA's atomics would add them.
 
 Only the scatter deposit is ported.  The JAX package's ``window``,
 ``offset`` and ``stencil`` deposits are the TPU's answers to its slow
@@ -21,8 +22,9 @@ import torch
 
 from ..device import resolve_device
 from ..healpix import pixel as hpx
+from .scatter import index_add
 
-# particles per index_add_ of za_density_sph (whole chi slices; each
+# particles per scatter of za_density_sph (whole chi slices; each
 # particle carries 27 updates)
 _PARTICLES_PER_DEPOSIT = 1 << 22
 
@@ -112,13 +114,14 @@ def bin_delta(rho, pixel_ind, pixel_weight, radial_ind, radial_weight, out):
     """Scatter particle masses onto the (radial, pixel) grid ``out``.
 
     out[r, p] += rho_i · radial_weight[i, r'] · pixel_weight[i, p'] for
-    every (radial, pixel) pair in each particle's support: one
-    ``index_add_`` on the flattened output, in place.  Returns ``out``.
+    every (radial, pixel) pair in each particle's support: one ordered
+    scatter-add (:func:`~cora_tpu_torch.ops.scatter.index_add`) on the
+    flattened output, in place.  Returns ``out``.
     """
     npix = out.shape[1]
     w = rho[:, None, None] * radial_weight[:, :, None] * pixel_weight[:, None, :]
     flat = radial_ind[:, :, None].long() * npix + pixel_ind[:, None, :].long()
-    out.view(-1).index_add_(0, flat.reshape(-1), w.reshape(-1).to(out.dtype))
+    index_add(out.view(-1), 0, flat.reshape(-1), w.reshape(-1))
     return out
 
 
@@ -162,20 +165,43 @@ def particle_vectors(new_ang):
         dim=-1)
 
 
-def sph_deposit(out, density, scaling, new_ang, new_ang_ind, new_chi, chi_ind,
-                chi, geometry, nside, sigma_ang, sigma_chi, vectors="table",
-                new_ang_vec=None):
-    """Deposit particles (flattened: ``density`` = 1 + δ_bias, ``scaling``,
-    positions from :func:`sph_particles`, their unit vectors
-    ``new_ang_vec`` computed here when not given) onto ``out`` [nchi,
-    npix], in place."""
+def sph_weights(scaling, new_ang, new_ang_ind, new_chi, chi_ind, chi, geometry,
+                nside, sigma_ang, sigma_chi, vectors="table", new_ang_vec=None):
+    """The SPH supports of particles (positions from :func:`sph_particles`,
+    their unit vectors ``new_ang_vec`` computed here when not given):
+    (pixel_ind, pixel_weight, radial_ind, radial_weight) as
+    :func:`pixel_weights` and :func:`radial_weights` give them."""
     if new_ang_vec is None:
         new_ang_vec = particle_vectors(new_ang)
     pix_i, pix_w = pixel_weights(
         new_ang_ind, new_ang_vec, scaling, sigma_ang, geometry["nn_ind"],
         None if vectors == "arith" else geometry["nn_vec"], nside=nside)
     rad_i, rad_w = radial_weights(chi_ind, new_chi, scaling, sigma_chi, 1, chi)
+    return pix_i, pix_w, rad_i, rad_w
+
+
+def sph_deposit(out, density, scaling, new_ang, new_ang_ind, new_chi, chi_ind,
+                chi, geometry, nside, sigma_ang, sigma_chi, vectors="table",
+                new_ang_vec=None):
+    """Deposit particles (flattened: ``density`` = 1 + δ_bias, ``scaling``,
+    positions from :func:`sph_particles`) onto ``out`` [nchi, npix], in
+    place (:func:`sph_weights`, then :func:`bin_delta`)."""
+    pix_i, pix_w, rad_i, rad_w = sph_weights(
+        scaling, new_ang, new_ang_ind, new_chi, chi_ind, chi, geometry, nside,
+        sigma_ang, sigma_chi, vectors, new_ang_vec)
     return bin_delta(density, pix_i, pix_w, rad_i, rad_w, out)
+
+
+def check_deposit_args(deposit, vectors):
+    """Raise ValueError for a deposit or vectors option the port lacks."""
+    if deposit in _NOT_PORTED:
+        raise ValueError(
+            f"deposit={deposit!r} is a TPU workaround for slow scatter and is not "
+            "ported (ROADMAP.md, 'Do not port'); use 'auto' or 'scatter'")
+    if deposit not in ("auto", "scatter"):
+        raise ValueError(f"unknown deposit {deposit!r}")
+    if vectors not in ("table", "arith"):
+        raise ValueError(f"unknown vectors {vectors!r}")
 
 
 def za_density_sph(psi, delta_bias, delta_m, chi, nside, sigma_chi=None, *,
@@ -193,7 +219,7 @@ def za_density_sph(psi, delta_bias, delta_m, chi, nside, sigma_chi=None, *,
     read flipped, a chunk at a time, and the result flipped back);
     sigma_chi : the radial smoothing (default half the mean bin width);
     geometry : :func:`sph_geometry`'s tables; chunk :
-    chi slices per ``index_add_`` (default about 4M particles);
+    chi slices per scatter (default about 4M particles);
     deposit : ``"auto"`` or ``"scatter"``; vectors : neighbour centre
     vectors from the ``"table"`` or computed from the ids (``"arith"``).
     Tensors stay on their device, arrays go to ``device`` (default
@@ -201,14 +227,7 @@ def za_density_sph(psi, delta_bias, delta_m, chi, nside, sigma_chi=None, *,
 
     Returns out [nchi, npix], the density contrast (float64).
     """
-    if deposit in _NOT_PORTED:
-        raise ValueError(
-            f"deposit={deposit!r} is a TPU workaround for slow scatter and is not "
-            "ported (ROADMAP.md, 'Do not port'); use 'auto' or 'scatter'")
-    if deposit not in ("auto", "scatter"):
-        raise ValueError(f"unknown deposit {deposit!r}")
-    if vectors not in ("table", "arith"):
-        raise ValueError(f"unknown vectors {vectors!r}")
+    check_deposit_args(deposit, vectors)
 
     if device is None and torch.is_tensor(delta_bias):
         dev = delta_bias.device

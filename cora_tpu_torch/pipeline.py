@@ -126,22 +126,23 @@ class Task:
 
 
 class RandomTask(Task):
-    """Task with a seeded ``torch.Generator`` on its device (caput
-    tasklib.random equivalent); ``seed=None`` seeds it from the OS."""
+    """Task with a seed (caput tasklib.random equivalent).  Its draws are
+    keyed (``skysim.keyed_normal_rows``) by :attr:`key`, so that a sharded
+    fill and the whole give the same numbers; ``seed=None`` takes the key
+    from the OS."""
 
     seed = Property(proptype=int, default=None)
 
-    _rng = None
+    _os_key = None
 
     @property
-    def rng(self) -> torch.Generator:
-        if self._rng is None or self._rng.device != self._dev:
-            self._rng = torch.Generator(device=self._dev)
-            if self.seed is None:
-                self._rng.seed()
-            else:
-                self._rng.manual_seed(self.seed)
-        return self._rng
+    def key(self) -> int:
+        """``seed``, or one key drawn from the OS per task when it is None."""
+        if self.seed is not None:
+            return int(self.seed)
+        if self._os_key is None:
+            self._os_key = torch.Generator().seed() % 2**62
+        return self._os_key
 
 
 # Alias matching the reference import structure.

@@ -272,6 +272,7 @@ def corr_to_clarray(
     xwidth: Optional[float] = None,
     q: int = 2,
     device="cuda",
+    mesh=None,
 ):
     """C_l(χ1, χ2) from a correlation function by Gauss-Legendre quadrature.
 
@@ -282,14 +283,25 @@ def corr_to_clarray(
     ``(r, ξ)`` pair; either way its natural-spline coefficients are host
     f64 and the lookups run on ``device``, in chunks of μ nodes.
 
+    ``mesh``: a 1-D :mod:`cora_tpu_torch.parallel` mesh over which the μ
+    nodes are sharded (the reference's MPI distribution): each rank sums
+    its own nodes on the mesh's device, and one ``all_reduce`` completes
+    the sum on every rank.
+
     Returns clxx [lmax+1, len(xarray), len(xarray)], a float64 tensor on
-    ``device``.
+    ``device`` (the mesh's, with ``mesh``).
     """
     from scipy.special import roots_legendre
 
-    dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.mesh import bounds, mesh_device
+
+        dev = mesh_device(mesh)
+    else:
+        dev = resolve_device(device)
     xarray = np.asarray(xarray, dtype=np.float64)
     M = q * lmax
+    m_lo, m_hi = (0, M) if mesh is None else bounds(M, mesh, mesh.mesh_dim_names[0])
     mu, w, wsum = roots_legendre(M, mu=True)
 
     if xromb > 0:
@@ -338,8 +350,8 @@ def corr_to_clarray(
 
     cl = torch.zeros((lmax + 1, xlen * xlen), dtype=torch.float64, device=dev)
     step = max(1, _CHUNK_ELEMENTS // xa.size**2)
-    for m0 in range(0, M, step):
-        m1 = min(M, m0 + step)
+    for m0 in range(m_lo, m_hi, step):
+        m1 = min(m_hi, m0 + step)
         # distances for every (mu, x1, x2) triple and the spline lookup
         rc = torch.sqrt(torch.clamp(a2b2 - ab2 * mut[m0:m1, None, None], min=0.0))
         cr = spline_eval(*tab, rc)
@@ -349,6 +361,10 @@ def corr_to_clarray(
             cr = torch.einsum("mxiyj,j->mxiy", cr, xw)
             cr = torch.einsum("mxiy,i->mxy", cr, xw)
         cl += torch.matmul(lm[:, m0:m1], cr.reshape(m1 - m0, xlen * xlen))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(cl, group=mesh.get_group(0))
     return cl.reshape(lmax + 1, xlen, xlen)
 
 

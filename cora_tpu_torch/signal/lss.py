@@ -11,11 +11,12 @@ FingersOfGod → AddCorrelatedShotNoise → BiasedLSSToMap.
 Each task runs on its ``device`` (default ``"cuda"``), in float64: the
 correlation engine (:mod:`cora_tpu_torch.signal.corrfunc`), the joint
 (φ, δ) draw (batched ``eigh`` and ``alm2map`` in complex128: K4 on CUDA),
-the spin-1 gradient (K3), the SPH scatter-add (``index_add_``), the FoG
+the spin-1 gradient (K3), the SPH scatter-add (in a fixed order), the FoG
 matmul and the noise fills.  The drawing tasks take their white noise as
 ``noise=`` (and the initial draw its per-ℓ roots as ``roots=``), so that
-tests hand both packages the same draws.  Sharding over devices
-(``mesh_devices``) waits for ROADMAP Queue 1 item 9.
+tests hand both packages the same draws.  With ``mesh_devices`` the hot
+stages run SPMD on a mesh over every rank of the default process group
+(:mod:`cora_tpu_torch.parallel.lss`).
 """
 
 from __future__ import annotations
@@ -91,33 +92,42 @@ def _vec(v, like):
 
 class MeshTaskMixin:
     """Device-mesh sharding of the hot stages (``mesh_devices``): 0 (the
-    default) runs on the task's device; −1 asks for all visible devices,
-    n > 1 for n of them.  The size is cut to what is visible and to the
-    largest value dividing the task's radial row count; where that leaves
-    one device the task says so and runs unsharded.  A mesh of more than
-    one GPU raises NotImplementedError: the sharded tasks are ROADMAP
-    Queue 1 item 9 (parallel and IO)."""
+    default) runs on the task's device; −1 asks for every rank of the
+    default process group (one device each: ``torchrun --nproc-per-node
+    N``), n > 1 for n of them.  The size is cut to the world and to the
+    largest value dividing the task's radial row count (the sharded
+    programs need even splits; ``min_per_device`` rows each); where that
+    leaves one rank the task says so and runs unsharded.
+
+    Every rank runs the sharded program (SPMD), so, unlike the reference's
+    single controller, a rank cannot sit out: a cut that leaves a size
+    other than the world raises ValueError.  The mesh's device is the
+    task's (NCCL for CUDA, gloo for the CPU)."""
 
     mesh_devices = Property(proptype=int, default=0)
 
     def _get_mesh(self, n_rows: int, min_per_device: int = 1):
+        from ..parallel import distributed, mesh
+
         n = self.mesh_devices or 0
         if not n:
             return None
-        dev = self._dev
-        avail = torch.cuda.device_count() if dev.type == "cuda" else 1
-        n = avail if n < 0 else min(int(n), avail)
+        world = distributed.world_size()
+        n = world if n < 0 else min(int(n), world)
         n = min(n, max(1, n_rows // max(1, min_per_device)))
         while n > 1 and n_rows % n:
             n -= 1
         if n <= 1:
             self.log.warning(
-                f"mesh_devices={self.mesh_devices}: one device usable for "
-                f"{n_rows} rows, running unsharded on {dev}")
+                f"mesh_devices={self.mesh_devices}: one rank usable for "
+                f"{n_rows} rows, running unsharded on {self._dev}")
             return None
-        raise NotImplementedError(
-            f"mesh_devices={self.mesh_devices} asks for a mesh of {n} devices; the "
-            "sharded LSS tasks are ROADMAP Queue 1 item 9 (parallel and IO)")
+        if n != world:
+            raise ValueError(
+                f"mesh_devices={self.mesh_devices}: {n_rows} rows shard over {n} ranks, "
+                f"but the world has {world}; every rank runs the sharded program, so "
+                "the mesh must span the world")
+        return mesh.make_mesh(n, device=self._dev.type)
 
 
 class CalculateCorrelations(Task):
@@ -281,8 +291,10 @@ class GenerateInitialLSSFromCl(MeshTaskMixin, Task):
     Builds the 2Nz×2Nz joint covariance per ℓ (:func:`joint_cl`) and draws
     correlated maps in complex128 from its roots
     (:func:`cora_tpu_torch.core.skysim.correlated_roots`, then
-    ``draw_alm_from_roots`` and ``alm2map``), from a ``torch.Generator`` on the task's device
-    seeded ``start_seed`` (+1 per realisation).
+    ``draw_alm_from_roots`` and ``alm2map``), with ξ keyed per ℓ row from
+    ``start_seed`` (+1 per realisation) on the task's device
+    (:func:`cora_tpu_torch.core.skysim.keyed_xi`): the numbers of the
+    sharded draw on any mesh.
     """
 
     nside = Property(proptype=int, default=None)
@@ -316,27 +328,36 @@ class GenerateInitialLSSFromCl(MeshTaskMixin, Task):
         dev = self._dev
 
         nz = len(self.aps.chi)
-        self._get_mesh(2 * nz)
-
-        self.log.info(f"Generating realisation of fields using seed {self.seed}")
-        if noise is not None:
-            noise, gen = lssutil._tensor(noise, dev), None
-        else:
-            gen = torch.Generator(device=dev).manual_seed(self.seed)
-        if roots is None:
-            roots = skysim.correlated_roots(joint_cl(self.aps).to(dev))
-        else:
-            roots = lssutil._tensor(roots, dev)
-        alm = skysim.draw_alm_from_roots(roots, xi=noise, generator=gen,
-                                         dtype=torch.complex128)
-        del roots
-
         kwargs = {}
         if "freq" in self.aps.index_map:
             kwargs["freq"] = self.aps.freq
         else:
             kwargs["redshift"] = self.aps.redshift
         f = InitialLSS(cosmology=self.cosmology, nside=self.nside, device=dev, **kwargs)
+
+        self.log.info(f"Generating realisation of fields using seed {self.seed}")
+        mesh = self._get_mesh(2 * nz)
+        if mesh is not None:
+            from ..parallel.lss import initial_lss_sharded
+
+            self.log.info(f"Drawing on a {mesh.size()}-rank mesh")
+            sky = initial_lss_sharded(joint_cl(self.aps), self.nside, self.seed, mesh,
+                                      xi=noise, roots=roots).full_tensor()
+            f.phi[:] = sky[:nz]
+            f.delta[:] = sky[nz:]
+            self.seed += 1
+            return f
+
+        if roots is None:
+            roots = skysim.correlated_roots(joint_cl(self.aps).to(dev))
+        else:
+            roots = lssutil._tensor(roots, dev)
+        L = roots.shape[0]
+        if noise is None:  # keyed per ℓ row: the sharded draw's numbers
+            noise = skysim.keyed_xi(self.seed, L, range(L), 2 * nz, torch.complex128, dev)
+        alm = skysim.draw_alm_from_roots(roots, xi=lssutil._tensor(noise, dev),
+                                         dtype=torch.complex128)
+        del roots
 
         # the maps in batches: the transform's intermediates scale with them
         for z0 in range(0, 2 * nz, _SYNTH_MAPS):
@@ -502,7 +523,7 @@ class ZeldovichDynamics(DynamicsBase):
 
     sph = Property(proptype=bool, default=True)
     mesh_halo = Property(proptype=int, default=4)
-    # SPH mass deposit: "auto" or "scatter" (index_add_); the JAX package's
+    # SPH mass deposit: "auto" or "scatter" (the ordered scatter-add); the JAX package's
     # "stencil" deposit is a TPU workaround and raises
     deposit = Property(proptype=str, default="auto")
     # neighbour centre vectors: "table" (precomputed, gathered) or "arith"
@@ -533,8 +554,19 @@ class ZeldovichDynamics(DynamicsBase):
 
     def process(self, initial_field: InitialLSS, biased_field: BiasedLSS) -> BiasedLSS:
         self._validate_fields(initial_field, biased_field)
-        _, nside, _, chi, _ = self._get_props(biased_field)
-        self._get_mesh(len(chi), min_per_device=self.mesh_halo)
+        c, nside, _, chi, za = self._get_props(biased_field)
+        mesh = self._get_mesh(len(chi), min_per_device=self.mesh_halo)
+        if self.sph and mesh is not None:
+            from ..parallel.lss import zeldovich_sharded
+
+            self.log.info(f"Zel'dovich step on a {mesh.size()}-rank mesh")
+            final_field = BiasedLSS(axes_from=biased_field, attrs_from=biased_field)
+            final_field.delta[:] = zeldovich_sharded(
+                initial_field.phi, initial_field.delta, biased_field.delta, chi,
+                c.growth_factor(za) / c.growth_factor(0), c.growth_rate(za), nside, mesh,
+                redshift_space=self.redshift_space, halo=self.mesh_halo,
+                deposit=self.deposit, vectors=self.vectors).full_tensor()
+            return final_field
 
         vpsi, delta_m = self.displacement(initial_field, biased_field)
         final_field = BiasedLSS(axes_from=biased_field, attrs_from=biased_field)
@@ -556,11 +588,20 @@ class LinearDynamics(DynamicsBase):
     def process(self, initial_field: InitialLSS, biased_field: BiasedLSS) -> BiasedLSS:
         self._validate_fields(initial_field, biased_field)
         c, _, __, chi, za = self._get_props(biased_field)
-        self._get_mesh(len(chi))
-
         final_field = BiasedLSS(axes_from=biased_field, attrs_from=biased_field)
-
         D = c.growth_factor(za) / c.growth_factor(0)
+
+        mesh = self._get_mesh(len(chi))
+        if mesh is not None:
+            from ..parallel.lss import linear_dynamics_sharded
+
+            self.log.info(f"Linear dynamics on a {mesh.size()}-rank mesh")
+            frD = D * c.growth_rate(za) if self.redshift_space else None
+            final_field.delta[:] = linear_dynamics_sharded(
+                initial_field.phi, initial_field.delta, biased_field.delta, chi, D, frD,
+                mesh).full_tensor()
+            return final_field
+
         d = initial_field.delta
 
         final_field.delta[:] = biased_field.delta
@@ -670,11 +711,22 @@ class FingersOfGod(MeshTaskMixin, Task):
         else:
             D = np.full(redshift.shape, 1.0)
         sigmaP = self._sigma_P(redshift)
-        self._get_mesh(len(chi))
-
         K = lssutil.exponential_FoG_kernel(chi, self.alpha_FoG * sigmaP, D)
-
         smoothed_field = field.__class__(axes_from=field, attrs_from=field)
+
+        mesh = self._get_mesh(len(chi))
+        if mesh is not None:
+            from ..parallel.lss import fog_sharded
+
+            self.log.info(f"FoG matmul on a {mesh.size()}-rank mesh")
+            if isinstance(field, BiasedLSS):
+                smoothed_field.delta[:] = fog_sharded(K, field.delta, mesh).full_tensor()
+            else:
+                flat = field.map.reshape(len(field.freq), -1)
+                smoothed_field.map[:] = fog_sharded(K, flat, mesh).full_tensor().reshape(
+                    field.map.shape)
+            return smoothed_field
+
         if isinstance(field, BiasedLSS):
             smoothed_field.delta[:] = torch.matmul(_vec(K, field.delta), field.delta)
         else:
@@ -690,8 +742,11 @@ class AddCorrelatedShotNoise(MeshTaskMixin, RandomTask):
 
     The seed comes from the content of the common InitialLSS field (adler32
     of the float64 bytes of δ[:, :100], copied to the host), so all tasks
-    sharing it draw the same shot noise; the draw is the task's
-    ``torch.Generator`` on its device, another stream than numpy's.
+    sharing it draw the same shot noise.  The fill is keyed per χ row
+    (:func:`cora_tpu_torch.core.skysim.keyed_normal_rows` on the task's
+    device, another stream than numpy's), so with ``mesh_devices`` the
+    χ-sharded fill (:func:`cora_tpu_torch.parallel.lss.shot_noise_sharded`)
+    gives the same field on any mesh and in any world.
     """
 
     n_eff = Property(proptype=float, default=None)
@@ -717,15 +772,21 @@ class AddCorrelatedShotNoise(MeshTaskMixin, RandomTask):
         ``default_rng(seed).standard_normal``), in place of this task's."""
         pixarea = hpx.nside2pixarea(input_field.nside)
         ichi = input_field.chi
-        self._get_mesh(len(ichi))
 
         volume = pixarea * (ichi**2) * lssutil.calculate_width(ichi)
         std = (volume * self._n_eff_z) ** -0.5
 
         delta = input_field.delta
-        if noise is None:
-            noise = torch.randn(tuple(delta.shape), generator=self.rng,
-                                dtype=torch.float64, device=self._dev)
+        mesh = self._get_mesh(len(ichi)) if noise is None else None
+        if mesh is not None:
+            from ..parallel.lss import shot_noise_sharded
+
+            self.log.info(f"Shot-noise fill on a {mesh.size()}-rank mesh")
+            noise = shot_noise_sharded(self.key, np.ones_like(std), tuple(delta.shape),
+                                       mesh).full_tensor()
+        elif noise is None:
+            noise = skysim.keyed_normal_rows(self.key, range(len(ichi)), delta.shape[1:],
+                                             torch.float64, self._dev)
         delta += _vec(std, delta)[:, None] * torch.as_tensor(noise, device=delta.device)
         return input_field
 
@@ -748,6 +809,8 @@ class GenerateFlatSpectrumMap(MeshTaskMixin, RandomTask):
     P_SN = Property(proptype=float, default=None)
     use_freq_dependent_voxel_volume = Property(proptype=bool, default=False)
     num_sims = Property(proptype=int, default=1)
+
+    _maps = 0  # maps made so far: each realisation's key
 
     def setup(self):
         if (self.variance is None) == (self.P_SN is None):
@@ -779,7 +842,7 @@ class GenerateFlatSpectrumMap(MeshTaskMixin, RandomTask):
 
         m = containers.Map(freq=freqmap, polarisation=self.full_pol, nside=self.nside,
                            device=self._dev)
-        self._get_mesh(nfreq)
+        mesh = self._get_mesh(nfreq) if noise is None else None
 
         if self.variance is not None:
             scale = np.float64(self.variance**0.5)
@@ -795,11 +858,24 @@ class GenerateFlatSpectrumMap(MeshTaskMixin, RandomTask):
 
         shape = (nfreq, len(ipol), m.map.shape[-1])
         if noise is None:
-            noise = torch.randn(shape, generator=self.rng, dtype=torch.float64,
-                                device=self._dev)
+            # keyed per frequency row, for each realisation and polarisation
+            # (with a mesh the fill is frequency-sharded, as the reference
+            # fills its frequency shards locally): the same on any mesh
+            key = skysim.fold_in(self.key, self._maps)
+            keys = [skysim.fold_in(key, k) for k in ipol]
+            if mesh is not None:
+                from ..parallel.lss import shot_noise_sharded
+
+                self.log.info(f"Flat-spectrum fill on a {mesh.size()}-rank mesh")
+                noise = torch.stack([shot_noise_sharded(k, np.ones(nfreq), (nfreq, shape[-1]),
+                                                        mesh).full_tensor() for k in keys], 1)
+            else:
+                noise = torch.stack([skysim.keyed_normal_rows(
+                    k, range(nfreq), shape[-1:], torch.float64, self._dev) for k in keys], 1)
         noise = torch.as_tensor(noise, device=m.map.device)
         m.map[:, ipol, :] = torch.as_tensor(scale, device=m.map.device) * noise
 
+        self._maps += 1
         m.attrs["voxvol_ref"] = voxvol
         m.attrs["central_redshift"] = redshift[ref_chan]
 
@@ -812,7 +888,7 @@ class GenerateFlatSpectrumMap(MeshTaskMixin, RandomTask):
 def za_density_grid(psi, delta_bias, delta_m, chi, out):
     """Zel'dovich density via grid assignment (the ``sph=False`` path):
     bilinear pixel interpolation weights and two-bin radial weights, one
-    ``index_add_`` per chi slice into ``out`` [nchi, npix] (a tensor, filled
+    ordered scatter-add per chi slice into ``out`` [nchi, npix] (a tensor, filled
     in place; the other fields on its device)."""
     nchi, npix = delta_bias.shape
 

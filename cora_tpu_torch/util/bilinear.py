@@ -1,13 +1,15 @@
 """Clipped 2D bilinear table lookup (port of ``cora_tpu/util/bilinear.py``).
 
-Host numpy float64 (``interp2d_np``): coordinates are in index units,
-clipped to ``[0, n - 1e-5]`` with the base index clamped to ``n - 2`` so
-the upper gather never reads out of bounds.
+Coordinates are in index units, clipped to ``[0, n - 1e-5]`` with the base
+index clamped to ``n - 2`` so the upper gather never reads out of bounds.
+``interp2d_np`` is the host numpy float64 lookup, ``interp2d`` the same on
+tensors on their device, ``interp`` the reference's signature.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def interp2d_np(arr, x, y):
@@ -31,3 +33,39 @@ def interp2d_np(arr, x, y):
     wd = (xx - x0) * (yy - y0)
 
     return wa * arr[x0, y0] + wb * arr[x0, y1] + wc * arr[x1, y0] + wd * arr[x1, y1]
+
+
+def interp2d(arr, x, y):
+    """Bilinearly interpolate the table ``arr[nx, ny]`` at fractional
+    indices (x, y) (broadcast together), on ``arr``'s device: a tensor of
+    the broadcast shape, in ``arr``'s float dtype."""
+    arr = torch.as_tensor(arr)
+    if not arr.is_floating_point():
+        arr = arr.to(torch.float64)
+    x, y = torch.broadcast_tensors(
+        *(torch.as_tensor(v, device=arr.device).to(arr.dtype) for v in (x, y)))
+    nx, ny = arr.shape
+
+    xx = x.clamp(0.0, nx - 1e-5)
+    yy = y.clamp(0.0, ny - 1e-5)
+    x0 = torch.floor(xx).long().clamp(0, nx - 2)
+    y0 = torch.floor(yy).long().clamp(0, ny - 2)
+    x1 = x0 + 1
+    y1 = y0 + 1
+
+    wa = (x1 - xx) * (y1 - yy)
+    wb = (x1 - xx) * (yy - y0)
+    wc = (xx - x0) * (y1 - yy)
+    wd = (xx - x0) * (yy - y0)
+
+    return wa * arr[x0, y0] + wb * arr[x0, y1] + wc * arr[x1, y0] + wd * arr[x1, y1]
+
+
+def interp(arr, x, y, v=None):
+    """The reference's signature (``bilinearmap.pyx``): returns the lookup,
+    and writes it into ``v`` too when ``v`` is a numpy array (the host
+    lookup, :func:`interp2d_np`); otherwise :func:`interp2d` on tensors."""
+    if isinstance(v, np.ndarray):
+        v[...] = interp2d_np(arr, x, y)
+        return v
+    return interp2d(arr, x, y)

@@ -164,6 +164,15 @@ class CubicSpline:
         self.y = np.ascontiguousarray(data[:, 1])
         self.y2 = natural_spline_coefficients(self.x, self.y)
 
+    @classmethod
+    def fromfile(cls, file, colspec=None):
+        """Build from two columns (default the first two) of a text file."""
+        if colspec is None:
+            colspec = [0, 1]
+        if len(colspec) != 2:
+            raise InterpolationException("Can only use two columns.")
+        return cls(np.loadtxt(file, usecols=colspec))
+
     def value(self, x):
         if torch.is_tensor(x):
             return spline_eval(self.x, self.y, self.y2, x)
@@ -171,6 +180,14 @@ class CubicSpline:
 
     def __call__(self, x):
         return self.value(x)
+
+    def data(self):
+        """The knots [n, 2] (x, y) and their second derivatives [n]."""
+        return np.dstack((self.x, self.y))[0], self.y2
+
+
+# the reference cora's class names
+Interpolater = CubicSpline
 
 
 class LogSpline:
@@ -204,6 +221,9 @@ class LogSpline:
 
     def __call__(self, x):
         return self.value(x)
+
+
+LogInterpolater = LogSpline
 
 
 class SinhSpline:

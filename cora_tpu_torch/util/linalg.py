@@ -1,4 +1,4 @@
-"""Matrix roots and complex normal variates (port of
+"""Matrix roots, complex normal variates and array-list files (port of
 ``cora_tpu/util/linalg.py``).
 
 ``batch_matrix_root`` is one batched ``torch.linalg.eigh`` with eigenvalue
@@ -8,6 +8,7 @@ f64 solvers), so no host f64 fallback is needed.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -43,6 +44,37 @@ def batch_matrix_root(mats, threshold=1e-16):
     emax = evals.max(dim=-1, keepdim=True).values
     evals = torch.where(evals > emax * threshold, evals, torch.zeros_like(evals))
     return evecs * evals.sqrt()[..., None, :]
+
+
+def batch_cholesky_root(mats, jitter_rel=1e-14, threshold=1e-16):
+    """Batched matrix root: Cholesky with a per-matrix jitter of
+    ``jitter_rel · max|diag|``, and the clipped-eigh root
+    (:func:`batch_matrix_root` of the jittered matrix) for every matrix
+    whose Cholesky fails.  mats : tensor[..., n, n]."""
+    mats = torch.as_tensor(mats)
+    n = mats.shape[-1]
+    dmax = mats.diagonal(dim1=-2, dim2=-1).abs().amax(dim=-1)
+    eye = torch.eye(n, dtype=mats.dtype, device=mats.device)
+    jmat = mats + (jitter_rel * dmax)[..., None, None] * eye
+    chol, info = torch.linalg.cholesky_ex(jmat)
+    ok = (info == 0) & torch.isfinite(chol).all(dim=-1).all(dim=-1)
+    if bool(ok.all()):
+        return chol
+    return torch.where(ok[..., None, None], chol, batch_matrix_root(jmat, threshold))
+
+
+def save_ndarray_list(fname, la):
+    """Write an ordered list of arrays (numpy or tensors) to an npz keyed
+    by list index — the file ``cora_tpu``'s ``save_ndarray_list`` writes."""
+    np.savez(fname, **{repr(i): (v.detach().cpu().numpy() if torch.is_tensor(v)
+                                 else np.asarray(v)) for i, v in enumerate(la)})
+
+
+def load_ndarray_list(fname):
+    """The list of numpy arrays in a file of :func:`save_ndarray_list` (of
+    either package), in order."""
+    with np.load(fname) as d:
+        return [v for _, v in sorted(d.items(), key=lambda kv: int(kv[0]))]
 
 
 def complex_std_normal(shape, generator=None, dtype=torch.float64,

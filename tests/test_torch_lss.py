@@ -480,8 +480,10 @@ def test_tasks_default_to_cuda(monkeypatch):
 
 
 def test_mesh_mixin_with_one_device(chain, monkeypatch, caplog):
-    """mesh_devices on one visible device: the task says so and runs
-    unsharded (the same product); a mesh of several GPUs is item 9."""
+    """mesh_devices in a world of one rank: the task says so and runs
+    unsharded (the same product).  In a larger world a CUDA mesh needs an
+    NCCL process group (none here: it raises, no fallback), and a cut
+    that leaves a mesh smaller than the world raises ValueError."""
     fog = T.FingersOfGod.from_config(_cfg({"model": "HI"}))
     fog.setup()
     ref = fog.process(port(chain["final"])).delta
@@ -492,9 +494,15 @@ def test_mesh_mixin_with_one_device(chain, monkeypatch, caplog):
             got = t.process(port(chain["final"])).delta
         assert torch.equal(got, ref)
         assert "running unsharded" in caplog.text
+    from cora_tpu_torch.parallel import distributed
+
     t = T.FingersOfGod.from_config(_cfg({"model": "HI", "mesh_devices": 2}))
     monkeypatch.setattr(T.FingersOfGod, "_dev",
                         property(lambda self: torch.device("cuda", 0)))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    with pytest.raises(RuntimeError, match="no process group"):
         t._get_mesh(8)
+    monkeypatch.setattr(distributed, "world_size", lambda: 4)
+    t = T.FingersOfGod.from_config(_cfg({"model": "HI", "mesh_devices": -1}))
+    with pytest.raises(ValueError, match="6 rows shard over 3 ranks, but the world has 4"):
+        t._get_mesh(6)

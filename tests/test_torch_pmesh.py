@@ -246,3 +246,63 @@ def test_za_density_grid_matches_reference(descending):
     tlss.za_density_grid(torch.from_numpy(psi), torch.from_numpy(db),
                          torch.from_numpy(dm), chi, out)
     _close(out, ref, 1e-12)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_ordered_index_add_matches_add_at(dim):
+    """The ordered scatter-add against numpy's ``np.add.at`` (repeated
+    slots, an empty slot, a 2-D source), and the order it promises: each
+    slot's contributions summed in index order, then added once."""
+    from cora_tpu_torch.ops import scatter
+
+    rng = np.random.default_rng(21 + dim)
+    idx = rng.integers(0, 40, 500)
+    idx[idx == 7] = 8  # slot 7 receives nothing
+    src = rng.standard_normal((500, 3) if dim == 0 else (3, 500))
+    base = rng.standard_normal((40, 3) if dim == 0 else (3, 40))
+    ref = base.copy()
+    np.add.at(ref, idx if dim == 0 else (slice(None), idx), src)
+    out = torch.from_numpy(base.copy())
+    scatter.index_add(out, dim, torch.from_numpy(idx), torch.from_numpy(src))
+    _close(out, ref, 1e-14)
+    s = np.moveaxis(src, dim, 0)
+    want = np.moveaxis(base, dim, 0).copy()
+    for j in range(40):  # the promised order, exactly
+        acc = np.zeros(3)
+        for row in s[idx == j]:
+            acc = acc + row
+        want[j] = want[j] + acc
+    np.testing.assert_array_equal(np.moveaxis(out.numpy(), dim, 0), want)
+
+
+def _deposit_inputs(nside, nchi, seed, dev):
+    chi = np.linspace(1500.0, 1640.0, nchi)
+    psi, db, dm = _fields(nside, nchi, chi, 0.4 * float(np.mean(np.diff(chi))), 0.3, seed)
+    return [torch.from_numpy(a).to(dev) for a in (psi, db, dm)] + [chi, nside]
+
+
+def test_deposit_gives_the_same_bits_twice_and_conserves_mass():
+    args = _deposit_inputs(16, 12, 31, CPU)
+    a, b = (tpm.za_density_sph(*args, chunk=5) for _ in range(2))
+    assert torch.equal(a, b)
+    db = args[1]
+    assert abs(float((1 + a).sum() / (1 + db).sum()) - 1) <= 1e-10
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the deposit's CUDA path has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_deposit_gives_the_same_bits_twice(cuda_device):
+    """Two CUDA deposits of the same particles agree bit for bit (the
+    ordered scatter, not the atomics of ``index_add_``), and agree with the
+    CPU deposit to 1e-12·max."""
+    args = _deposit_inputs(32, 16, 32, cuda_device)
+    a, b = (tpm.za_density_sph(*args) for _ in range(2))
+    assert torch.equal(a, b)
+    cpu = tpm.za_density_sph(*[x.cpu() if torch.is_tensor(x) else x for x in args])
+    _close(a, cpu.numpy(), 1e-12)
