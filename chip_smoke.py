@@ -194,6 +194,32 @@ Phases (each prints its own lines; any failure exits non-zero):
               round trip of phase 14's Zel'dovich field, in a temporary
               directory.  Every step prints its time, peak memory and K1 /
               K3 / K4 launches; the sharded paths must launch K1, K3, K4.
+              The 2-D (freq × ring band) program in scan mode on the 1×1
+              pod mesh (NCCL), then the 2×2 and 1×4 layouts rank by rank on
+              the one card (the program's body over every rank), each within
+              1e-6·max of synthesize_cube_sharded's scan cube of the same
+              key and fchunk 16 (bits compared); K1 on every ring-band
+              slice they launch on (R = 512, 256) the same bits as those
+              rows of one launch on all rings, each timed beside its bound;
+              the two-level synthesis_scan_correlated (64, 16) within
+              1e-6·max of the one-level synthesis at fchunk 16 and 64, and
+              in cached mode (K4) of the cached sharded cube.
+16. nside 2048 — SHT(2048, 6143, legendre_mode="scan", scan_ckpt=False) over
+              16 channels of 400–800 MHz, the reference's single-chip
+              configuration (Corr21cm's roots from the device C_ℓ engine):
+              synthesize_cube_sharded_2d on the 1×1 pod mesh (NCCL, fchunk
+              8) and the 2×2 layout rank by rank (≤ 1e-6·max), each
+              channel's variance within 5% of Σ(2ℓ+1)C_ℓ/4π, the accuracy
+              row (2 channels of the same draw in f64, K1 f64: the f32
+              unre-seeded maps ≤ 1e-3 RMS off it, the 1e-5 contract
+              reported met or not, the worst pixel's ring printed), K1 on
+              the ring slices R = 2048, 1024 (same bits as the whole launch)
+              and its times at R = 4096, 2048, 1024 (f32) and 4096 (f64)
+              beside their bounds; on the quarter of the rings that holds
+              the worst pixel, K1 against scan_contract_plain at the path's
+              F2 = 16 in f32 (unre-seeded: its largest error against the
+              f64 plain version within 1.5× the plain f32 version's) and at
+              F2 = 4 in f64 (≤ 1e-10·max).
 
 The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phase 5b:
 nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
@@ -328,26 +354,29 @@ def _as_built(x):
     return planes_minor(*x.shape, x.dtype, x.device).copy_(x)
 
 
-def _kernel_inputs(op, F2, seed):
-    """The operator's kernel tables, random triangle a_lm planes (K1's
-    input) and random ring planes (K2's input), both planes-minor as the
-    transforms build them."""
+def _kernel_inputs(op, F2, seed, t=None):
+    """The operator's kernel tables (``t``, by default its f32 tables),
+    random triangle a_lm planes (K1's input) and random ring planes (K2's
+    input) in the tables' dtype, both planes-minor as the transforms build
+    them."""
     import torch
 
     from cora_tpu_torch.ops.scan_legendre import planes_minor
 
-    t = op.tables(False)
+    t = op.tables(False) if t is None else t
     Lk, M = t["psl_rec_a"].shape
+    dt = t["psl_rec_a"].dtype
     L = op.lmax + 1
     g = torch.Generator(device=op.device).manual_seed(seed)
-    planes = torch.randn((F2, Lk, M), generator=g, device=op.device)
+    planes = torch.randn((F2, Lk, M), generator=g, device=op.device, dtype=dt)
     li = torch.arange(Lk, device=op.device)[:, None]
     mi = torch.arange(M, device=op.device)[None, :]
     planes = planes * ((mi <= li) & (li < L))
     A0, A1 = (planes_minor(F2, Lk // 2, M, planes.dtype, op.device)
               .copy_(planes[:, p::2]) for p in (0, 1))
+    del planes
     S0, S1 = (_as_built(torch.randn((F2, op.nhalf, M), generator=g,
-                                    device=op.device)) for _ in range(2))
+                                    device=op.device, dtype=dt)) for _ in range(2))
     args = (t["psl_rec_a"], t["psl_rec_b"], t["psl_seed"], t["psl_k0"],
             t["psl_z"], t["psl_ck"])
     return args, (A0, A1), (S0, S1)
@@ -375,7 +404,10 @@ def _compare(name, nside, run_k, run_p, run_64, reps=(7, 3), rms_floor=None,
 
     The kernel's error against f64 must stay within 1.5× the plain f32
     version's; with ``rms_floor`` an RMS error (relative to the f64
-    output's RMS) at or below it also passes."""
+    output's RMS) at or below it also passes.  ``tol=None`` sets no bound
+    on kernel against plain f32: where both f32 recurrences drift from f64
+    (unre-seeded, at large L) they drift as far from each other, and the
+    f64 run alone is the oracle."""
     import torch
 
     k = run_k()
@@ -393,7 +425,8 @@ def _compare(name, nside, run_k, run_p, run_64, reps=(7, 3), rms_floor=None,
     print(f"   {name} nside={nside}: max|ref|={sc:.6g} |kernel-plain32|={d_kp:.6g} "
           f"({d_kp / sc:.3e} rel) |kernel-f64|={d_k64:.6g} "
           f"|plain32-f64|={d_p64:.6g} (ratio {d_k64 / d_p64:.3f})")
-    check(d_kp <= tol * sc, f"{name} nside={nside}: kernel vs plain ≤ {tol:g}·max")
+    if tol is not None:
+        check(d_kp <= tol * sc, f"{name} nside={nside}: kernel vs plain ≤ {tol:g}·max")
     if rms_floor is None:
         check(d_k64 <= 1.5 * d_p64,
               f"{name} nside={nside}: kernel error vs f64 ≤ 1.5× plain f32 error")
@@ -2691,6 +2724,11 @@ def parallel_phase(dev, roots, lss, pair, cfg=FLAGSHIP, cl_lmax=767):
     for name, ks in (("synthesize_cube_sharded (cached)", ("K4",)),
                      ("mkfullsky_sharded (cached)", ("K4",)),
                      ("synthesize_cube_sims_sharded 2 sims (scan)", ("K1",)),
+                     ("synthesize_cube_sharded_2d 1×1 (scan)", ("K1",)),
+                     ("2-D layout 2×2 rank by rank (scan)", ("K1",)),
+                     ("2-D layout 1×4 rank by rank (scan)", ("K1",)),
+                     ("synthesis_scan_correlated (64, 16) (scan)", ("K1",)),
+                     ("synthesis_scan_correlated (64, 16) (cached)", ("K4",)),
                      ("initial_lss_sharded (K4 f64)", ("K4",)),
                      ("gradient_sharded (K4, K3 f64)", ("K3", "K4")),
                      ("zeldovich_sharded (K4, K3 f64, deposit)", ("K3", "K4"))):
@@ -2720,6 +2758,11 @@ def _parallel_flagship(dev, run, mesh, roots, cfg):
         op, t, roots, PARALLEL_KEY, mesh, fchunk=16).to_local())
     check(tuple(cube.shape[:2]) == (nz, 4 * nside - 1) and bool(torch.isfinite(cube).all()),
           f"sharded cube [{nz}, {4 * nside - 1}, {cube.shape[2]}] float32, finite")
+    rows = torch.as_tensor(roots).to(device=dev, dtype=torch.float32)
+    got = run("synthesis_scan_correlated (64, 16) (cached)",
+              lambda: _two_level(op, t, rows, 64, 16))
+    _hold_to("two-level (64, 16) cached vs the one-level cached cube (fchunk 16)", got, cube)
+    del got, rows
     maps = op.grid_to_map(cube)
     del cube
     ref = torch.empty_like(maps)
@@ -2792,8 +2835,186 @@ def _parallel_flagship(dev, run, mesh, roots, cfg):
           f"{not bool(torch.equal(sims[0], sims[1]))}")
     check(rel <= 1e-6 and not bool(torch.equal(sims[0], sims[1])),
           "sim 1 is the single-sim cube of its seed (≤ 1e-6 RMS); the two sims differ")
-    del sims, one, op_s, t_s
+    del sims, one
+    _parallel_2d(dev, run, roots, op_s, t_s)
+    del op_s, t_s
     return cube64
+
+
+def _hold_to(name, got, ref, tol=1e-6):
+    """``got`` within tol·max of ``ref``; prints whether the bits are the same."""
+    import torch
+
+    err = float((got - ref).abs().max() / ref.abs().max())
+    print(f"   {name}: max|Δ|/max = {err:.3e}, RMS(Δ)/RMS = {_rms_rel(got, ref):.3e}, "
+          f"same bits {bool(torch.equal(got, ref))}")
+    check(err <= tol, f"{name} within {tol:g}·max")
+
+
+def _k1_bound(op, tt, A):
+    """(bound_ms, bound_by) of one K1 launch on the scan tables ``tt`` (a
+    ring slice or all rings) and the planes ``A``: the tables and planes
+    read once, He and Ho [F2, R, L] written once; per (ℓ, m ≤ ℓ, ring) one
+    FMA per plane and the recurrence step."""
+    F2, R, L = A[0].shape[0], tt["psl_z"].shape[0], op.lmax + 1
+    pairs = L * (L + 1) / 2
+    nbytes = _nbytes(*(tt[n] for n in ("psl_rec_a", "psl_rec_b", "psl_seed", "psl_k0",
+                                       "psl_z", "psl_ck")), *A)
+    return _bound(2.0 * F2 * R * pairs, 4.0 * R * pairs,
+                  nbytes + 2 * F2 * R * L * A[0].element_size(), A[0].element_size())
+
+
+def _k1_on_ring_slices(op, t, F2, bands, seed, reps=5):
+    """K1 on the ring-band slices of the scan tables that the 2-D program
+    launches on (``parallel.mesh.ring_band_tables``): each band of each
+    split gives the same bits as those rows of one launch on all rings,
+    with the same planes; the time per launch (CUDA events, median) beside
+    its bound at each ring count R."""
+    import torch
+
+    from cora_tpu_torch.ops import scan_legendre as k
+    from cora_tpu_torch.parallel import mesh as pm
+
+    dt = t["psl_rec_a"].dtype
+    A = _kernel_inputs(op, F2, seed, t)[1]
+    kw = dict(band_rows=op.band_rows, scale=k.scale_for(dt))
+
+    def launch(tt):
+        return k.scan_contract(tt["psl_rec_a"], tt["psl_rec_b"], tt["psl_seed"],
+                               tt["psl_k0"], tt["psl_z"], tt["psl_ck"], *A, **kw)
+
+    def timed(tt, R):
+        ms = _cuda_time_ms(lambda: launch(tt), reps)
+        L = op.lmax + 1
+        bound, by = _k1_bound(op, tt, A)
+        print(f"   K1 {str(dt).split('.')[-1]} nside={op.nside} L={L} F2={F2} R={R}: "
+              f"{ms:.3f} ms per launch, bound {bound:.3f} ms ({by}), "
+              f"{100 * bound / ms:.1f}% of its bound")
+        return ms, bound
+
+    whole = launch(t)
+    times = {op.nhalf: timed(t, op.nhalf)}
+    for n_band in bands:
+        R = op.nhalf // n_band
+        for b in range(n_band):
+            tb = pm.ring_band_tables(t, b * R, (b + 1) * R)
+            part = launch(tb)
+            check(all(torch.equal(w[:, b * R:(b + 1) * R], p) for w, p in zip(whole, part)),
+                  f"K1 on rings [{b * R}, {(b + 1) * R}) of nside {op.nside} gives the same bits "
+                  f"as those rows of one launch on all {op.nhalf}")
+            del part
+        times[R] = timed(tb, R)
+        del tb
+    del whole, A
+    torch.cuda.empty_cache()
+    return times
+
+
+def _two_level(op, t, rows, nz_leg, nz_ring):
+    """The cube of the keyed draw of ``rows`` (phase 15's key) through the
+    two-level ``synthesis_scan_correlated``, its ``consume`` writing each
+    block in place: [nz, nring, nq_max] float32."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.parallel import mesh as pm
+
+    out = torch.empty((rows.shape[2], op.nring, op.nq_max), device=op.device)
+
+    def consume(g, z, acc):
+        acc[z:z + g.shape[0]] = g
+        return acc
+
+    xi = pm._xi_source(op, rows, PARALLEL_KEY, None)
+    return sht.synthesis_scan_correlated(op, t, rows, xi, nz_leg, nz_ring, consume, out)
+
+
+def _k1_slice_vs_plain(op, t, F2, r0, r1, seed, reps=(3, 1)):
+    """K1 on rings [r0, r1) of the scan tables ``t`` against
+    ``scan_contract_plain`` on the same slice and random planes: float32
+    tables beside the plain version in f64 of the same tables (``_compare``:
+    the kernel's largest error against f64 within 1.5× the plain f32
+    version's; with ``tol=None`` for unre-seeded tables, whose two f32
+    recurrences drift apart as far as from f64), float64 tables against the
+    f64 plain version (``_compare64``, ≤ 1e-10·max).  Returns (max|Δ|, ms,
+    plain_ms)."""
+    import torch
+
+    from cora_tpu_torch.ops import scan_legendre as k
+    from cora_tpu_torch.parallel import mesh as pm
+
+    tb = pm.ring_band_tables(t, r0, r1)
+    args = tuple(tb[n] for n in ("psl_rec_a", "psl_rec_b", "psl_seed", "psl_k0", "psl_z",
+                                 "psl_ck"))
+    dt = args[0].dtype
+    A = tuple(_kernel_inputs(op, F2, seed, t)[1])
+    kw = dict(band_rows=op.band_rows, scale=k.scale_for(dt))
+    name = (f"scan_contract{'_f64' if dt == torch.float64 else ''} L={op.lmax + 1} F2={F2} "
+            f"rings [{r0}, {r1})")
+    run_k = lambda: k.scan_contract(*args, *A, **kw)
+    run_p = lambda: k.scan_contract_plain(*args, *A, **kw)
+    if dt == torch.float64:
+        out = _compare64(name, op.nside, run_k, run_p, reps=reps)
+    else:
+        args64, A64 = tuple(a.double() for a in args), tuple(a.double() for a in A)
+        out = _compare(name, op.nside, run_k, run_p,
+                       lambda: k.scan_contract_plain(*args64, *A64, **kw), reps=reps,
+                       tol=1e-4 if args[5].shape[0] > 1 else None)
+        del args64, A64
+    bound, by = _k1_bound(op, tb, A)
+    print(f"   {name}: kernel {out[1]:.3f} ms, plain {out[2]:.3f} ms (CUDA events, median), "
+          f"bound {bound:.3f} ms ({by}), {100 * bound / out[1]:.1f}% of its bound")
+    del tb, args, A
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_2d(dev, run, roots, op, t, fchunk=16):
+    """The 2-D (freq × ring band) program at the flagship in scan mode, on
+    phase 15's scan operator: on the 1×1 pod mesh (NCCL), then the 2×2 and
+    1×4 layouts rank by rank on the one card, each within 1e-6·max of
+    synthesize_cube_sharded's scan cube of the same key and fchunk; K1 on
+    the ring slices they launch on; the two-level synthesis_scan_correlated
+    (64, 16) against the one-level synthesis at fchunk 16 and 64."""
+    import torch
+
+    from cora_tpu_torch.parallel import distributed as pd
+    from cora_tpu_torch.parallel import mesh as pm
+
+    nz = roots.shape[2]
+    ref = run("synthesize_cube_sharded (scan)", lambda: pm.synthesize_cube_sharded(
+        op, t, roots, PARALLEL_KEY, pm.make_mesh(device=dev.type), fchunk=fchunk).to_local())
+    pod = pd.make_pod_mesh(freq_hosts=1, device=dev.type)
+    got = run("synthesize_cube_sharded_2d 1×1 (scan)", lambda: pm.synthesize_cube_sharded_2d(
+        op, t, roots, PARALLEL_KEY, pod, fchunk=fchunk).to_local())
+    _hold_to("2-D program on the 1×1 mesh vs the 1-D scan cube", got, ref)
+    # the 2-D program gathers its roots rows into a fresh (row-major) tensor;
+    # the roots from eigh are column-major, and the draw's GEMM may round
+    # apart on another layout: the 1-D cube of row-major roots, beside it
+    same = run("synthesize_cube_sharded (scan), row-major roots",
+               lambda: pm.synthesize_cube_sharded(
+                   op, t, torch.as_tensor(roots).contiguous(), PARALLEL_KEY,
+                   pm.make_mesh(device=dev.type), fchunk=fchunk).to_local())
+    print(f"   1-D cube of row-major roots: same bits as the 2-D program "
+          f"{bool(torch.equal(same, got))}, as the 1-D cube {bool(torch.equal(same, ref))}")
+    del got, same
+    for nf, nb in ((2, 2), (1, 4)):
+        got = run(f"2-D layout {nf}×{nb} rank by rank (scan)",
+                  lambda: pm._run_2d(op, t, roots, PARALLEL_KEY, (nf, nb), fchunk=fchunk))
+        _hold_to(f"2-D layout {nf}×{nb} vs the 1-D scan cube", got, ref)
+        del got
+    torch.cuda.empty_cache()
+    _k1_on_ring_slices(op, t, 2 * fchunk, (2, 4), seed=12)
+
+    rows = torch.as_tensor(roots).to(device=dev, dtype=torch.float32)
+    got = run("synthesis_scan_correlated (64, 16) (scan)", lambda: _two_level(op, t, rows, 64, 16))
+    _hold_to("two-level (64, 16) vs one-level fchunk 16", got, ref)
+    del ref
+    one = run("one-level fchunk 64 (scan)",
+              lambda: pm._streamed_rows(op, t, rows, PARALLEL_KEY, 0, nz, 64))
+    _hold_to("two-level (64, 16) vs one-level fchunk 64", got, one)
+    del got, one, rows
+    torch.cuda.empty_cache()
 
 
 def _parallel_lss(dev, run, mesh, lss):
@@ -2903,6 +3124,141 @@ def _parallel_checkpoints(dev, run, mesh, ck, steps, maps, final):
               "container checkpoint: class, dataset, attrs and index maps restored")
 
 
+# the reference's single-chip nside-2048 configuration (BASELINE.md, "Single-chip
+# nside=2048"): scan mode without re-seeding, over 16 channels
+NSIDE2048 = dict(nside=2048, nfreq=16, flo=400.0, fhi=800.0)
+
+
+def _roots_21cm(dev, cfg):
+    """Corr21cm's covariance roots [L, nfreq, nfreq] (float64, on ``dev``)
+    and each channel's C_ℓ(ν,ν) [L, nfreq], from the device C_ℓ engine as
+    ``getsky`` builds them (``Corr21cm._getsky_device``)."""
+    from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.signal import clfast
+    from cora_tpu_torch.signal.corr21cm import Corr21cm
+
+    cr = Corr21cm()
+    cr.nside = cfg["nside"]
+    cr.frequencies = np.linspace(cfg["flo"], cfg["fhi"], cfg["nfreq"], endpoint=False)
+    tables = clfast.build_cl_tables_device(cr, np.asarray(cr.nu_pixels),
+                                           window="exact" if cr.oversample else "none",
+                                           device=dev)
+    cla = clfast.cl_grid_combined(tables, 3 * cfg["nside"] - 1)
+    return skysim.covariance_roots(cla, dev), cla.diagonal(dim1=1, dim2=2).cpu().numpy()
+
+
+def _f64_channels(op, roots, key, n):
+    """The first ``n`` channels of the keyed draw of ``roots`` synthesised in
+    float64: the same ξ (``parallel.mesh._xi_source``) and f32 roots, the
+    a_ℓm roots × ξ in complex128, then the f64 tables (no rows) and K1 f64."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.parallel import mesh as pm
+
+    L, lc, g = op.lmax + 1, op.l_chunk, op.ckpt_every
+    nchunk = -(-L // lc)
+    xi = pm._xi_source(op, roots, key, None)
+    alm = torch.zeros((n, L, L), dtype=torch.complex128, device=op.device)
+    half = float(np.float32(sht._XI_HALF))
+    for c in range(nchunk):
+        c_lo = c - c % g  # the draw's m-width is its band's (sht._draw_blocks)
+        mw = sht._band_mw(L, lc, c_lo, min(g, nchunk - c_lo))
+        x = xi(c, lc, mw, op.device)[:L - c * lc].double() * half  # [lc, nz, 2, mw]
+        r = roots[c * lc:(c + 1) * lc, :n].to(torch.complex128)
+        alm[:, c * lc:(c + 1) * lc, :mw] = torch.einsum(
+            "lzy,lym->zlm", r, torch.complex(x[:, :, 0], x[:, :, 1]))
+    alm *= torch.arange(L, device=op.device)[None, :] <= torch.arange(L, device=op.device)[:, None]
+    return sht._synthesis_grid(op, op.tables(True), alm)
+
+
+def nside2048_phase(dev, cfg=NSIDE2048, fchunk=8, n64=2):
+    """Phase 16: nside 2048, lmax 6143, 16 channels over 400–800 MHz with
+    SHT(2048, 6143, legendre_mode="scan", scan_ckpt=False): the 2-D program in
+    a world of 1 on NCCL and the 2×2 layout rank by rank, the f64 accuracy
+    row, K1 at the ring counts of the 2-D layouts.  ``cfg``, ``fchunk`` and
+    ``n64`` are cut only to rehearse it on the CPU (gloo)."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.parallel import distributed as pd
+    from cora_tpu_torch.parallel import mesh as pm
+
+    card = _card()
+    nside, nz = cfg["nside"], cfg["nfreq"]
+    lmax = 3 * nside - 1
+    phase(f"16 nside {nside}: lmax {lmax}, {nz} channels over {cfg['flo']:g}–{cfg['fhi']:g} "
+          f"MHz, scan mode without re-seeding — the 2-D program (1×1 on NCCL, 2×2 rank by "
+          f"rank) and an f64 accuracy row")
+    t_phase = time.perf_counter()
+    _clear_operators()
+    check(pd.initialize(device=dev.type, init_method=f"tcp://localhost:{_free_port()}",
+                        world_size=1, rank=0, timeout=timedelta(seconds=300)),
+          f"process group: {dist.get_backend()}, world of {dist.get_world_size()}")
+    run, steps = _sharded_steps(dev, card)
+    try:
+        op = run(f"SHT({nside}, {lmax}, scan, scan_ckpt=False)", lambda: sht.SHT(
+            nside, lmax, legendre_mode="scan", scan_ckpt=False, device=dev))
+        t = run("f32 tables (no checkpoint rows)", lambda: op.tables(False))
+        check(op._ck is None and "lam_ck" not in t, "scan_ckpt=False built no checkpoint rows")
+        roots64, cl = run("C_ℓ grid and roots (device engine, f64)",
+                          lambda: _roots_21cm(dev, cfg))
+        roots = roots64.float()
+        del roots64
+        pod = pd.make_pod_mesh(freq_hosts=1, device=dev.type)
+        cube = run(f"synthesize_cube_sharded_2d 1×1, fchunk {fchunk}",
+                   lambda: pm.synthesize_cube_sharded_2d(op, t, roots, PARALLEL_KEY, pod,
+                                                         fchunk=fchunk).to_local())
+        check(tuple(cube.shape) == (nz, op.nring, op.nq_max) and bool(torch.isfinite(cube).all()),
+              f"cube [{nz}, {op.nring}, {op.nq_max}] float32, finite")
+        got = run("2-D layout 2×2 rank by rank", lambda: pm._run_2d(
+            op, t, roots, PARALLEL_KEY, (2, 2), fchunk=fchunk))
+        _hold_to("2×2 layout vs the world of 1", got, cube)
+        del got
+        var = torch.stack([op.grid_to_map(c).double().square().mean() for c in cube]).cpu()
+        ell = np.arange(lmax + 1)[:, None]
+        ratio = var.numpy() / (((2 * ell + 1) * cl).sum(0) / (4 * np.pi))
+        print(f"   map variance / Σ(2ℓ+1)C_ℓ/4π: min {ratio.min():.4f} max {ratio.max():.4f}")
+        check(np.all(np.abs(ratio - 1) < 0.05), "every channel's variance within 5% of its "
+              "C_ℓ sum")
+
+        g64 = run(f"f64 synthesis of {n64} channels (K1 f64)",
+                  lambda: _f64_channels(op, roots, PARALLEL_KEY, n64))
+        m32, m64 = op.grid_to_map(cube[:n64]).double(), op.grid_to_map(g64)
+        rms = _rms_rel(m32, m64)
+        d = (m32 - m64).abs()
+        worst = int(d.argmax()) % d.shape[-1]
+        ring = int(op._r_of_pix[worst])
+        north = min(ring, op.nring - 1 - ring)  # the northern ring K1 computes it from
+        print(f"   accuracy row: f32 unre-seeded maps vs f64 of the same draw, {n64} channels: "
+              f"RMS(Δ)/RMS = {rms:.3e}, max|Δ|/max = "
+              f"{float(d.max() / m64.abs().max()):.3e} (pixel {worst}, ring {ring}, northern "
+              f"ring {north} of {op.nhalf}); the f32 contract (1e-5 RMS) "
+              f"{'met' if rms <= 1e-5 else 'NOT met'}")
+        check(np.isfinite(rms) and rms <= 1e-3, "f32 unre-seeded map RMS ≤ 1e-3 of the f64 "
+              "synthesis (the O(L·ε) class)")
+        del cube, g64, m32, m64, d
+        torch.cuda.empty_cache()
+        _k1_on_ring_slices(op, t, 2 * fchunk, (2, 4), seed=16, reps=3)
+        _k1_on_ring_slices(op, op.tables(True), 2 * n64, (), seed=17, reps=3)
+        # K1 against its plain version on the quarter of the rings that holds
+        # the worst pixel, at the path's F2 in f32 (unre-seeded) and in f64
+        R = op.nhalf // 4
+        r0 = north // R * R
+        _k1_slice_vs_plain(op, t, 2 * fchunk, r0, r0 + R, seed=18)
+        _k1_slice_vs_plain(op, op.tables(True), 2 * n64, r0, r0 + R, seed=19)
+    finally:
+        dist.destroy_process_group()
+        _clear_operators()
+    for name in (f"synthesize_cube_sharded_2d 1×1, fchunk {fchunk}", "2-D layout 2×2 rank by rank"):
+        check(steps[name]["K1"] > 0, f"{name} launched K1")
+    check(steps[f"f64 synthesis of {n64} channels (K1 f64)"]["K1"] > 0, "the f64 row launched K1")
+    print(f"   phase 16 {time.perf_counter() - t_phase:.1f} s ({card})")
+    return steps
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_phase()
@@ -2929,6 +3285,7 @@ def main():
     pair = flatsky_phase(dev)
     lss = lss_phase(dev)
     parallel_phase(dev, roots, lss, pair)
+    nside2048_phase(dev)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",

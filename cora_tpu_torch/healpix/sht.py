@@ -116,13 +116,23 @@ class SHT:
     ckpt_cache : str, optional
         npz file that keeps the f32 tables' checkpoint rows across
         processes (read when it holds this geometry, else written).
+    scan_ckpt : bool
+        Scan mode: re-seed the f32 recurrence from the checkpoint rows at
+        every band start (the default here, as :func:`get_sht` and every
+        caller of the port; the reference's constructor defaults to False,
+        its ``get_sht`` on an accelerator to True).  False builds no rows
+        (no ``checkpoints`` stage, no ``lam_ck``; ``psl_ck`` is the
+        no-re-seed placeholder): the f32 recurrence runs unre-seeded, the
+        O(L·ε) drift class, as the reference ran nside 2048 on one chip.
+        A cached operator with ``lambda_build="device"`` builds its rows
+        whatever this is.
     """
 
     def __init__(self, nside: int, lmax: int, l_chunk: int = 64,
                  ckpt_every: int = 1, device="cuda", legendre_mode="scan",
                  lambda_build="host", cache_dtype=np.float32,
                  lambda_cache: str | None = None,
-                 ckpt_cache: str | None = None):
+                 ckpt_cache: str | None = None, scan_ckpt: bool = True):
         self.device = resolve_device(device)
         self.nside = int(nside)
         self.lmax = int(lmax)
@@ -141,6 +151,7 @@ class SHT:
         self.cache_dtype = np.dtype(cache_dtype)
         self.lambda_cache = lambda_cache
         self.ckpt_cache = ckpt_cache
+        self.scan_ckpt = bool(scan_ckpt)
 
         info = pixel.ring_info(self.nside)
         nring = info["theta"].size
@@ -433,9 +444,9 @@ class SHT:
         Scan mode, keys mirroring the JAX operator's ``tables()``: recurrence
         rows ``rec_a``/``rec_b``, seeds ``lam_mm``/``lam_k0`` (scaled for the
         recurrence at this precision), ``z_half``, checkpoints ``lam_ck``
-        (f32 only: re-seeding an f64 recurrence from f32-cast rows would
-        cost it its precision), and the ring tables; plus the derived
-        kernel layout (``psl_*``).
+        (f32 with ``scan_ckpt`` only: re-seeding an f64 recurrence from
+        f32-cast rows would cost it its precision), and the ring tables;
+        plus the derived kernel layout (``psl_*``).
         """
         key = bool(double)
         if key not in self._tables:
@@ -458,7 +469,8 @@ class SHT:
             lam_k0=k0.astype(fdt),
             z_half=self._z_half.astype(fdt),
         )
-        if not double:
+        # the device Λ build re-seeds from the rows in either case
+        if not double and (self.scan_ckpt or self.legendre_mode == "cached"):
             t["lam_ck"] = self._ck_host
         t = {k_: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
              for k_, v in t.items()}
@@ -1085,6 +1097,40 @@ def synthesis_grid_correlated(op, t, roots, xi_chunk, z_lo, nz_chunk):
     Ge, Go = fn(op, t, roots, xi_chunk, z_lo, nz_chunk)
     with stage("ring", op.device):
         return rings_to_grid_parity(op, t, Ge, Go)
+
+
+def synthesis_scan_correlated(op, t, roots, xi_chunk, nz_leg, nz_ring, consume, init):
+    """Two-level streamed correlated synthesis (the reference's
+    ``synthesis_scan_correlated``).
+
+    Level 1: the draw and the Legendre stage (K1 in scan mode, K4 in cached
+    mode) of ``nz_leg`` frequencies at once, so each ξ block is drawn
+    nz/nz_leg times per sweep.  Level 2: the ring stage on slices of
+    ``nz_ring`` of them, which bounds its memory.  ``consume(g, z_lo,
+    carry) -> carry`` folds each [nz_ring, nring, nq_max] block in order
+    of ``z_lo``; the whole cube never needs to exist.
+
+    roots : [≥L, nz_out, nz] float32, swept over its output rows nz_out
+    (a sharded caller's local rows); nz_leg must divide nz_out and nz_ring
+    divide nz_leg.  xi_chunk : :func:`xi_from_array` / :func:`xi_from_seeds`.
+    With nz_leg == nz_ring each block is :func:`synthesis_grid_correlated`
+    of the same rows, bit for bit.
+    """
+    nz_out = roots.shape[-2]
+    if nz_out % nz_leg or nz_leg % nz_ring:
+        raise ValueError("nz_leg must divide the output-row count and "
+                         "nz_ring divide nz_leg")
+    fn = _cached_correlated_GeGo if "lam" in t else _fused_scan_GeGo
+    carry = init
+    for z0 in range(0, nz_out, nz_leg):
+        Ge, Go = fn(op, t, roots, xi_chunk, z0, nz_leg)
+        for j in range(0, nz_leg, nz_ring):
+            with stage("ring", op.device):
+                g = rings_to_grid_parity(op, t, Ge[j:j + nz_ring], Go[j:j + nz_ring])
+            carry = consume(g, z0 + j, carry)
+            del g
+        del Ge, Go
+    return carry
 
 
 # ===========================================================================

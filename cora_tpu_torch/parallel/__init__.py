@@ -21,6 +21,7 @@ from .mesh import (  # noqa: F401
     make_mesh,
     mkfullsky_sharded,
     synthesize_cube_sharded,
+    synthesize_cube_sharded_2d,
     synthesize_cube_sims_sharded,
     shard_over,
     redistribute,

@@ -14,15 +14,22 @@ and collectives join the shards.  A sharded array is a DTensor with
 The draws are keyed so that they do not depend on the mesh: a program
 takes an integer ``key``, every rank derives the same per-chunk seeds from
 it, and sim ``s`` of a batch takes the seed :func:`fold_in` ``(key, s)``.
+
+:func:`synthesize_cube_sharded_2d` also splits the rings of the Legendre
+stage over a second mesh axis (K1 on ring-band slices of the scan tables),
+with one all-gather per frequency chunk; its body (``_run_2d``) also runs
+every rank of a layout in one process, the all-gather a concatenation.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..core.skysim import fold_in  # noqa: F401  (the sims' seeds)
+from ..util.profiling import stage
 from .distributed import check_backend
 
 
@@ -177,18 +184,29 @@ def mkfullsky_sharded(corr, nside, lmax, key, mesh, dtype=torch.complex64, mesh_
     return from_local(out, mesh, (nz,) + tuple(out.shape[1:]), {mesh_axis: 0})
 
 
+def _xi_source(op, roots, key, xi):
+    """The white noise of the keyed programs: per-ℓ-chunk seeds from
+    ``torch.Generator().manual_seed(key)`` (the draw of
+    ``skysim.mkfullsky_streamed`` given that generator), or the given
+    ``xi`` (``sht.xi_from_array`` layout)."""
+    from ..core import skysim
+    from ..healpix import sht
+
+    if xi is not None:
+        return sht.xi_from_array(xi)
+    nchunk = -(-roots.shape[0] // op.l_chunk)
+    return sht.xi_from_seeds(
+        skysim._chunk_seeds(torch.Generator().manual_seed(int(key)), nchunk), roots.shape[2])
+
+
 def _streamed_rows(op, t, roots, key, lo, nloc, fchunk):
     """Rows [lo, lo + nloc) of the streamed correlated cube of ``key``:
     [nloc, nring, nq_max] float32.  Each chunk of ``fchunk`` rows goes at
     its own offset (a ragged last chunk is synthesised over the final
     ``fchunk`` rows, as ``skysim.mkfullsky_streamed`` does)."""
-    from ..core import skysim
     from ..healpix import sht
 
-    nz = roots.shape[2]
-    nchunk = -(-roots.shape[0] // op.l_chunk)
-    xi_chunk = sht.xi_from_seeds(
-        skysim._chunk_seeds(torch.Generator().manual_seed(int(key)), nchunk), nz)
+    xi_chunk = _xi_source(op, roots, key, None)
     rows = roots[:, lo:lo + nloc]
     out = None
     for z in range(0, nloc, fchunk):
@@ -257,3 +275,170 @@ def synthesize_cube_sims_sharded(op, tables, roots, key, n_sims, mesh, fchunk=No
                        for s in range(s0, s1)])
     shards = {sim_axis: 0, **({freq_axis: 1} if freq_axis else {})}
     return from_local(out, mesh, (n_sims, nz) + tuple(out.shape[2:]), shards)
+
+
+# --- the 2-D (frequency × ring band) program ---------------------------------
+
+# the scan tables' leaves indexed by northern ring, and their ring axis: the
+# reference's ring_axis_of (z_half, lam_mm, lam_k0, lam_ck) and the kernel
+# layout derived from them (psl_*); every other leaf is replicated
+_RING_AXIS = {"z_half": 0, "lam_mm": 0, "lam_k0": 0, "lam_ck": 2,
+              "psl_z": 0, "psl_seed": 1, "psl_k0": 1, "psl_ck": 3}
+
+
+def ring_band_tables(tables, r0, r1):
+    """Scan tables (``SHT.tables`` in scan mode) cut to the northern rings
+    [r0, r1): each ring-indexed leaf sliced on its ring axis (``psl_ck``
+    only when it holds more than one band; the no-re-seed placeholder is
+    kept) and made contiguous, as K1 takes them; the ring-stage tables and
+    the recurrence rows replicated.  The recurrence is independent per
+    ring, so K1 on the slice computes those rows of the whole."""
+    if "lam" in tables:
+        raise ValueError("2-D sharding requires scan (Λ-free) legendre mode")
+    out = {}
+    for k, v in tables.items():
+        ax = _RING_AXIS.get(k)
+        if ax is None or (k == "psl_ck" and v.shape[0] <= 1):
+            out[k] = v
+        else:
+            out[k] = v.narrow(ax, r0, r1 - r0).contiguous()
+    return out
+
+
+def _plan_2d(op, tables, roots, n_freq, n_band, fchunk):
+    """The reference's checks of the 2-D program, and its layout:
+    (nloc, fchunk, fsub, nLb, rows per band, fed) with ``fed[q]`` the true
+    frequency whose roots row the program reads as row q.
+
+    Rank (f, b) writes, for chunk i and offset j, fed row q = f·nloc +
+    i·fchunk + b·fsub + j into cube row s = f·nloc + b·nLb + i·fsub + j;
+    feeding row q the roots row s puts the true frequency s there.  Only
+    the output-row axis is permuted: the latent axis, and with it the
+    realisation and the cross-frequency covariance, is untouched."""
+    if "lam" in tables:
+        raise ValueError("2-D sharding requires scan (Λ-free) legendre mode")
+    nz = roots.shape[2]
+    if nz % n_freq:
+        raise ValueError(f"nz={nz} not divisible by freq mesh size {n_freq}")
+    nloc = nz // n_freq
+    if nloc % n_band:
+        raise ValueError(f"local nz={nloc} not divisible by band mesh size {n_band}")
+    fchunk = min(fchunk or nloc, nloc)
+    if nloc % fchunk or fchunk % n_band:
+        raise ValueError("fchunk must divide local nz and be divisible by "
+                         "the band mesh size")
+    if op.nhalf % n_band:
+        raise ValueError(f"{op.nhalf} northern rings not divisible by band mesh "
+                         f"size {n_band}")
+    fsub, nLb = fchunk // n_band, nloc // n_band
+    f, b, i, j = np.meshgrid(np.arange(n_freq), np.arange(n_band),
+                             np.arange(nloc // fchunk), np.arange(fsub), indexing="ij")
+    fed = np.empty(nz, np.int64)
+    fed[(f * nloc + i * fchunk + b * fsub + j).ravel()] = (
+        f * nloc + b * nLb + i * fsub + j).ravel()
+    return nloc, fchunk, fsub, nLb, op.nhalf // n_band, fed
+
+
+def band_legendre_step(op, t_band, rows, xi_chunk, i, fchunk):
+    """The band Legendre step of a rank of :func:`synthesize_cube_sharded_2d`:
+    the correlated draw of its chunk ``i`` (fed rows [i·fchunk, (i+1)·fchunk)
+    of ``rows`` [L, nloc, nz]) and K1 on its ring slice ``t_band``
+    (:func:`ring_band_tables`).  Returns (Ge, Go) [fchunk, rings, L]
+    complex64."""
+    from ..healpix import sht
+
+    return sht._fused_scan_GeGo(op, t_band, rows, xi_chunk, i * fchunk, fchunk)
+
+
+def band_ring_step(op, tables, Ge, Go, b, fsub):
+    """The band ring step of rank ``b`` of a band group:
+    ``rings_to_grid_parity`` on frequencies [b·fsub, (b+1)·fsub) of the
+    gathered (Ge, Go) [fchunk, nh, L].  Returns [fsub, nring, nq_max]."""
+    from ..healpix import sht
+
+    sl = slice(b * fsub, (b + 1) * fsub)
+    with stage("ring", op.device):
+        return sht.rings_to_grid_parity(op, tables, Ge[sl], Go[sl])
+
+
+def _gather_rings(x, group, n):
+    """All-gather of this rank's ring slice [fchunk, rings, L] over the band
+    group, joined on the ring axis; complex tensors travel as their real
+    pairs (``view_as_real``), which gloo and NCCL both carry."""
+    xr = torch.view_as_real(x).contiguous()
+    parts = [torch.empty_like(xr) for _ in range(n)]
+    dist.all_gather(parts, xr, group=group)
+    return torch.view_as_complex(torch.cat(parts, dim=1))
+
+
+def _run_2d(op, tables, roots, key, layout, fchunk=None, xi=None, ranks=None,
+            gather=None, device=None):
+    """The body of :func:`synthesize_cube_sharded_2d` for the ranks
+    ``ranks`` = (frequency ranks, band ranks) of the (n_freq, n_band)
+    ``layout``: per frequency rank and chunk, :func:`band_legendre_step` on
+    each band rank's ring slice, ``gather`` of their (Ge, Go) parts to all
+    rings, and :func:`band_ring_step` of each band rank.  Returns the rows
+    those ranks hold, in rank order: [n·nLb, nring, nq_max] for n ranks.
+
+    By default every rank of the layout runs in turn on the operator's
+    device, the gather a concatenation: the whole cube that the program
+    gives in a world of that layout, the same steps on the same shapes, the
+    same bits (the CPU tests and the one-card check run layouts so)."""
+    n_freq, n_band = layout
+    nloc, fchunk, fsub, nLb, nr, fed = _plan_2d(op, tables, roots, n_freq, n_band, fchunk)
+    fs, bs = ranks or (range(n_freq), range(n_band))
+    gather = gather or (lambda parts: torch.cat(parts, dim=1))
+    dev = device or op.device
+    roots = torch.as_tensor(roots).to(device=dev, dtype=torch.float32)
+    xi_chunk = _xi_source(op, roots, key, xi)
+    t_bands = [ring_band_tables(tables, b * nr, (b + 1) * nr) for b in bs]
+    out = None
+    for u, f in enumerate(fs):
+        rows = roots[:, torch.from_numpy(fed[f * nloc:(f + 1) * nloc]).to(dev)]
+        for i in range(nloc // fchunk):
+            parts = [band_legendre_step(op, t, rows, xi_chunk, i, fchunk) for t in t_bands]
+            Ge, Go = (gather([p[k] for p in parts]) for k in (0, 1))
+            del parts
+            for v, b in enumerate(bs):
+                g = band_ring_step(op, tables, Ge, Go, b, fsub)
+                if out is None:
+                    out = g.new_empty((len(fs) * len(bs) * nLb,) + tuple(g.shape[1:]))
+                s = (u * len(bs) + v) * nLb + i * fsub
+                out[s:s + fsub] = g
+                del g
+            del Ge, Go
+    return out
+
+
+def synthesize_cube_sharded_2d(op, tables, roots, key, mesh, fchunk=None, freq_axis="freq",
+                               band_axis="band", xi=None):
+    """Streamed correlated synthesis sharded over a 2-D (frequency × ring
+    band) mesh (``distributed.make_pod_mesh``): the reference's program for
+    nside ≥ 2048, whose Legendre stage does not fit one device.
+
+    Each rank of frequency shard f and band b runs, per chunk i of
+    ``fchunk`` local frequencies, :func:`band_legendre_step` (the draw and
+    K1 on its 1/n_band of the northern rings, no communication), one
+    all-gather of (Ge, Go) over the band group (:func:`_gather_rings`), and
+    :func:`band_ring_step` on its ``fchunk/n_band`` of the chunk's
+    frequencies.  The draws are keyed as :func:`synthesize_cube_sharded`'s
+    (or taken from ``xi``, an array in ``sht.xi_from_array`` layout, the
+    same on every rank), and the roots rows are fed permuted
+    (:func:`_plan_2d`) so the cube's rows are the true frequencies.
+
+    op, tables : a scan-mode SHT and its f32 tables (cached tables raise
+    ValueError); roots : [L, nz, nz], nz divisible by the freq axis, the
+    local count by the band axis and by ``fchunk`` (default all local
+    frequencies), ``fchunk`` by the band axis.  Returns the
+    [nz, nring, nq_max] float32 ring-grid cube, a DTensor sharded over
+    (freq, band) on axis 0: rank (f, b) holds rows f·nloc + b·nLb + [0, nLb).
+    """
+    n_freq = mesh.size(_dim(mesh, freq_axis))
+    n_band = mesh.size(_dim(mesh, band_axis))
+    f = mesh.get_local_rank(_dim(mesh, freq_axis))
+    b = mesh.get_local_rank(_dim(mesh, band_axis))
+    group = mesh.get_group(band_axis)
+    out = _run_2d(op, tables, roots, key, (n_freq, n_band), fchunk, xi, ([f], [b]),
+                  lambda parts: _gather_rings(parts[0], group, n_band), mesh_device(mesh))
+    return from_local(out, mesh, (roots.shape[2],) + tuple(out.shape[1:]),
+                      {freq_axis: 0, band_axis: 0})

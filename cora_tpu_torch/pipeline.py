@@ -18,6 +18,7 @@ from __future__ import annotations
 import logging
 from typing import Callable, List
 
+import numpy as np
 import torch
 
 from .device import resolve_device
@@ -129,11 +130,21 @@ class RandomTask(Task):
     """Task with a seed (caput tasklib.random equivalent).  Its draws are
     keyed (``skysim.keyed_normal_rows``) by :attr:`key`, so that a sharded
     fill and the whole give the same numbers; ``seed=None`` takes the key
-    from the OS."""
+    from the OS.  :attr:`rng` is the reference's seeded numpy generator,
+    for a user's task that draws on the host."""
 
     seed = Property(proptype=int, default=None)
 
     _os_key = None
+    _rng = None
+
+    @property
+    def rng(self):
+        """``np.random.default_rng(seed)``, made at first use and kept by the
+        task (the reference's ``RandomTask.rng``)."""
+        if self._rng is None:
+            self._rng = np.random.default_rng(self.seed)
+        return self._rng
 
     @property
     def key(self) -> int:

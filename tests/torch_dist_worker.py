@@ -165,6 +165,48 @@ def parallel_cases(world, res):
         xi_table(), 23, np.linspace(900.0, 1100.0, 8), xromb=1, q=4, mesh=m).numpy()
 
 
+# the 2-D program's operator (l_chunk 16: three re-seed bands, so the
+# checkpoint rows are sliced too), key and fchunk (two or more chunks per
+# rank in every layout); the reference's ξ is read from XI_2D in ``out``
+SHT_2D = dict(nside=16, lmax=47, l_chunk=16)
+KEY_2D, FCHUNK_2D, XI_2D = 5, 4, "xi_2d.npy"
+
+
+def layouts_2d(world):
+    """The (n_freq, n_band) pod meshes a world of ``world`` ranks runs."""
+    return {1: [(1, 1)], 2: [(1, 2), (2, 1)], 4: [(2, 2), (1, 4)]}[world]
+
+
+def parallel_2d_cases(world, res, out):
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.parallel import distributed as pd
+    from cora_tpu_torch.parallel import mesh as pm
+
+    op = sht.SHT(**SHT_2D, device="cpu", legendre_mode="scan")
+    t = op.tables(False)
+    r = roots(47, 16, 0)
+    for nf, nb in layouts_2d(world):
+        m = pd.make_pod_mesh(freq_hosts=nf, device="cpu")
+        cube = pm.synthesize_cube_sharded_2d(op, t, r, KEY_2D, m, fchunk=FCHUNK_2D)
+        res[f"cube_{nf}x{nb}"] = cube.full_tensor().numpy()
+        res[f"local_{nf}x{nb}"] = cube.to_local().numpy()
+        if world == 4 and nf == 2:  # the reference's ξ (written by the test)
+            xi = np.load(os.path.join(out, XI_2D))
+            res["cube_xi_2x2"] = pm.synthesize_cube_sharded_2d(
+                op, t, r, None, m, fchunk=FCHUNK_2D, xi=xi).full_tensor().numpy()
+        if world == 2:  # the reference's refusals, in the program itself
+            res[f"odd_nz_{nf}x{nb}"] = _err(lambda: pm.synthesize_cube_sharded_2d(
+                op, t, roots(47, 15, 0), KEY_2D, m))
+            res[f"fchunk_{nf}x{nb}"] = _err(lambda: pm.synthesize_cube_sharded_2d(
+                op, t, r, KEY_2D, m, fchunk=3))
+    if world == 1:
+        m = pm.make_mesh(device="cpu")
+        res["cube_1d"] = pm.synthesize_cube_sharded(
+            op, t, torch.from_numpy(r), KEY_2D, m, fchunk=FCHUNK_2D).full_tensor().numpy()
+
+
 def lss_cases(world, res):
     from cora_tpu_torch.parallel import lss as pl
     from cora_tpu_torch.parallel import mesh as pm
@@ -306,7 +348,7 @@ def checkpoint_restore_cases(world, res, ckpt):
     res["map_nside"] = np.array(m2.nside)
 
 
-CASES = {"parallel": parallel_cases, "lss": lss_cases,
+CASES = {"parallel": parallel_cases, "parallel_2d": parallel_2d_cases, "lss": lss_cases,
          "checkpoint_save": checkpoint_save_cases,
          "checkpoint_restore": checkpoint_restore_cases}
 
@@ -377,7 +419,12 @@ def main():
     res = {}
     try:
         fn = CASES[a.cases]
-        fn(a.world, res, a.ckpt) if a.cases.startswith("checkpoint") else fn(a.world, res)
+        if a.cases.startswith("checkpoint"):
+            fn(a.world, res, a.ckpt)
+        elif a.cases == "parallel_2d":
+            fn(a.world, res, a.out)
+        else:
+            fn(a.world, res)
         dist.barrier()
     finally:
         dist.destroy_process_group()
