@@ -181,7 +181,8 @@ Phases (each prints its own lines; any failure exits non-zero):
               seeds (≤ 1e-6 RMS, bits compared), mkfullsky_sharded (each
               channel's variance within 5% of Σ(2ℓ+1)C_ℓ/4π), and
               synthesize_cube_sims_sharded of 2 sims in scan mode (K1 f32;
-              sim 1 against a single-sim run of its seed).  On phase 14's
+              fleg=16, one level: sim 1 against a single-sim run of its
+              seed; then fleg=64, two levels: sim 0 the same bits).  On phase 14's
               products at nside 256 × 256: initial_lss_sharded (≤ 1e-9·max
               of the task's draw), gradient_sharded (≤ 1e-10·max of
               lssutil.gradient), linear_dynamics_sharded and fog_sharded
@@ -220,9 +221,26 @@ Phases (each prints its own lines; any failure exits non-zero):
               F2 = 16 in f32 (unre-seeded: its largest error against the
               f64 plain version within 1.5× the plain f32 version's) and at
               F2 = 4 in f64 (≤ 1e-10·max).
+17. f64 sky  — skysim.mkfullsky(None, 512, roots=phase 5's roots,
+              device="cuda", dtype=torch.complex128, xi=) over 256 channels,
+              the launch counters reset just before each run and read just
+              after: the default (cached) operator — the f64 K4 only, maps
+              [256, 3145728] float64, finite, each channel's variance within
+              5% of Σ(2ℓ+1)C_ℓ/4π — and legendre_mode="scan" — the f64 K1
+              only, within 1e-10·max of the cached cube; stage times, totals
+              and peak memory of both.  The f32 operator's tables are
+              released before the f64 ones are built.  One float64 ξ on the
+              card feeds the f32 default call of each mode too: the f32
+              cube within 1e-5 RMS of the f64 one (printed).  K4 f64 and K1
+              f64 against their plain versions at the shapes these runs
+              launched (f64 ≤ 1e-12·max and ≤ 1e-10·max), timed beside
+              their bounds (K4 also beside the per-chunk torch.bmm); the
+              kernel report's K4 f64 and K1 f64 entries carry these numbers
+              and launches.  (Phase 15 runs the sims one-level, fleg=16, and
+              two-level, fleg=64: K1 launches, time, sim 0's bits the same.)
 
-The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phase 5b:
-nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
+The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phases 5b,
+15 and 17 (a temporary directory each): nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
 wrapper module), so the f32 and f64 launches are counted apart.
 
 The line before the last is the kernel report (JSON); the last line is
@@ -769,14 +787,36 @@ def _k4_library(lam, desc, A, R):
     return tuple(h.permute(1, 2, 0) for h in H)
 
 
+def _k4_triangle(desc, LA):
+    """The (ℓ, m ≤ ℓ) entries of one ring's Λ that the chunks hold: each
+    parity-packed row (evens then odds) counts its ℓ + 1 orders, not the
+    chunk's zero padding for m > ℓ."""
+    ne = (LA + 1) // 2
+    tri = 0
+    for _, nrows, mw, row0, _ in desc.tolist():
+        for r in range(row0, row0 + nrows):
+            ell = 2 * r if r < ne else 2 * (r - ne) + 1
+            tri += min(ell + 1, mw)
+    return tri
+
+
 def _k4_work(lam, desc, A, R):
-    """((products, other) flops, bytes) of one K4 call: one FMA per stored
-    Λ entry and plane, all of it a product; Λ and the planes read once, H0
-    and H1 written once."""
-    F2, M = A.shape[0], A.shape[2]
-    ent = sum(nrows * mw for _, nrows, mw, _, _ in desc.tolist()) * R
-    return ((2.0 * F2 * ent, 0.0),
-            _nbytes(lam, A) + 2 * F2 * R * M * A.element_size())
+    """((products, other) flops, bytes) of one K4 call, counted on the
+    (ℓ, m ≤ ℓ) triangle the contraction needs: one FMA per such Λ entry
+    and plane, all of it a product; those Λ and plane entries read once,
+    H0 and H1 written once.  The chunks' padding is left out
+    (:func:`_k4_stored_bytes` counts it)."""
+    F2, LA, M = A.shape
+    tri = _k4_triangle(desc, LA)
+    return ((2.0 * F2 * tri * R, 0.0),
+            (tri * R + F2 * tri + 2 * F2 * R * M) * A.element_size())
+
+
+def _k4_stored_bytes(lam, A, R):
+    """The bytes of the stored Λ chunks and dense planes, padding for
+    m > ℓ included, and of H0 and H1: what a kernel reading every stored
+    entry moves (printed beside the bound, never used as one)."""
+    return _nbytes(lam, A) + 2 * A.shape[0] * R * A.shape[2] * A.element_size()
 
 
 # K4 shapes (nside, lmax, F2): float32 at nside=128 with even and odd L and
@@ -828,8 +868,10 @@ def legendre_phase(dev, reports):
             flops, nbytes = _k4_work(lam, desc, A, R)
             print(f"   {name} nside={nside} L={lmax + 1} F2={F2}: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, per-chunk bmm {lib_ms:.3f} ms (CUDA "
-                  f"events, median); {nbytes / 1e9:.3f} GB, {flops[0] / 1e9:.1f} GFLOP: "
-                  f"{nbytes / ms / 1e6:.0f} GB/s, {flops[0] / ms / 1e9:.2f} TFLOP/s")
+                  f"events, median); {nbytes / 1e9:.3f} GB needed (m ≤ ℓ), "
+                  f"{flops[0] / 1e9:.1f} GFLOP: {nbytes / ms / 1e6:.0f} GB/s, "
+                  f"{flops[0] / ms / 1e9:.2f} TFLOP/s; stored with padding "
+                  f"{_k4_stored_bytes(lam, A, R) / 1e9:.3f} GB")
             if (nside, lmax, F2) == F32_K4_SHAPES[-1] and not f64:
                 A2 = _planes_minor_randn((2, lmax + 1, lmax + 1), nside, dtype, dev)
                 _, ms2, _ = _compare(
@@ -924,7 +966,7 @@ def parity_phase(dev):
         t1 = time.perf_counter()
         check(_counts()[k_syn] > 0, f"{mode}: mkfullsky on cuda launched {k_syn}")
         m_cpu = skysim.mkfullsky(None, nside, device="cpu", roots=roots, xi=xi,
-                                 fchunk=nz, op=ops["cpu"]).numpy()
+                                 fchunk=nz, op=ops["cpu"], dtype=torch.complex64).numpy()
         t2 = time.perf_counter()
         rel = rms(m_gpu - m_cpu) / rms(m_cpu)
         print(f"   {mode} nside={nside} nz={nz}: RMS(cuda-cpu)/RMS = {rel:.3e} "
@@ -1096,8 +1138,9 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
     print(f"   total getsky    {total:9.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB; legendre_contract launches "
           f"{n['legendre_contract']}, scan_contract launches {n['scan_contract']}")
-    check(n["legendre_contract"] > 0 and n["scan_contract"] == 0,
-          "main path launched the legendre_contract kernel (K4) and no K1")
+    check(n["legendre_contract"] > 0 and n["scan_contract"] == 0
+          and n["legendre_contract_f64"] == 0,
+          "main path launched the f32 legendre_contract kernel (K4) only, and no K1")
     npix = 12 * cfg["nside"] ** 2
     check(tuple(sky.shape) == (cfg["nfreq"], npix), f"sky shape {tuple(sky.shape)}")
     check(bool(torch.isfinite(sky).all()), "every pixel finite")
@@ -1784,6 +1827,7 @@ def _k4_at_path_shapes(dev, shapes):
     from cora_tpu_torch.ops import legendre as k4
 
     card = _card()
+    out = {}
     for (nside, lmax, F2, f64), calls in sorted(shapes.items()):
         op = sht.get_sht(nside, lmax, device=dev)
         dtype = torch.float64 if f64 else torch.float32
@@ -1793,10 +1837,10 @@ def _k4_at_path_shapes(dev, shapes):
         run_k = lambda: _k4_run(k4.legendre_contract, lam, desc, A, R)
         run_p = lambda: _k4_run(k4.legendre_contract_plain, lam, desc, A, R)
         if f64:
-            _, ms, plain_ms = _compare64(name, nside, run_k, run_p, reps=(3, 1),
-                                         tol=1e-12)
+            err, ms, plain_ms = _compare64(name, nside, run_k, run_p, reps=(3, 1),
+                                           tol=1e-12)
         else:
-            _, ms, plain_ms = _compare(
+            err, ms, plain_ms = _compare(
                 name, nside, run_k, run_p,
                 lambda: _k4_run(k4.legendre_contract_plain, lam.double(), desc,
                                 A.double(), R), reps=(3, 1), tol=1e-5)
@@ -1805,9 +1849,16 @@ def _k4_at_path_shapes(dev, shapes):
         bound_ms, bound_by = _bound(*flops, nbytes, A.element_size())
         print(f"   {name} nside={nside}: {calls} launches on the path; kernel "
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, per-chunk bmm {lib_ms:.3f} ms "
-              f"(CUDA events, median), bound {bound_ms:.3f} ms ({bound_by}) ({card})")
+              f"(CUDA events, median), bound {bound_ms:.3f} ms ({bound_by}; "
+              f"{nbytes / 1e9:.3f} GB needed, m ≤ ℓ; stored with padding "
+              f"{_k4_stored_bytes(lam, A, R) / 1e9:.3f} GB), "
+              f"{100 * bound_ms / ms:.1f}% of its bound ({card})")
+        out[(nside, lmax, F2, f64)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms, bound_by=bound_by,
+                                           library_ms=lib_ms)
         del lam, A
         torch.cuda.empty_cache()
+    return out
 
 
 def foreground_phase(dev, nside=256, nfreq=64, seed=7):
@@ -2724,6 +2775,7 @@ def parallel_phase(dev, roots, lss, pair, cfg=FLAGSHIP, cl_lmax=767):
     for name, ks in (("synthesize_cube_sharded (cached)", ("K4",)),
                      ("mkfullsky_sharded (cached)", ("K4",)),
                      ("synthesize_cube_sims_sharded 2 sims (scan)", ("K1",)),
+                     ("synthesize_cube_sims_sharded 2 sims fleg=64 (scan)", ("K1",)),
                      ("synthesize_cube_sharded_2d 1×1 (scan)", ("K1",)),
                      ("2-D layout 2×2 rank by rank (scan)", ("K1",)),
                      ("2-D layout 1×4 rank by rank (scan)", ("K1",)),
@@ -2826,7 +2878,20 @@ def _parallel_flagship(dev, run, mesh, roots, cfg):
     sims_mesh = pm.make_mesh(axis_name="sim", device=dev.type)
     sims = run("synthesize_cube_sims_sharded 2 sims (scan)",
                lambda: pm.synthesize_cube_sims_sharded(op_s, t_s, roots, PARALLEL_KEY, 2,
-                                                       sims_mesh, fchunk=16).to_local())
+                                                       sims_mesh, fchunk=16,
+                                                       fleg=16).to_local())
+    # the two-level sims: the draw and K1 64 channels at a time (F2 = 128)
+    two = run("synthesize_cube_sims_sharded 2 sims fleg=64 (scan)",
+              lambda: pm.synthesize_cube_sims_sharded(op_s, t_s, roots, PARALLEL_KEY, 2,
+                                                      sims_mesh, fchunk=16,
+                                                      fleg=64).to_local())
+    print(f"   sims fleg=64 vs one level (fleg=16): sim 0 same bits "
+          f"{bool(torch.equal(two[0], sims[0]))}, sim 1 same bits "
+          f"{bool(torch.equal(two[1], sims[1]))}; max|Δ|/max "
+          f"{float((two - sims).abs().max() / sims.abs().max()):.3e}")
+    check(bool(torch.equal(two[0], sims[0])),
+          "sim 0 of the fleg=64 sims has the bits of the one-level sims' sim 0")
+    del two
     one = run("single sim of fold_in(key, 1) (scan)", lambda: pm.synthesize_cube_sharded(
         op_s, t_s, roots, pm.fold_in(PARALLEL_KEY, 1), mesh, fchunk=16).to_local())
     rel = _rms_rel(sims[1], one)
@@ -3259,6 +3324,190 @@ def nside2048_phase(dev, cfg=NSIDE2048, fchunk=8, n64=2):
     return steps
 
 
+F64_STAGES = ("sht_setup", "lambda_build", "draw", "legendre", "ring", "pixel_gather")
+
+
+def _record_k1_shapes(shapes):
+    """A stand-in for the transforms' K1 entry that counts each call by
+    (nside, lmax, F2, float64) and launches the kernel as before."""
+    import torch
+
+    from cora_tpu_torch.ops import scan_legendre as k
+
+    def contract(*args, **kw):
+        z, A0 = args[4], args[6]
+        key = (z.shape[0] // 2, A0.shape[2] - 1, A0.shape[0], A0.dtype == torch.float64)
+        shapes[key] = shapes.get(key, 0) + 1
+        return k.scan_contract(*args, **kw)
+
+    return contract
+
+
+def _k1_at_path_shapes(dev, shapes):
+    """K1 f64 against its f64 plain version (≤ 1e-10·max) at each shape a
+    float64 run launched it with (``_record_k1_shapes``), on that scan
+    operator's f64 tables, with its bound."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.ops import scan_legendre as k
+
+    card = _card()
+    out = {}
+    for (nside, lmax, F2, f64), calls in sorted(shapes.items()):
+        check(f64, f"K1 launched in float64 at nside={nside}, F2={F2}")
+        op = sht.get_sht(nside, lmax, legendre_mode="scan", device=dev)
+        t = op.tables(True)
+        args, A, _ = _kernel_inputs(op, F2, nside + lmax + F2, t)
+        kw = dict(band_rows=op.band_rows, scale=k.SCALE_F64)
+        name = f"scan_contract_f64 L={lmax + 1} F2={F2}"
+        err, ms, plain_ms = _compare64(
+            name, nside, lambda: k.scan_contract(*args, *A, **kw),
+            lambda: k.scan_contract_plain(*args, *A, **kw), reps=(3, 1))
+        bound_ms, bound_by = _k1_bound(op, t, A)
+        print(f"   {name} nside={nside}: {calls} launches on the path; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms (CUDA events, median), bound {bound_ms:.3f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f}% of its bound ({card})")
+        out[(nside, lmax, F2, f64)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms, bound_by=bound_by,
+                                           library_ms=None)
+        del args, A
+        torch.cuda.empty_cache()
+    return out
+
+
+def _f64_report(reports, name, counts, measured):
+    """The kernel report of ``name`` from this phase's run: its launches
+    there and the numbers measured at the (one) shape it launched with."""
+    check(len(measured) == 1, f"{name} launched at one shape on the path")
+    reports[name] = dict(name=name, route="cuda", source=reports[name]["source"],
+                         replaces=reports[name]["replaces"], launches=counts[name],
+                         **next(iter(measured.values())))
+
+
+def f64_sky_phase(dev, reports, roots, cfg=FLAGSHIP):
+    """Phase 17: the float64 sky at the flagship width through the public
+    entry point, ``skysim.mkfullsky(None, nside, roots=roots, device="cuda",
+    dtype=torch.complex128)``, in cached mode (the default operator: K4
+    f64) and in scan mode (K1 f64), on phase 5's roots and one float64 ξ
+    shared with the f32 default calls of each mode (the 1e-5 contract);
+    K4 f64 and K1 f64 held to their plain versions at the shapes the runs
+    gave them, whose numbers and launches the kernel report then carries.
+    ``cfg`` is cut only to rehearse it on the CPU."""
+    import torch
+    from unittest import mock
+
+    from cora_tpu_torch.core import skysim
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.util import profiling
+
+    card = _card()
+    nside, nz = cfg["nside"], cfg["nfreq"]
+    L = 3 * nside
+    phase(f"17 float64 sky: skysim.mkfullsky(dtype=complex128) at nside {nside} × {nz} "
+          f"channels (phase 5's roots) — cached (K4 f64) and scan (K1 f64), against the "
+          f"f32 default calls of the same ξ")
+    t_phase = time.perf_counter()
+    _clear_operators()  # the f32 operators' tables go before the f64 ones are built
+    print(f"   device memory allocated at the start: "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    R = torch.as_tensor(roots, dtype=torch.float64)
+    cl = torch.einsum("lij,lij->li", R, R).numpy()  # diag(R Rᵀ) [L, nz]
+    del R
+    expect = ((2 * np.arange(L)[:, None] + 1) * cl).sum(0) / (4 * np.pi)
+    xi = torch.randn((L, nz, 2, L), dtype=torch.float64, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(PARALLEL_KEY))
+    print(f"   ξ [{L}, {nz}, 2, {L}] float64 on the card: {xi.numel() * 8 / 1e9:.3f} GB")
+    totals, shapes = {}, {}
+
+    def main_run(mode, op):
+        """One counted f64 run: counters reset just before, read just after."""
+        k4_shapes, k1_shapes = {}, {}
+        profiling.enable(True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with mock.patch.object(sht, "legendre_contract", _record_k4_shapes(k4_shapes)), \
+                mock.patch.object(sht, "scan_contract", _record_k1_shapes(k1_shapes)):
+            _reset_counts()
+            t0 = time.perf_counter()
+            cube = skysim.mkfullsky(None, nside, roots=roots, device="cuda",
+                                    dtype=torch.complex128, xi=xi, op=op)
+            torch.cuda.synchronize(dev)
+            total = time.perf_counter() - t0
+            n = _counts()
+        st = dict(profiling.stage_times)
+        profiling.enable(False)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for key in F64_STAGES:
+            print(f"   {mode} stage {key:13s} {st.get(key, 0.0):9.3f} s")
+        print(f"   {mode} f64 mkfullsky total {total:.3f} s, peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches "
+              f"{', '.join(f'{e} {v}' for e, v in n.items() if v) or 'none'} ({card})")
+        totals[mode] = total
+        shapes[mode] = (k4_shapes, k1_shapes)
+        check(cube.dtype == torch.float64 and tuple(cube.shape) == (nz, 12 * nside**2)
+              and bool(torch.isfinite(cube).all()),
+              f"{mode}: maps [{nz}, {12 * nside**2}] float64, every pixel finite")
+        return cube, n
+
+    def f32_contract(mode, op, ref):
+        """The f32 default call on the same ξ, held to the f64 cube."""
+        t0 = time.perf_counter()
+        c32 = skysim.mkfullsky(None, nside, roots=roots, device="cuda", xi=xi, op=op)
+        torch.cuda.synchronize(dev)
+        rel = _rms_rel(c32, ref)
+        print(f"   {mode}: f32 default call {time.perf_counter() - t0:.3f} s, "
+              f"{c32.dtype}; RMS(f32 − f64)/RMS = {rel:.3e} ({card})")
+        check(c32.dtype == torch.float32, f"{mode}: the default call on CUDA gives float32 maps")
+        check(rel <= 1e-5, f"{mode}: f32 cube within 1e-5 RMS of the f64 cube of the same ξ")
+
+    with tempfile.TemporaryDirectory() as cdir:
+        os.environ["CORA_TPU_TORCH_CACHE"] = cdir  # one rows build for both f32 calls
+        try:
+            # cached: the default operator, its f64 Λ built on the card
+            c64, n = main_run("cached", None)
+            check(n["legendre_contract_f64"] > 0
+                  and all(v == 0 for e, v in n.items() if e != "legendre_contract_f64"),
+                  "cached: the f64 K4 launched, and no f32 kernel and no K1")
+            ratio = c64.square().mean(dim=1).cpu().numpy() / expect
+            print(f"   cached: map variance / Σ(2ℓ+1)C_ℓ/4π: min {ratio.min():.4f} "
+                  f"max {ratio.max():.4f}")
+            check(np.all(np.abs(ratio - 1) < 0.05),
+                  "cached: every channel's variance within 5% of its C_ℓ sum")
+            _f64_report(reports, "legendre_contract_f64", n,
+                        _k4_at_path_shapes(dev, shapes["cached"][0]))
+            op = sht.get_sht(nside, L - 1, device=dev)
+            op._tables.pop(True, None)  # the f64 Λ goes before the f32 one is built
+            torch.cuda.empty_cache()
+            f32_contract("cached", op, c64)
+            del op
+            _clear_operators()
+
+            t0 = time.perf_counter()
+            op_s = sht.get_sht(nside, L - 1, legendre_mode="scan", device=dev)
+            print(f"   scan operator {time.perf_counter() - t0:.3f} s")
+            s64, n = main_run("scan", op_s)
+            check(n["scan_contract_f64"] > 0
+                  and all(v == 0 for e, v in n.items() if e != "scan_contract_f64"),
+                  "scan: the f64 K1 launched, and no f32 kernel and no K4")
+            err = float((s64 - c64).abs().max() / c64.abs().max())
+            print(f"   scan vs cached f64 cube: max|Δ|/max = {err:.3e}, RMS(Δ)/RMS = "
+                  f"{_rms_rel(s64, c64):.3e}")
+            check(err <= 1e-10, "scan f64 cube within 1e-10·max of the cached f64 cube")
+            del c64
+            _f64_report(reports, "scan_contract_f64", n,
+                        _k1_at_path_shapes(dev, shapes["scan"][1]))
+            f32_contract("scan", op_s, s64)
+            del s64, op_s
+        finally:
+            os.environ["CORA_TPU_TORCH_CACHE"] = ""
+            _clear_operators()
+    del xi
+    torch.cuda.empty_cache()
+    print(f"   phase 17 {time.perf_counter() - t_phase:.1f} s (f64 runs: cached "
+          f"{totals['cached']:.3f} s, scan {totals['scan']:.3f} s) ({card})")
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_phase()
@@ -3286,6 +3535,7 @@ def main():
     lss = lss_phase(dev)
     parallel_phase(dev, roots, lss, pair)
     nside2048_phase(dev)
+    f64_sky_phase(dev, reports, roots)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",

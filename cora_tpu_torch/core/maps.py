@@ -183,8 +183,10 @@ class Sky3d(Map3d):
         )
 
     def getsky(self, device="cuda", generator=None):
-        """Unpolarised sky [numz, npix] on ``device``: the mean (float64)
-        plus the float32 realisation, so float64 like the JAX result."""
+        """Unpolarised sky [numz, npix] on ``device``, float64: the mean
+        plus the realisation of ``skysim.mkfullsky``'s default precision,
+        float64 on the CPU and float32 on CUDA, as the reference's is on
+        its CPU backend and on an accelerator."""
         from ..util.profiling import stage
         from . import skysim
 
@@ -208,7 +210,8 @@ class Sky3d(Map3d):
     def getalms(self, lmax, device="cuda", generator=None):
         """Correlated a_lm [numz, lmax+1, lmax+1] of the model on
         ``device``: the Romberg C_l of :func:`skysim.clarray` (default
-        order, as the reference's) drawn by ``mkfullsky(alms=True)``."""
+        order, as the reference's) drawn by ``mkfullsky(alms=True)``:
+        complex128 on the CPU, complex64 on CUDA."""
         from . import skysim
 
         dev = resolve_device(device)

@@ -9,7 +9,9 @@ White noise comes from an explicit ``torch.Generator``; passing ``xi``
 instead hands the draw a given standard-normal array (tests feed the same
 numpy noise to this package and to the JAX reference).  With
 ``alms=True`` :func:`mkfullsky` returns the correlated a_lm draw itself
-(:func:`draw_alm_from_roots`) instead of maps.
+(:func:`draw_alm_from_roots`) instead of maps.  The maps are float32 or
+float64 (``dtype``; by default what the reference returns on the device,
+:func:`sky_dtype`), the same streamed path in either precision.
 """
 
 from __future__ import annotations
@@ -141,24 +143,51 @@ def keyed_xi(key, L, rows, nz, dtype=torch.complex128, device="cpu"):
     return out
 
 
-def mkfullsky_streamed(corr, nside, *, device="cuda", generator=None, xi=None,
-                       roots=None, fchunk=16, op=None):
+def sky_dtype(dtype, device):
+    """The complex dtype of a realisation on ``device``: ``dtype`` given as
+    torch.complex64 or torch.complex128, or for ``None`` what the reference
+    returns on that device — complex128 on the CPU, complex64 on CUDA (the
+    reference's accelerator result)."""
+    if dtype is None:
+        return torch.complex64 if resolve_device(device).type == "cuda" else torch.complex128
+    if dtype not in (torch.complex64, torch.complex128):
+        raise ValueError(f"dtype must be torch.complex64 or torch.complex128, not {dtype!r}")
+    return dtype
+
+
+def generator_from_rng(rng, device="cpu"):
+    """A torch generator on ``device`` seeded from a numpy random state the
+    way the reference seeds its key: one integer in [0, 2³¹ − 1) drawn from
+    ``rng`` (``integers``, or ``randint`` of a legacy ``RandomState``)."""
+    draw = rng.integers if hasattr(rng, "integers") else rng.randint
+    return torch.Generator(device=device).manual_seed(int(draw(0, 2**31 - 1)))
+
+
+def mkfullsky_streamed(corr, nside, *, device="cuda", generator=None, rng=None,
+                       xi=None, roots=None, fchunk=16, op=None, dtype=None):
     """Generator: the correlated sky cube in frequency chunks.
 
-    Yields ``(z_lo, maps[fchunk, npix])`` float32 tensors on ``device``.
-    All chunks share one white-noise realisation (per-ℓ-chunk seeds drawn
-    once from ``generator``, or the given ``xi`` [≥L, nz, 2, ≥L]).  A
-    ragged last chunk is synthesized at full width over the final
-    ``fchunk`` frequencies (``z_lo = nz - fchunk``).
+    Yields ``(z_lo, maps[fchunk, npix])`` tensors on ``device``: float32
+    for ``dtype`` complex64, float64 for complex128 (the f64 tables, K4 or
+    K1 f64 on CUDA); ``dtype=None`` takes the reference's result on that
+    device (:func:`sky_dtype`).  All chunks share one white-noise
+    realisation (per-ℓ-chunk seeds drawn once from ``generator``, else
+    from a generator seeded by the numpy ``rng``, else fresh, or the given
+    ``xi`` [≥L, nz, 2, ≥L], read at the synthesis precision).  For one
+    seed the two precisions draw different realisations, as the
+    reference's keys do.  A ragged last chunk is synthesized at full width
+    over the final ``fchunk`` frequencies (``z_lo = nz - fchunk``).
 
     ``roots``: precomputed per-ℓ roots [lmax+1, nz, nz]; ``corr`` is then
     ignored.
     """
     dev = resolve_device(device)
+    double = sky_dtype(dtype, dev) == torch.complex128
+    fdt = torch.float64 if double else torch.float32
     if roots is None:
         with stage("roots", dev):
             roots = covariance_roots(corr, dev)
-    roots = torch.as_tensor(roots).to(device=dev, dtype=torch.float32)
+    roots = torch.as_tensor(roots).to(device=dev, dtype=fdt)
     lmax = roots.shape[0] - 1
     nz = roots.shape[1]
 
@@ -167,16 +196,19 @@ def mkfullsky_streamed(corr, nside, *, device="cuda", generator=None, xi=None,
             op = _sht.get_sht(int(nside), int(lmax), device=dev)
         elif op.nside != int(nside) or op.lmax != int(lmax):
             raise ValueError("op does not match requested nside/lmax")
-        t = op.tables(False)
+        t = op.tables(double)
 
     if xi is not None:
-        xi_chunk = _sht.xi_from_array(xi)
+        xi_chunk = _sht.xi_from_array(xi, fdt)
     else:
         if generator is None:
-            generator = torch.Generator()
-            generator.seed()
+            if rng is not None:
+                generator = generator_from_rng(rng)
+            else:
+                generator = torch.Generator()
+                generator.seed()
         nchunk = -(-(lmax + 1) // op.l_chunk)
-        xi_chunk = _sht.xi_from_seeds(_chunk_seeds(generator, nchunk), nz)
+        xi_chunk = _sht.xi_from_seeds(_chunk_seeds(generator, nchunk), nz, fdt)
 
     fchunk = min(fchunk, nz)
     for z_lo in range(0, nz, fchunk):
@@ -239,25 +271,38 @@ def draw_correlated_alm(corr, generator=None, xi=None, dtype=torch.complex128):
 
 
 def mkfullsky(corr, nside, *, alms=False, device="cuda", generator=None,
-              xi=None, roots=None, fchunk=16, op=None):
-    """Correlated HEALPix maps [numz, npix] (float32, on ``device``) from
-    C_l(z, z') [lmax+1, numz, numz] — see :func:`mkfullsky_streamed`.
+              rng=None, xi=None, roots=None, fchunk=16, op=None, dtype=None):
+    """Correlated HEALPix maps [numz, npix] on ``device`` from C_l(z, z')
+    [lmax+1, numz, numz] — see :func:`mkfullsky_streamed`.
+
+    ``dtype`` (complex64 or complex128) sets the precision: complex128
+    gives float64 maps on either device (the f64 draw and tables, streamed
+    in frequency chunks like float32, no dense a_lm), complex64 float32
+    maps.  ``dtype=None`` is the reference's result on the device:
+    complex128 on the CPU, complex64 on CUDA.  ``rng`` (a numpy
+    ``Generator``) seeds the draw when no ``generator`` is given, as the
+    reference seeds its key; for one seed, the two dtypes give different
+    realisations, as they do in the reference.  ``xi`` given as float64 is
+    read as float64 by the f64 path, so an f32 and an f64 cube can share
+    one draw.
 
     With ``alms=True`` the dense a_lm draw [numz, lmax+1, lmax+1] is
     returned instead (:func:`draw_alm_from_roots`, ``xi`` then the complex
-    ξ [lmax+1, numz, lmax+1]): float64 roots, drawn in complex64 on CUDA —
-    what the reference returns on an accelerator — and in complex128 on
-    the CPU.
+    ξ [lmax+1, numz, lmax+1]) from float64 roots, in ``dtype`` (by default
+    complex64 on CUDA and complex128 on the CPU).
     """
+    dev = resolve_device(device)
+    dtype = sky_dtype(dtype, dev)
     if alms:
-        dev = resolve_device(device)
         if roots is None:
             with stage("roots", dev):
                 roots = covariance_roots(corr, dev)
         if xi is None and generator is None:
-            generator = torch.Generator(device=dev)
-            generator.seed()
-        dtype = torch.complex64 if dev.type == "cuda" else torch.complex128
+            if rng is not None:
+                generator = generator_from_rng(rng, dev)
+            else:
+                generator = torch.Generator(device=dev)
+                generator.seed()
         with stage("draw", dev):
             return draw_alm_from_roots(torch.as_tensor(roots).to(dev), xi=xi,
                                        generator=generator, dtype=dtype)
@@ -268,12 +313,11 @@ def mkfullsky(corr, nside, *, alms=False, device="cuda", generator=None,
         nz = corr.shape[1]
     else:
         nz = roots.shape[1]
-    dev = resolve_device(device)
-    out = torch.empty((nz, 12 * int(nside) ** 2), dtype=torch.float32,
-                      device=dev)
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    out = torch.empty((nz, 12 * int(nside) ** 2), dtype=rdt, device=dev)
     for z_lo, maps in mkfullsky_streamed(
-        corr, nside, device=dev, generator=generator, xi=xi, roots=roots,
-        fchunk=fchunk, op=op,
+        corr, nside, device=dev, generator=generator, rng=rng, xi=xi,
+        roots=roots, fchunk=fchunk, op=op, dtype=dtype,
     ):
         out[z_lo:z_lo + maps.shape[0]] = maps
     return out

@@ -249,7 +249,9 @@ class ConstrainedGalaxy(maps.Sky3d):
         408 MHz, modulated by a local variance map, rescaled by the
         spectral-index map, with tanh-linear positivity.  ``fg`` [nfreq+2,
         npix] replaces the Gaussian realisation (at 408 MHz, 1420 MHz, then
-        the model's frequencies) drawn from ``generator``.
+        the model's frequencies) drawn from ``generator`` by
+        ``skysim.mkfullsky`` at its default precision (float64 on the CPU,
+        float32 on CUDA, as the reference's).
         """
         dev = resolve_device(device)
         haslam = hpx.ud_grade(self._haslam, self.nside, device=dev)
@@ -321,7 +323,7 @@ class ConstrainedGalaxy(maps.Sky3d):
             self._sigma_phi_cache = cached = (self.nside, out)
         return torch.as_tensor(cached[1], device=dev)
 
-    def getpolsky(self, device="cuda", generator=None, celestial=True,
+    def getpolsky(self, device="cuda", generator=None, debug=False, celestial=True,
                   fg=None, xi=None):
         """Realisation of the *polarised* sky [freq, pol, pixel] (K, float64).
 
@@ -330,7 +332,8 @@ class ConstrainedGalaxy(maps.Sky3d):
         window, the φ → frequency transfer, tanh saturation, and modulation
         by the Stokes-I realisation.  ``fg`` is that realisation's Gaussian
         field (as :meth:`getsky` takes it), ``xi`` [nphi, 4, L, L] the
-        screen's standard normals (see :func:`_faraday_screen`).
+        screen's standard normals (see :func:`_faraday_screen`).  ``debug``
+        is accepted and ignored, as by the reference.
         """
         dev = resolve_device(device)
         gen = self._generator(generator, dev) if fg is None or xi is None else None

@@ -58,7 +58,7 @@ from __future__ import annotations
 
 import os
 import zipfile
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -71,7 +71,7 @@ from ..ops.scan_legendre import (_lambda_blocks, planes_minor, scale_for,
 from ..util.profiling import stage
 from . import pixel
 
-_XI_HALF = 0.70710678  # 1/√2 per re/im plane, as the JAX draw
+_XI_HALF = 0.70710678  # 1/√2 per re/im plane, as the JAX f32 draw
 
 
 def _next_fft_size(n):
@@ -968,15 +968,20 @@ def _unfold_rows(op, xe, xo):
                                           dims=[-2])], dim=-2)
 
 
-def xi_from_array(xi):
+def xi_from_array(xi, dtype=torch.float32):
     """White-noise source over a given standard-normal array.
 
     ``xi`` [≥L, nz, 2, ≥L] (ℓ, latent channel, re/im, m) — e.g. numpy noise
-    shared with a reference run; rows past its end read as zero.
+    shared with a reference run; rows past its end read as zero.  Blocks
+    come out in ``dtype`` (float32 for the f32 tables, float64 for the
+    f64 ones), so one float64 array feeds a cube in either precision.
+    A ``draw_dtype`` (bfloat16) rounds each block to it before the widening.
     """
-    def chunk(c, lc, mw, device):
+    def chunk(c, lc, mw, device, draw_dtype=None):
         x = torch.as_tensor(xi)[c * lc:(c + 1) * lc, :, :, :mw]
-        x = x.to(device=device, dtype=torch.float32)
+        if draw_dtype is not None:
+            x = x.to(device=device, dtype=draw_dtype)
+        x = x.to(device=device, dtype=dtype)
         if x.shape[0] < lc:
             x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 0, 0, lc - x.shape[0]))
         return x
@@ -984,27 +989,32 @@ def xi_from_array(xi):
     return chunk
 
 
-def xi_from_seeds(seeds, nz):
+def xi_from_seeds(seeds, nz, dtype=torch.float32):
     """White-noise source regenerated per ℓ-chunk from its own seed.
 
     ``seeds[c]`` seeds a generator for ℓ-chunk ``c`` (the counterpart of the
     JAX ``fold_in(key, c)``), so every frequency chunk of a cube sees the
     same realisation without holding the whole ξ array.  Each chunk draws
-    [l_chunk, nz, 2, mw] over its band's m-width only (the triangle).
+    [l_chunk, nz, 2, mw] over its band's m-width only (the triangle), in
+    ``dtype``: one seed gives another realisation in float64 than in
+    float32, as a JAX key does.  A ``draw_dtype`` (bfloat16, the
+    reference's ``xi_dtype``) draws at that precision and widens.
     """
-    def chunk(c, lc, mw, device):
+    def chunk(c, lc, mw, device, draw_dtype=None):
         g = torch.Generator(device=device)
         g.manual_seed(int(seeds[c]))
-        return torch.randn((lc, nz, 2, mw), generator=g, device=device,
-                           dtype=torch.float32)
+        x = torch.randn((lc, nz, 2, mw), generator=g, device=device,
+                        dtype=draw_dtype or dtype)
+        return x.to(dtype)
 
     return chunk
 
 
 def _fused_scan_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
-    """Correlated draw + fused scan contraction for one frequency chunk.
+    """Correlated draw + fused scan contraction for one frequency chunk, in
+    the precision of the tables ``t`` (K1 f32 or f64).
 
-    roots : [≥L, nz_out, nz] float32 covariance roots (consecutive ℓ).
+    roots : [≥L, nz_out, nz] covariance roots (consecutive ℓ).
     xi_chunk : white-noise source (:func:`xi_from_array` /
         :func:`xi_from_seeds`).
 
@@ -1016,12 +1026,12 @@ def _fused_scan_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
     L = op.lmax + 1
     lc = op.l_chunk
     Lk = t["psl_rec_a"].shape[0]
+    fdt = t["psl_rec_a"].dtype
     F2 = 2 * nz_chunk
     dev = op.device
-    A0, A1 = (planes_minor(F2, Lk // 2, L, torch.float32, dev).zero_()
-              for _ in range(2))
+    A0, A1 = (planes_minor(F2, Lk // 2, L, fdt, dev).zero_() for _ in range(2))
     with stage("draw", dev):
-        for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
+        for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk, fdt):
             j0 = c * (lc // 2)
             A0[:, j0:j0 + lc // 2, :mw] = blk[:, 0::2]
             A1[:, j0:j0 + lc // 2, :mw] = blk[:, 1::2]
@@ -1038,18 +1048,20 @@ def _join_freq(H, nz_chunk):
     return torch.complex(Hf[:, 0], Hf[:, 1])
 
 
-def _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
-    """The correlated draw of one frequency chunk, per consecutive ℓ-chunk:
-    yields (c, mw, planes [F2, l_chunk, mw]) with F2 = 2·nz_chunk planes
-    frequency-major, re/im minor.  ξ [l_chunk, nz, 2, mw] at 1/√2 per plane
-    is drawn over the chunk's band m-width (the same in both modes, so one
-    generator state gives one cube) and contracted with the chunk's roots
-    rows, ``einsum("lzy,lypm->zplm")``."""
+def _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk, fdt):
+    """The correlated draw of one frequency chunk in ``fdt``, per
+    consecutive ℓ-chunk: yields (c, mw, planes [F2, l_chunk, mw]) with
+    F2 = 2·nz_chunk planes frequency-major, re/im minor.  ξ [l_chunk, nz,
+    2, mw] at 1/√2 per plane (the JAX f32 draw's constant in float32, the
+    exact one in float64) is drawn over the chunk's band m-width (the same
+    in both modes, so one generator state gives one cube) and contracted
+    with the chunk's roots rows, ``einsum("lzy,lypm->zplm")``."""
     L = op.lmax + 1
     lc = op.l_chunk
     g = op.ckpt_every
     nchunk = -(-L // lc)
     F2 = 2 * nz_chunk
+    half = _XI_HALF if fdt == torch.float32 else 0.5 ** 0.5
     if roots.shape[0] < nchunk * lc:
         roots = torch.nn.functional.pad(
             roots, (0, 0, 0, 0, 0, nchunk * lc - roots.shape[0]))
@@ -1058,8 +1070,8 @@ def _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
         nc = min(g, nchunk - c_lo)
         mw = _band_mw(L, lc, c_lo, nc)
         for c in range(c_lo, c_lo + nc):
-            xi = xi_chunk(c, lc, mw, op.device) * _XI_HALF
-            rblk = roots[c * lc:(c + 1) * lc, z_lo:z_lo + nz_chunk]
+            xi = xi_chunk(c, lc, mw, op.device).to(fdt) * half
+            rblk = roots[c * lc:(c + 1) * lc, z_lo:z_lo + nz_chunk].to(fdt)
             yield c, mw, torch.einsum("lzy,lypm->zplm", rblk, xi).reshape(F2, lc, mw)
 
 
@@ -1068,22 +1080,23 @@ def _cached_correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
     ``_correlated_GeGo``): the same draw (:func:`_draw_blocks`) written into
     parity-packed a_lm planes [F2, L, L] — a parity chunk gathers rows p::2
     of two consecutive ℓ-chunks — and one K4 launch into the per-parity
-    accumulators."""
+    accumulators, in the precision of the Λ of ``t``."""
     L = op.lmax + 1
     lc = op.l_chunk
     ne = (L + 1) // 2
     F2 = 2 * nz_chunk
     dev = op.device
-    A = planes_minor(F2, L, L, torch.float32, dev).zero_()
+    fdt = t["lam"].dtype
+    A = planes_minor(F2, L, L, fdt, dev).zero_()
     with stage("draw", dev):
-        for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk):
+        for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk, fdt):
             n = min(lc, L - c * lc)
             j0 = c * lc // 2
             ev, od = blk[:, 0:n:2], blk[:, 1:n:2]
             A[:, j0:j0 + ev.shape[1], :mw] = ev
             A[:, ne + j0:ne + j0 + od.shape[1], :mw] = od
 
-    H0 = torch.zeros((F2, op.nhalf, L), dtype=torch.float32, device=dev)
+    H0 = torch.zeros((F2, op.nhalf, L), dtype=fdt, device=dev)
     H1 = torch.zeros_like(H0)
     with stage("legendre", dev):
         legendre_contract(t["lam"], t["lam_desc"], A, H0, H1)
@@ -1092,14 +1105,16 @@ def _cached_correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
 
 def synthesis_grid_correlated(op, t, roots, xi_chunk, z_lo, nz_chunk):
     """Correlated draw + synthesis of frequencies [z_lo, z_lo+nz_chunk)
-    onto the ring grid [nz_chunk, nring, nq_max], in the operator's mode."""
+    onto the ring grid [nz_chunk, nring, nq_max], in the operator's mode and
+    the precision of the tables ``t`` (``op.tables(double)``)."""
     fn = _cached_correlated_GeGo if "lam" in t else _fused_scan_GeGo
     Ge, Go = fn(op, t, roots, xi_chunk, z_lo, nz_chunk)
     with stage("ring", op.device):
         return rings_to_grid_parity(op, t, Ge, Go)
 
 
-def synthesis_scan_correlated(op, t, roots, xi_chunk, nz_leg, nz_ring, consume, init):
+def synthesis_scan_correlated(op, t, roots, xi_chunk, nz_leg, nz_ring, consume, init,
+                              xi_dtype=torch.float32):
     """Two-level streamed correlated synthesis (the reference's
     ``synthesis_scan_correlated``).
 
@@ -1110,16 +1125,22 @@ def synthesis_scan_correlated(op, t, roots, xi_chunk, nz_leg, nz_ring, consume, 
     carry) -> carry`` folds each [nz_ring, nring, nq_max] block in order
     of ``z_lo``; the whole cube never needs to exist.
 
-    roots : [≥L, nz_out, nz] float32, swept over its output rows nz_out
-    (a sharded caller's local rows); nz_leg must divide nz_out and nz_ring
-    divide nz_leg.  xi_chunk : :func:`xi_from_array` / :func:`xi_from_seeds`.
-    With nz_leg == nz_ring each block is :func:`synthesis_grid_correlated`
-    of the same rows, bit for bit.
+    roots : [≥L, nz_out, nz], swept over its output rows nz_out (a sharded
+    caller's local rows); nz_leg must divide nz_out and nz_ring divide
+    nz_leg.  xi_chunk : :func:`xi_from_array` / :func:`xi_from_seeds`.
+    ``xi_dtype=torch.bfloat16`` draws ξ at bfloat16 and widens it (a
+    coarser Gaussian stream with the same C_ℓ statistics, as the
+    reference's).  With nz_leg == nz_ring each block is
+    :func:`synthesis_grid_correlated` of the same rows, bit for bit.
     """
     nz_out = roots.shape[-2]
     if nz_out % nz_leg or nz_leg % nz_ring:
         raise ValueError("nz_leg must divide the output-row count and "
                          "nz_ring divide nz_leg")
+    if xi_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"xi_dtype must be float32 or bfloat16, not {xi_dtype}")
+    if xi_dtype != torch.float32:
+        xi_chunk = partial(xi_chunk, draw_dtype=xi_dtype)
     fn = _cached_correlated_GeGo if "lam" in t else _fused_scan_GeGo
     carry = init
     for z0 in range(0, nz_out, nz_leg):

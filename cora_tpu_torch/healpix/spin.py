@@ -47,7 +47,8 @@ from ..ops.scan_legendre import planes_minor
 from ..ops.wigner import wigner_contract, wigner_project
 from ..util.profiling import stage
 from . import pixel
-from .sht import get_sht, grid_to_rings_complex, rings_to_grid_complex
+from .sht import (_load_npz, _save_npz, get_sht, grid_to_rings_complex,
+                  rings_to_grid_complex)
 
 
 def _wigner_d_recurrence_tables(lmax, m_arr, sp):
@@ -134,11 +135,14 @@ class SpinSHT:
     only its ring tables are taken, so no Legendre table or checkpoint
     row is built for a spin transform.  ``legendre_mode="cached"`` stores
     the rows of both families (see the module notes) in chunks of
-    ``l_chunk`` rows.
+    ``l_chunk`` rows; ``lambda_cache``, an npz path, keeps them across
+    processes (read when its ``meta`` holds this (nside, lmax, spin,
+    l_chunk), else built on the device and written there).
     """
 
     def __init__(self, nside: int, lmax: int, spin: int = 2, device="cuda",
-                 legendre_mode: str = "scan", l_chunk: int = 64):
+                 legendre_mode: str = "scan", l_chunk: int = 64,
+                 lambda_cache: str | None = None):
         self.device = resolve_device(device)
         self.nside = int(nside)
         self.lmax = int(lmax)
@@ -162,6 +166,7 @@ class SpinSHT:
             seed = _wigner_d_seed(theta_h, m_arr, sp)
             tab[sp] = (A, B, C, seed, np.maximum(np.arange(L), abs(sp)))
         self.load_wigner_tables(tab)
+        self.lambda_cache = lambda_cache
 
         par = (np.arange(L)[:, None] + np.arange(L)[None, :]) % 2 == 0
         self._par = torch.from_numpy(np.where(par, 1.0, -1.0)).to(self.device)
@@ -171,9 +176,11 @@ class SpinSHT:
     def load_wigner_tables(self, tab):
         """Install host Wigner tables ``{sp: (A, B, C, seed, l0)}`` (float64
         numpy, the reference's ``SpinSHT._tab`` layout) and drop the device
-        copies and Λ chunks made from the previous ones."""
+        copies and Λ chunks made from the previous ones (and stop using
+        ``lambda_cache``, whose rows are those of the operator's own)."""
         self._tab = dict(tab)
         self._tables = {}
+        self.lambda_cache = None
 
     # --- the cached mode's Λ chunks ------------------------------------
 
@@ -234,6 +241,25 @@ class SpinSHT:
                                         * sign[None, :mw]).T.float()
         return lam_flat
 
+    def _spin_lambdas(self):
+        """Both families' flat float32 Λ {sp: [total]} on the device: read
+        from ``lambda_cache`` when its ``meta`` is this operator's
+        [nside, lmax, spin, l_chunk, layout 2] and it holds both of the
+        right size, else built (:meth:`_build_spin_lambda`) and written
+        there (a file of other values is rebuilt, not trusted)."""
+        meta = np.array([self.nside, self.lmax, self.spin, self.l_chunk, 2], dtype=np.int64)
+        total = self.lambda_desc()[1]
+        keys = {sp: f"lam_{sp}" for sp in (self.spin, -self.spin)}
+        d = _load_npz(self.lambda_cache, meta) or {}
+        if all(k in d and d[k].shape == (total,) and d[k].dtype == np.float32
+               for k in keys.values()):
+            return {sp: torch.from_numpy(d[k]).to(self.device) for sp, k in keys.items()}
+        lam = {sp: self._build_spin_lambda(sp) for sp in keys}
+        if self.lambda_cache:
+            _save_npz(self.lambda_cache, meta=meta,
+                      **{k: lam[sp].cpu().numpy() for sp, k in keys.items()})
+        return lam
+
     def load_lambda(self, chunks, double: bool = False):
         """Install both families' Λ chunks ``{sp: [[mw, nrows, nh], ...]}``
         (the reference's device layout, rows trimmed to the port's chunks:
@@ -268,8 +294,7 @@ class SpinSHT:
             fdt = torch.float64 if double else torch.float32
             desc = self.lambda_desc()[0]
             with stage("lambda_build", self.device):
-                sp_t = {sp: (self._build_spin_lambda(sp).to(fdt), desc)
-                        for sp in (self.spin, -self.spin)}
+                sp_t = {sp: (lam.to(fdt), desc) for sp, lam in self._spin_lambdas().items()}
             self._tables[key] = {"sc": self.scalar.ring_tables(double), "sp": sp_t}
             hold(self, key, sum(x.numel() * x.element_size() for x, _ in sp_t.values()))
         else:

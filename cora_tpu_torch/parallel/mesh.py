@@ -246,19 +246,31 @@ def synthesize_cube_sharded(op, tables, roots, key, mesh, fchunk=None, mesh_axis
 
 
 def synthesize_cube_sims_sharded(op, tables, roots, key, n_sims, mesh, fchunk=None,
-                                 sim_axis="sim", freq_axis=None):
+                                 fleg=None, sim_axis="sim", freq_axis=None):
     """Independent realisations sharded over the mesh (data parallelism).
 
-    Each rank synthesises its own sims with the single-sim streamed
-    program, with no collectives.  Sim ``s`` (global index) is the cube of
-    :func:`synthesize_cube_sharded` with key ``fold_in(key, s)``, whatever
-    the mesh.  ``freq_axis``: an optional second mesh axis over which each
-    sim's frequency rows are sharded as in :func:`synthesize_cube_sharded`.
+    Each rank synthesises its own sims with the two-level streamed program
+    (``sht.synthesis_scan_correlated``: the draw and the Legendre stage
+    ``fleg`` frequencies at a time, the ring stage ``fchunk`` at a time),
+    with no collectives.  Sim ``s`` (global index) draws the white noise of
+    key ``fold_in(key, s)`` as :func:`synthesize_cube_sharded` does,
+    whatever the mesh; where the levels agree (``fleg == fchunk``) it is
+    that program's cube bit for bit.  ``freq_axis``: an optional second
+    mesh axis over which each sim's frequency rows are sharded as in
+    :func:`synthesize_cube_sharded`.
 
-    roots : [L, nz, nz]; n_sims divisible by the sim-axis size; fchunk:
-    frequencies per synthesis step (default all local ones).  Returns
+    roots : [L, nz, nz]; n_sims divisible by the sim-axis size; fleg:
+    frequencies per Legendre step (default all local ones), fchunk per
+    ring step (default fleg), as the reference's (``fleg = min(fleg or
+    nloc, nloc)``, ``fchunk = min(fchunk or fleg, fleg)``).  So ``fchunk``
+    alone no longer bounds the Legendre step's memory: the draw and K1 run
+    on ``fleg`` rows (all local ones by default; pass ``fleg`` to bound
+    them).  ``fleg`` must divide the local rows and ``fchunk`` divide
+    ``fleg``, else ValueError: there is no ragged last chunk.  Returns
     [n_sims, nz, nring, nq_max] float32, a DTensor sharded (sim × freq).
     """
+    from ..healpix import sht
+
     n_sim_dev = mesh.size(_dim(mesh, sim_axis))
     if n_sims % n_sim_dev:
         raise ValueError(f"n_sims={n_sims} not divisible by sim mesh size {n_sim_dev}")
@@ -267,12 +279,22 @@ def synthesize_cube_sims_sharded(op, tables, roots, key, n_sims, mesh, fchunk=No
     if nz % n_freq_dev:
         raise ValueError(f"nz={nz} not divisible by freq mesh size {n_freq_dev}")
     nloc = nz // n_freq_dev
-    fchunk = min(fchunk or nloc, nloc)
+    fleg = min(fleg or nloc, nloc)
+    fchunk = min(fchunk or fleg, fleg)
     lo = bounds(nz, mesh, freq_axis)[0] if freq_axis else 0
     s0, s1 = bounds(n_sims, mesh, sim_axis)
-    roots = torch.as_tensor(roots).to(device=mesh_device(mesh), dtype=torch.float32)
-    out = torch.stack([_streamed_rows(op, tables, roots, fold_in(key, s), lo, nloc, fchunk)
-                       for s in range(s0, s1)])
+    dev = mesh_device(mesh)
+    rows = torch.as_tensor(roots).to(device=dev, dtype=torch.float32)[:, lo:lo + nloc]
+    out = torch.empty((s1 - s0, nloc, op.nring, op.nq_max), device=dev)
+
+    def consume(g, z, acc):
+        acc[z:z + g.shape[0]] = g
+        return acc
+
+    for i, s in enumerate(range(s0, s1)):
+        xi_chunk = _xi_source(op, rows, fold_in(key, s), None)
+        sht.synthesis_scan_correlated(op, tables, rows, xi_chunk, fleg, fchunk, consume,
+                                      out[i])
     shards = {sim_axis: 0, **({freq_axis: 1} if freq_axis else {})}
     return from_local(out, mesh, (n_sims, nz) + tuple(out.shape[2:]), shards)
 

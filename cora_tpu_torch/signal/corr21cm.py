@@ -75,8 +75,8 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
         (:func:`clfast.build_cl_tables_device`) and grid
         (:func:`clfast.cl_grid_combined`) as stage ``cl_tables``, the roots
         (:func:`skysim.covariance_roots`) as stage ``roots``, then the
-        streamed synthesis in chunks of up to 16 channels, each placed at
-        its own channels.  None when the table build raises ``ValueError``
+        streamed float32 synthesis (the reference's device engine's) in
+        chunks of up to 16 channels, each placed at its own channels.  None when the table build raises ``ValueError``
         (a P(k) it cannot represent).  Port of ``cora_tpu/signal/
         corr21cm.py`` ``_getsky_device``."""
         nu = np.asarray(self.nu_pixels)
@@ -96,7 +96,7 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
         del cla
         sky = skysim.mkfullsky(None, self.nside, device=device, roots=roots,
                                generator=self._generator(generator, device),
-                               fchunk=min(16, nu.size))
+                               fchunk=min(16, nu.size), dtype=torch.complex64)
         mean = torch.as_tensor(self.mean_nu(nu), device=device)
         return mean[:, None] + sky
 

@@ -129,9 +129,7 @@ def test_correlated_draw_matches_jax_cached_and_own_scan_mode():
     assert _rms_rel(got.numpy(), scan.numpy()) <= 1e-5
 
 
-def test_mkfullsky_same_seeds_same_cube_in_both_modes():
-    """mkfullsky from one generator seed through a cached and a scan
-    operator: the same per-ℓ-chunk seeds, the same cube (≤ 1e-5 RMS)."""
+def _seeded_mode_cubes(dtype):
     from cora_tpu_torch.core import skysim
 
     nz, L = 5, LMAX + 1
@@ -142,8 +140,24 @@ def test_mkfullsky_same_seeds_same_cube_in_both_modes():
                       lambda_build="device")
         g = torch.Generator().manual_seed(3)
         maps.append(skysim.mkfullsky(None, NSIDE, device="cpu", roots=roots,
-                                     generator=g, fchunk=3, op=op).numpy())
+                                     generator=g, fchunk=3, op=op, dtype=dtype).numpy())
+    return maps
+
+
+def test_mkfullsky_same_seeds_same_cube_in_both_modes():
+    """mkfullsky from one generator seed through a cached and a scan
+    operator: the same per-ℓ-chunk seeds, the same cube (≤ 1e-5 RMS)."""
+    maps = _seeded_mode_cubes(torch.complex64)
+    assert maps[0].dtype == np.float32
     assert _rms_rel(maps[0], maps[1]) <= 1e-5
+
+
+def test_mkfullsky_same_seeds_same_cube_in_both_modes_f64():
+    """The f64 twin: K4 f64 and K1 f64 (plain versions) give one cube
+    within 1e-10·max."""
+    maps = _seeded_mode_cubes(torch.complex128)
+    assert maps[0].dtype == np.float64
+    assert np.abs(maps[0] - maps[1]).max() <= 1e-10 * np.abs(maps[1]).max()
 
 
 # --- spin --------------------------------------------------------------------

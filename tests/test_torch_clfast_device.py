@@ -173,7 +173,8 @@ def test_getsky_device_engine_on_cpu(monkeypatch):
     assert {"cl_tables", "roots"} <= set(stages)
     assert sky.shape == (20, 768) and sky.dtype == torch.float64
     one = tsky.mkfullsky(None, 8, device="cpu", roots=seen["roots"], fchunk=20,
-                         generator=torch.Generator().manual_seed(5))
+                         generator=torch.Generator().manual_seed(5),
+                         dtype=torch.complex64)
     assert float((sky - one).abs().max()) <= 1e-5 * float(one.abs().max())
     # the roots are those of the device grid of this model
     grid = tclf.cl_grid_combined(
@@ -193,3 +194,35 @@ def test_getsky_on_cpu_takes_the_host_path(monkeypatch):
                         lambda *a, **kw: pytest.fail("device engine on the CPU"))
     sky = m.getsky(device="cpu", generator=torch.Generator().manual_seed(1))
     assert sky.shape == (4, 192) and bool(torch.isfinite(sky).all())
+
+
+def test_getsky_device_engine_on_cpu_f64():
+    """The f64 twin of the device engine's chunking: its roots through
+    mkfullsky's CPU default (float64 maps), 20 channels in chunks of 16
+    (a ragged last chunk) against one unchunked synthesis from the same
+    generator seed, within 1e-10·max."""
+    m = TSmall()
+    m.nside = 8
+    m.frequencies = np.linspace(400.0, 500.0, 20)
+    grid = tclf.cl_grid_combined(
+        tclf.build_cl_tables_device(m, m.frequencies, device="cpu"), 23)
+    R = tsky.covariance_roots(grid, "cpu")
+    a, b = (tsky.mkfullsky(None, 8, device="cpu", roots=R, fchunk=f,
+                           generator=torch.Generator().manual_seed(5)) for f in (16, 20))
+    assert a.dtype == torch.float64 and a.shape == (20, 768)
+    assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
+
+
+def test_getsky_on_cpu_takes_the_host_path_f64():
+    """The f64 twin: the host path's sky is float64, the mean plus
+    mkfullsky's float64 realisation of the host C_l from the same
+    generator seed, within 1e-10·max."""
+    m = TSmall()
+    m.nside = 4
+    m.frequencies = np.linspace(400.0, 500.0, 4)
+    sky = m.getsky(device="cpu", generator=torch.Generator().manual_seed(1))
+    real = tsky.mkfullsky(m._clarray(), 4, device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+    ref = torch.as_tensor(m.mean_nu(m.nu_pixels))[:, None] + real
+    assert sky.dtype == real.dtype == torch.float64
+    assert float((sky - ref).abs().max()) <= 1e-10 * float(ref.abs().max())

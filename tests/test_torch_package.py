@@ -282,3 +282,26 @@ def test_wigner_wrapper_cuda_rejects_bad_inputs(cuda_device):
     bad[1] = bad[1][:, :-1].contiguous()
     with pytest.raises(ValueError):
         k3.wigner_contract(*bad)
+
+
+_CSRC = os.path.join(ROOT, "cora_tpu_torch", "csrc")
+
+
+@pytest.mark.parametrize("source", sorted(
+    n for n in os.listdir(_CSRC) if n.endswith((".cu", ".cuh"))))
+def test_kernel_sources_and_their_includes_are_package_data(source):
+    """Each CUDA source, and every ``#include "…"`` in it, is a file of
+    ``csrc/`` that pyproject.toml's package-data globs ship, so a
+    non-editable install can build every kernel."""
+    import fnmatch
+    import re
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["cora_tpu_torch"]
+    shipped = lambda rel: any(fnmatch.fnmatch(rel, g) for g in globs)
+    assert shipped(f"csrc/{source}")
+    text = open(os.path.join(_CSRC, source)).read()
+    for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+        assert os.path.isfile(os.path.join(_CSRC, inc)), f"{source}: {inc} not in csrc/"
+        assert shipped(f"csrc/{inc}"), f"{source}: csrc/{inc} is not package data"

@@ -103,7 +103,7 @@ def test_world_of_one_is_the_streamed_cube(worlds, mode, fchunk):
     ref = torch.empty((nz, 12 * nside**2))
     for z_lo, maps in skysim.mkfullsky_streamed(
             None, nside, device="cpu", generator=torch.Generator().manual_seed(5),
-            roots=roots, fchunk=fchunk, op=op):
+            roots=roots, fchunk=fchunk, op=op, dtype=torch.complex64):
         ref[z_lo:z_lo + maps.shape[0]] = maps
     cube = torch.from_numpy(worlds[1][f"cube_{mode}"])
     assert torch.equal(op.grid_to_map(cube), ref)

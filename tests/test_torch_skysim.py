@@ -31,10 +31,10 @@ def _cl(L, nz, seed):
     return np.einsum("lij,lkj->lik", A, A) / (1.0 + np.arange(L))[:, None, None], rng
 
 
-def _alm_from(roots, xi):
+def _alm_from(roots, xi, half=0.70710678):
     L = roots.shape[0]
     alm = np.einsum("lzy,lym->zlm", roots,
-                    (xi[:, :, 0] + 1j * xi[:, :, 1]) * 0.70710678)
+                    (xi[:, :, 0] + 1j * xi[:, :, 1]) * half)
     return alm * (np.arange(L)[None, :] <= np.arange(L)[:, None])
 
 
@@ -51,9 +51,24 @@ def test_mkfullsky_matches_jax_f64(jax_op, fchunk):
     xi = rng.standard_normal((L, NZ, 2, L))
     ref = np.asarray(jax_op.synthesis(jnp.asarray(_alm_from(roots, xi))))
     got = tsky.mkfullsky(None, NSIDE, device="cpu", roots=roots,
-                         xi=xi.astype(np.float32), fchunk=fchunk)
+                         xi=xi.astype(np.float32), fchunk=fchunk,
+                         dtype=torch.complex64)
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert _rms(got.numpy() - ref) <= 1e-5 * _rms(ref)
+
+
+@pytest.mark.parametrize("fchunk", [4, 3])
+def test_mkfullsky_f64_matches_jax_f64(jax_op, fchunk):
+    """The f64 twin: the CPU default (float64 maps) on float64 ξ against the
+    same f64 synthesis, within 1e-10·max."""
+    L = LMAX + 1
+    cl, rng = _cl(L, NZ, 3)
+    roots = tsky.covariance_roots(cl, "cpu").numpy()
+    xi = rng.standard_normal((L, NZ, 2, L))
+    ref = np.asarray(jax_op.synthesis(jnp.asarray(_alm_from(roots, xi, np.sqrt(0.5)))))
+    got = tsky.mkfullsky(None, NSIDE, device="cpu", roots=roots, xi=xi, fchunk=fchunk)
+    assert got.dtype == torch.float64 and got.shape == ref.shape
+    assert np.abs(got.numpy() - ref).max() <= 1e-10 * np.abs(ref).max()
 
 
 def test_synthesis_matches_jax_f64(jax_op):
@@ -84,19 +99,33 @@ def test_roots_product_matches_host_roots(nz):
     assert np.all(R[5] == 0.0)
 
 
-def test_generator_reproducible_and_chunk_independent():
+def _seeded_skies(dtype):
     L = 24
     cl, _ = _cl(L, 5, 1)
     op = tsht.get_sht(8, L - 1, l_chunk=8, device="cpu")
-    kw = dict(device="cpu", op=op)
+    kw = dict(device="cpu", op=op, dtype=dtype)
     a = tsky.mkfullsky(cl, 8, generator=torch.Generator().manual_seed(4),
                        fchunk=5, **kw)
     b = tsky.mkfullsky(cl, 8, generator=torch.Generator().manual_seed(4),
                        fchunk=2, **kw)
     c = tsky.mkfullsky(cl, 8, generator=torch.Generator().manual_seed(5),
                        fchunk=5, **kw)
+    return a, b, c
+
+
+def test_generator_reproducible_and_chunk_independent():
+    a, b, c = _seeded_skies(torch.complex64)
+    assert a.dtype == torch.float32
     # one realisation whatever the frequency chunking (ragged tail included)
     assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    assert float((a - c).abs().max()) > 0.1 * float(a.abs().max())
+
+
+def test_generator_reproducible_and_chunk_independent_f64():
+    """The f64 twin: one realisation whatever the chunking, within 1e-10·max."""
+    a, b, c = _seeded_skies(torch.complex128)
+    assert a.dtype == torch.float64
+    assert float((a - b).abs().max()) <= 1e-10 * float(a.abs().max())
     assert float((a - c).abs().max()) > 0.1 * float(a.abs().max())
 
 

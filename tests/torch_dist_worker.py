@@ -348,8 +348,35 @@ def checkpoint_restore_cases(world, res, ckpt):
     res["map_nside"] = np.array(m2.nside)
 
 
+# the sims' (fleg, fchunk) levels: the reference's defaults (fleg = all
+# local rows), a pair that agrees, a two-level pair and the finest pair
+SIMS_LEVELS = {"none_4": (None, 4), "4_4": (4, 4), "8_2": (8, 2), "2_2": (2, 2)}
+
+
+def sims_fleg_cases(world, res):
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.parallel import mesh as pm
+
+    r8 = roots(47, 8, 3)
+    ms = pm.make_mesh(axis_name="sim", device="cpu")
+    for mode in ("scan", "cached"):
+        op = sht.get_sht(16, 47, legendre_mode=mode, device="cpu")
+        t = op.tables(False)
+        for name, (fleg, fchunk) in SIMS_LEVELS.items():
+            res[f"sims_{mode}_{name}"] = pm.synthesize_cube_sims_sharded(
+                op, t, r8, 11, 2, ms, fchunk=fchunk, fleg=fleg).full_tensor().numpy()
+    res["sims_fleg_3"] = _err(lambda: pm.synthesize_cube_sims_sharded(
+        op, t, r8, 11, 2, ms, fchunk=1, fleg=3))
+    # fchunk alone that does not divide the local rows: fleg defaults to all
+    # of them, and there is no ragged last chunk
+    res["sims_ragged_3"] = _err(lambda: pm.synthesize_cube_sims_sharded(
+        op, t, r8, 11, 2, ms, fchunk=3))
+
+
 CASES = {"parallel": parallel_cases, "parallel_2d": parallel_2d_cases, "lss": lss_cases,
-         "checkpoint_save": checkpoint_save_cases,
+         "sims_fleg": sims_fleg_cases, "checkpoint_save": checkpoint_save_cases,
          "checkpoint_restore": checkpoint_restore_cases}
 
 
