@@ -238,6 +238,18 @@ Phases (each prints its own lines; any failure exits non-zero):
               kernel report's K4 f64 and K1 f64 entries carry these numbers
               and launches.  (Phase 15 runs the sims one-level, fleg=16, and
               two-level, fleg=64: K1 launches, time, sim 0's bits the same.)
+18. standalone — cora_tpu_torch/ (its _build/ with it) and this script
+              copied into an empty temporary directory; a child python3
+              there, sys.path cut to the copy, the standard library and
+              site-packages and jax/cora_tpu refused by a meta-path finder,
+              runs Corr21cm().getsky(device="cuda", generator=a seeded CUDA
+              generator) at nside 128 × 16 channels (400–500 MHz).  The
+              child must import the copy and its _build/ (no kernel
+              rebuilt), read ps_z1.5.npz and corr_z1.5.npz from the copy's
+              data/, launch K4 f32 (and no other kernel) as often as the
+              same call in this process, and give its maps bit for bit.
+              The data directory, the child's times and the card are
+              printed.  A failing child ends the script.
 
 The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phases 5b,
 15 and 17 (a temporary directory each): nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
@@ -3508,6 +3520,162 @@ def f64_sky_phase(dev, reports, roots, cfg=FLAGSHIP):
           f"{totals['cached']:.3f} s, scan {totals['scan']:.3f} s) ({card})")
 
 
+STANDALONE = dict(nside=128, nfreq=16, flo=400.0, fhi=500.0)
+STANDALONE_SEED = 1414
+BLOCKED = ("jax", "jaxlib", "cora_tpu")  # top-level packages the port must not need
+
+
+def _standalone_sky(device, cfg, seed):
+    """Corr21cm().getsky on ``device`` at ``cfg``'s width, its generator
+    seeded with ``seed`` on that device."""
+    import torch
+
+    from cora_tpu_torch.signal.corr21cm import Corr21cm
+
+    cr = Corr21cm()
+    cr.nside = cfg["nside"]
+    cr.frequencies = np.linspace(cfg["flo"], cfg["fhi"], cfg["nfreq"], endpoint=False)
+    sky = cr.getsky(device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+    if sky.is_cuda:
+        torch.cuda.synchronize(sky.device)
+    return sky
+
+
+def standalone_child():
+    """The child of phase 18, run from a directory that holds a copy of
+    ``cora_tpu_torch/`` (with its ``_build/``) and this script:
+    ``python3 -c "import chip_smoke; chip_smoke.standalone_child()" <copy>
+    <out.npy> <json: device, cfg, seed>``.  ``sys.path`` is cut to the copy,
+    the standard library and site-packages, and a meta-path finder refuses
+    jax and cora_tpu (an editable install would still find them).  Saves
+    the maps to ``out.npy`` and prints one JSON line: the package and build
+    directory it imported, the tables np.load opened, the kernels it
+    rebuilt, its launches and the call's time."""
+    import importlib.abc
+    import site
+    import sysconfig
+
+    copy, out_path, args = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked: the port must run without it")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    keep = {os.path.realpath(sysconfig.get_paths()[k])
+            for k in ("stdlib", "platstdlib", "purelib", "platlib")}
+    keep |= {os.path.realpath(p)
+             for p in site.getsitepackages() + [site.getusersitepackages()]}
+
+    def allowed(p):
+        r = os.path.realpath(p) if p else ""
+        return (r != "" and any(r == k or r.startswith(k + os.sep) for k in keep)
+                and not any(os.path.exists(os.path.join(r, n))
+                            for n in ("cora_tpu", "cora_tpu_torch")))
+
+    sys.path[:] = [copy] + [p for p in sys.path if allowed(p)]
+
+    import cora_tpu_torch
+    from cora_tpu_torch.ops import _build
+
+    loads = []
+    real_load = np.load
+
+    def load(f, *a, **kw):
+        loads.append(os.path.realpath(os.fspath(f)))
+        return real_load(f, *a, **kw)
+
+    np.load = load
+    _reset_counts()
+    t0 = time.perf_counter()
+    sky = _standalone_sky(args["device"], args["cfg"], args["seed"])
+    seconds = time.perf_counter() - t0
+    n = _counts()
+    np.load = real_load
+    np.save(out_path, sky.cpu().numpy())
+    print(json.dumps({
+        "package": os.path.realpath(cora_tpu_torch.__file__),
+        "build_dir": os.path.realpath(_build.BUILD_DIR),
+        "loads": loads, "rebuilt": sorted(_build.build_log), "launches": n,
+        "seconds": seconds,
+        "blocked_loaded": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}))
+
+
+def standalone_phase(dev, cfg=STANDALONE, seed=STANDALONE_SEED):
+    """Phase 18: the port copied alone (``cora_tpu_torch/`` with its
+    ``_build/``) into a temporary directory and run from there by a child
+    with jax and cora_tpu blocked; its Corr21cm().getsky maps against the
+    same call in this process, bit for bit."""
+    import shutil
+
+    import torch
+
+    card = _card()
+    nside, nz = cfg["nside"], cfg["nfreq"]
+    phase(f"18 standalone port: Corr21cm().getsky at nside {nside} × {nz} channels "
+          f"({cfg['flo']:.0f}–{cfg['fhi']:.0f} MHz) from a copy of cora_tpu_torch alone, "
+          f"jax and cora_tpu blocked, against the in-tree port")
+    t_phase = time.perf_counter()
+    _clear_operators()
+    _reset_counts()
+    t0 = time.perf_counter()
+    here = _standalone_sky(dev, cfg, seed)
+    t_here = time.perf_counter() - t0
+    n_here = _counts()
+    print(f"   in-tree getsky {t_here:.3f} s; launches "
+          f"{', '.join(f'{e} {v}' for e, v in n_here.items() if v) or 'none'} ({card})")
+    check(n_here["legendre_contract"] > 0
+          and all(v == 0 for e, v in n_here.items() if e != "legendre_contract"),
+          "in-tree: the f32 K4 launched, and no other kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = os.path.realpath(tmp)
+        pkg = os.path.join(copy, "cora_tpu_torch")
+        shutil.copytree(os.path.join(ROOT, "cora_tpu_torch"), pkg,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copy)
+        out = os.path.join(copy, "sky.npy")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "CORA_TPU_SKYDATA")}
+        env["CORA_TPU_TORCH_CACHE"] = ""
+        args = json.dumps(dict(device=str(dev), cfg=cfg, seed=seed))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.standalone_child()",
+             copy, out, args], cwd=copy, env=env, capture_output=True, text=True)
+        t_child = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+        check(proc.returncode == 0, "the standalone child ran to its end")
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        child = torch.from_numpy(np.load(out))
+        data_dirs = sorted({os.path.dirname(p) for p in rep["loads"]})
+        print(f"   child: package {rep['package']}, build dir {rep['build_dir']}")
+        print(f"   child: data directory {', '.join(data_dirs)}; tables "
+              f"{', '.join(sorted(os.path.basename(p) for p in rep['loads']))}")
+        print(f"   child getsky {rep['seconds']:.3f} s, process {t_child:.3f} s "
+              f"(start-up and imports included); launches "
+              f"{', '.join(f'{e} {v}' for e, v in rep['launches'].items() if v) or 'none'}; "
+              f"kernels rebuilt: {rep['rebuilt'] or 'none'} ({card})")
+        check(rep["package"] == os.path.join(pkg, "__init__.py")
+              and rep["build_dir"] == os.path.join(pkg, "_build"),
+              "the child imported the copy and its _build/")
+        check(rep["blocked_loaded"] == [], "no jax and no cora_tpu in the child")
+        check(data_dirs == [os.path.join(pkg, "data")]
+              and {os.path.basename(p) for p in rep["loads"]}
+              == {"ps_z1.5.npz", "corr_z1.5.npz"},
+              "the child read ps_z1.5.npz and corr_z1.5.npz from the copy's data/")
+        check(rep["rebuilt"] == [], "the child built no kernel (the copied _build/)")
+        check(rep["launches"] == n_here, "the child launched the kernels the in-tree call did")
+    check(tuple(child.shape) == (nz, 12 * nside**2) and child.dtype == here.dtype
+          and bool(torch.isfinite(child).all()),
+          f"child maps [{nz}, {12 * nside**2}] {here.dtype}, every pixel finite")
+    check(torch.equal(child, here.cpu()), "the child's maps equal the in-tree maps bit for bit")
+    print(f"   phase 18 {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_phase()
@@ -3536,6 +3704,7 @@ def main():
     parallel_phase(dev, roots, lss, pair)
     nside2048_phase(dev)
     f64_sky_phase(dev, reports, roots)
+    standalone_phase(dev)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",

@@ -13,9 +13,10 @@ hand-written CUDA kernels (``csrc/*.cu``, built at first use by
 ``ops/_build.py``); every other stage is plain tensor code or host numpy,
 as in the JAX package.
 
-The package imports neither ``jax`` nor ``cora_tpu``; it only reads the
-data tables shipped in ``cora_tpu/data`` by file path.  Module layout and
-names mirror ``cora_tpu`` so each port sits beside its reference.
+The package imports neither ``jax`` nor ``cora_tpu`` and reads nothing
+of it: its data tables ship with it, in ``cora_tpu_torch/data``
+(:mod:`cora_tpu_torch.data`).  Module layout and names mirror ``cora_tpu``
+so each port sits beside its reference.
 """
 
 from .device import resolve_device

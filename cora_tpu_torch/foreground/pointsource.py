@@ -16,13 +16,12 @@ on the painted cube.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
 from .. import constants
 from ..core import maps
+from ..data import data_path
 from ..device import resolve_device
 from ..healpix import pixel as hpx
 from ..ops.scatter import index_add
@@ -252,7 +251,7 @@ class RealPointSources(maps.Map3d):
 
     def __init__(self):
         self._faraday = _load_faraday()
-        with np.load(os.path.join(skydata._DATA_DIR, "combinedps.npz")) as cat:
+        with np.load(data_path("combinedps.npz")) as cat:
             self._catalogue = {k: cat[k] for k in cat.files if k != "provenance"}
 
     def _generate_catalogue(self):

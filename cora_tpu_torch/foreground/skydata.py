@@ -1,10 +1,11 @@
 """Loader for the galactic sky-data blob (Haslam / spectral-index / Faraday)
 (port of ``cora_tpu/foreground/skydata.py``).
 
-The maps ship with the JAX package as ``cora_tpu/data/skydata.npz`` and are
-read from there by path: synthetic statistical stand-ins regenerated by
-``tools/make_skydata.py``.  The real upstream blob is a drop-in
-replacement because the key names and HEALPix RING layout match:
+The maps ship with the port as ``cora_tpu_torch/data/skydata.npz`` (a
+byte-identical copy of the reference's table): synthetic statistical
+stand-ins regenerated by ``tools/make_skydata.py``.  The real upstream
+blob is a drop-in replacement because the key names and HEALPix RING
+layout match:
 
 - ``haslam``      — destriped Haslam 408 MHz map [npix] (K)
 - ``spectral_md`` / ``spectral_gsm`` / ``spectral_gd`` — spectral-index maps
@@ -23,11 +24,7 @@ import os
 
 import numpy as np
 
-# the data tables ship with the JAX package; read by path
-_DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "cora_tpu", "data",
-)
+from ..data import data_path
 
 REQUIRED_KEYS = ("haslam", "spectral_md", "spectral_gsm", "spectral_gd", "faraday")
 
@@ -37,7 +34,7 @@ _cache = {}
 def skydata_path():
     """Resolve the active skydata blob path (env override or shipped file)."""
     return os.environ.get(
-        "CORA_TPU_SKYDATA", os.path.join(_DATA_DIR, "skydata.npz")
+        "CORA_TPU_SKYDATA", data_path("skydata.npz")
     )
 
 

@@ -15,23 +15,16 @@ the shipped P(k) takes tensors, so P(k) on its box is evaluated there.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
 from .. import constants
 from ..core import maps, skysim
+from ..data import data_path
 from ..device import resolve_device
 from ..util import interpolation as cs
 from ..util.profiling import stage
 from . import clfast, corr
-
-# the data tables ship with the JAX package; read by path
-_DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "cora_tpu", "data",
-)
 
 
 class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
@@ -103,7 +96,7 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
     def __init__(self, ps=None, redshift=0.0, sigma_v=0.0, **kwargs):
         if ps is None:
             redshift = 1.5
-            data = np.load(os.path.join(_DATA_DIR, "ps_z1.5.npz"))
+            data = np.load(data_path("ps_z1.5.npz"))
             c1 = cs.LogSpline(np.dstack((data["k"], data["ps"]))[0])
 
             def ps(k):
@@ -116,7 +109,7 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
         self._sigma_v = sigma_v
 
         corr.RedshiftCorrelation.__init__(self, ps_vv=ps, redshift=redshift)
-        self._load_cache(os.path.join(_DATA_DIR, "corr_z1.5.npz"))
+        self._load_cache(data_path("corr_z1.5.npz"))
 
     def T_b(self, z):
         r"""Mean 21cm brightness temperature at redshift z, in K (0.39 mK

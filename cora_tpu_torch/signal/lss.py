@@ -21,10 +21,8 @@ stages run SPMD on a mesh over every rank of the default process group
 
 from __future__ import annotations
 
-import os
 import zlib
 from functools import lru_cache
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -33,6 +31,7 @@ import torch
 from .. import constants
 from ..core import containers, skysim
 from ..cosmology import Cosmology
+from ..data import data_path
 from ..healpix import pixel as hpx
 from ..healpix import sht as _sht
 from ..healpix import transforms as hputil
@@ -57,11 +56,6 @@ from .lsscontainers import (
     MultiFrequencyAngularPowerSpectrum,
 )
 
-# the power spectra shipped with the JAX package, read by path
-_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "cora_tpu", "data")
-
-
 @lru_cache
 def get_cosmo(*args, **kwargs):
     return Cosmology(*args, **kwargs)
@@ -82,7 +76,7 @@ _SYNTH_MAPS = 64
 
 
 def _ps_path(name):
-    return Path(_DATA_DIR) / f"ps_{name}.npz"
+    return data_path(f"ps_{name}.npz")
 
 
 def _vec(v, like):
@@ -151,7 +145,7 @@ class CalculateCorrelations(Task):
         if powerspectrum is None:
             fpath = _ps_path(self.powerspectrum)
             self.log.info(f"Loading power spectrum file {fpath}")
-            powerspectrum = MatterPowerSpectrum.from_file(str(fpath), device=self._dev)
+            powerspectrum = MatterPowerSpectrum.from_file(fpath, device=self._dev)
         self._ps = powerspectrum
 
     def _ps_n(self, n):
@@ -198,9 +192,9 @@ class BlendNonLinearPowerSpectrum(Task):
 
     def process(self) -> MatterPowerSpectrum:
         ps_linear = MatterPowerSpectrum.from_file(
-            str(_ps_path(self.powerspectrum_linear)), device=self._dev)
+            _ps_path(self.powerspectrum_linear), device=self._dev)
         ps_nonlinear = MatterPowerSpectrum.from_file(
-            str(_ps_path(self.powerspectrum_nonlinear)), device=self._dev)
+            _ps_path(self.powerspectrum_nonlinear), device=self._dev)
 
         if ps_linear._ps_redshift != ps_nonlinear._ps_redshift:
             raise RuntimeError("Linear and non-linear PS redshifts do not match.")

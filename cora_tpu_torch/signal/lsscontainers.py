@@ -178,7 +178,7 @@ class MatterPowerSpectrum(CosmologyContainer, InterpolatedFunction):
     @classmethod
     def from_file(cls, filename, device="cuda", **kwargs):
         """Load from an HDF5 container or a cora-tpu npz table (the shipped
-        ``cora_tpu/data/ps_*.npz``, read by path) onto ``device``."""
+        ``cora_tpu_torch/data/ps_*.npz``) onto ``device``."""
         if str(filename).endswith(".npz"):
             import json
 

@@ -20,6 +20,8 @@ import warnings
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 def rfftfreq_axes(n, d=None, device=None):
     """The per-axis frequency vectors of an n-dimensional *real* FFT.
@@ -27,8 +29,10 @@ def rfftfreq_axes(n, d=None, device=None):
     Axis ``i`` gives a float64 tensor shaped to broadcast along dimension
     ``i`` of the rfft grid ``[n[0], ..., n[-1]//2 + 1]``; ``d`` is the
     sample spacing per axis (default 1/n: cycles per grid length), as
-    ``cora_tpu.util.fftutil.rfftfreqn`` takes it.
+    ``cora_tpu.util.fftutil.rfftfreqn`` takes it.  ``device`` defaults to
+    ``"cuda"`` (raising without a GPU, as :func:`resolve_device` does).
     """
+    device = resolve_device("cuda" if device is None else device)
     n = np.asarray(n, dtype=int)
     ndim = len(n)
     if d is None:
@@ -61,7 +65,8 @@ def sum_sq(axes):
 def rfftfreqn(n, d=None, device=None, magnitude=False):
     """Frequency vectors ``[n[0], ..., n[-1]//2 + 1, len(n)]`` for an
     n-dimensional real FFT, or with ``magnitude`` their norm |k|
-    ``[n[0], ..., n[-1]//2 + 1]`` (no stack built)."""
+    ``[n[0], ..., n[-1]//2 + 1]`` (no stack built); ``device`` as in
+    :func:`rfftfreq_axes`."""
     axes = rfftfreq_axes(n, d, device)
     if magnitude:
         return sum_sq(axes).sqrt()

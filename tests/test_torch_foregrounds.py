@@ -185,7 +185,7 @@ def test_skydata_loader_env_override(tmp_path, monkeypatch):
     with pytest.raises(ValueError):
         tsd.load_skydata()
     monkeypatch.delenv("CORA_TPU_SKYDATA")
-    assert tsd.skydata_path().endswith(os.path.join("cora_tpu", "data", "skydata.npz"))
+    assert tsd.skydata_path().endswith(os.path.join("cora_tpu_torch", "data", "skydata.npz"))
 
 
 # --- the constrained realisation -------------------------------------------

@@ -5,7 +5,9 @@ f32 numerics, and the kernel wrapper's routing: plain version for CPU
 tensors only, the CUDA kernel (or an error) for anything else.
 """
 
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -50,8 +52,25 @@ def test_port_imports_no_jax():
     assert int(proc.stdout.split()[-1]) >= 24
 
 
+def _docstrings(tree):
+    """ids of the docstring constants of a module and its classes and functions."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                out.add(id(body[0].value))
+    return out
+
+
 def test_port_sources_never_import_jax():
+    """No module of the port imports jax or the JAX package, and none holds
+    a string (outside its docstrings) naming ``cora_tpu``: the port builds
+    no path into the reference, e.g. to read its data tables."""
     pkg = os.path.dirname(cora_tpu_torch.__file__)
+    names_ref = re.compile(r"cora_tpu(?!_torch)")
     for dirpath, _, files in os.walk(pkg):
         for name in files:
             if name.endswith(".py"):
@@ -59,12 +78,54 @@ def test_port_sources_never_import_jax():
                 for bad in ("import jax", "from jax", "import cora_tpu\n",
                             "from cora_tpu ", "from cora_tpu.", "import cora_tpu."):
                     assert bad not in src, (name, bad)
+                tree = ast.parse(src)
+                docs = _docstrings(tree)
+                for node in ast.walk(tree):
+                    if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                            and id(node) not in docs and names_ref.search(node.value)):
+                        raise AssertionError(f"{name}:{node.lineno} names cora_tpu: "
+                                             f"{node.value[:80]!r}")
 
 
 def test_cuda_request_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
+
+
+@pytest.mark.parametrize("fn", ["rfftfreq_axes", "rfftfreqn"])
+def test_fft_frequencies_default_to_cuda(fn, monkeypatch):
+    """Called without ``device``, the FFT-frequency helpers resolve to CUDA
+    as every other entry point does: without a GPU they raise, and never
+    fall back to the CPU."""
+    from cora_tpu_torch.util import fftutil
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(fftutil, fn)((4, 6))
+    assert getattr(fftutil, fn)((4, 6), device="cpu")[0].device == torch.device("cpu")
+
+
+def test_console_script_runs_the_ports_cli():
+    """``cora-makesky-torch`` names the port's click group, which has the
+    reference's subcommands; ``cora-makesky`` still names the reference's."""
+    import importlib
+    import tomllib
+
+    import click
+
+    from cora_tpu.scripts import makesky as ref
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["cora-makesky"] == "cora_tpu.scripts.makesky:cli"
+    module, attr = scripts["cora-makesky-torch"].split(":")
+    assert module.startswith("cora_tpu_torch.")
+    cli = getattr(importlib.import_module(module), attr)
+    assert isinstance(cli, click.Group)
+    assert sorted(cli.commands) == sorted(ref.cli.commands)
+    assert sorted(cli.commands) == ["21cm", "foreground", "galaxy", "gaussianfg",
+                                    "pointsource", "singlesource"]
 
 
 @pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])
