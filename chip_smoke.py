@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py            # all phases, from the repository root
 
-Phases (each prints its own lines; any failure exits non-zero):
+Phases (each prints its own lines; any failure exits non-zero).  Stage
+seconds (``stage`` lines) are device spans: CUDA events recorded at each
+stage's edges by ``cora_tpu_torch.util.profiling.stage``, summed per stage;
+no stage synchronises, and stages nest (``lambda_build`` holds
+``checkpoints``).
 
 1. device   — CUDA must be available; prints the card's name and power limit
               (nvidia-smi) and pins true f32 (TF32 off).
@@ -1146,7 +1150,7 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
 
     for key in ("cl_tables", "roots", "sht_setup", "checkpoints", "lambda_build",
                 "draw", "legendre", "ring", "pixel_gather"):
-        print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s")
+        print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s device span")
     print(f"   total getsky    {total:9.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB; legendre_contract launches "
           f"{n['legendre_contract']}, scan_contract launches {n['scan_contract']}")
@@ -1311,7 +1315,7 @@ def analysis_phase(dev, reports, sky, cl_diag):
     peak = torch.cuda.max_memory_allocated(dev)
     for key in ("pixel_scatter", "ring_fwd", "projection", "legendre", "ring",
                 "pixel_gather"):
-        print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s")
+        print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s device span")
     print(f"   total anafast   {total:9.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB; legendre_contract launches "
           f"{n['legendre_contract']}, scan launches {n['scan_contract']} / "
@@ -1502,7 +1506,7 @@ def spin_phase(dev, reports, nside=512, npair=16):
     st = dict(profiling.stage_times)
     profiling.enable(False)
     for key in ("legendre", "ring", "pixel_gather"):
-        print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s")
+        print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s device span")
     print(f"   total alm2map_spin {total:9.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"wigner_contract launches {launches}")
@@ -1666,7 +1670,7 @@ def gaussianfg_phase(dev, reports, nside=512, nfreq=64):
     check(res.exit_code == 0, f"makesky gaussianfg exited 0 ({total:.1f} s)")
     for key in ("cl_tables", "roots", "lambda_build", "draw", "legendre", "ring",
                 "pixel_gather"):
-        print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s")
+        print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s device span")
     print(f"   total gaussianfg {total:9.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB; legendre_contract_f64 launches {launches[0]}, "
           f"wigner_contract_f64 launches {launches[1]}")
@@ -1904,7 +1908,7 @@ def foreground_phase(dev, nside=256, nfreq=64, seed=7):
     profiling.enable(False)
     peak = torch.cuda.max_memory_allocated(dev)
     for key in FG_STAGES:
-        print(f"   stage {key:16s} {st.get(key, 0.0):9.3f} s")
+        print(f"   stage {key:16s} {st.get(key, 0.0):9.3f} s device span")
     print(f"   total foreground {total:9.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB; legendre_contract launches "
           f"{n['legendre_contract']}, legendre_contract_f64 launches "
@@ -2056,7 +2060,7 @@ def _rel_max(a, b):
 
 
 def _flat_stages(st):
-    return ", ".join(f"{k} {st.get(k, 0.0):.3f}" for k in FLAT_STAGES)
+    return "device spans " + ", ".join(f"{k} {st.get(k, 0.0):.3f}" for k in FLAT_STAGES)
 
 
 def _periodogram_check(model, box, ext, z1, z2):
@@ -3451,7 +3455,7 @@ def f64_sky_phase(dev, reports, roots, cfg=FLAGSHIP):
         profiling.enable(False)
         peak = torch.cuda.max_memory_allocated(dev)
         for key in F64_STAGES:
-            print(f"   {mode} stage {key:13s} {st.get(key, 0.0):9.3f} s")
+            print(f"   {mode} stage {key:13s} {st.get(key, 0.0):9.3f} s device span")
         print(f"   {mode} f64 mkfullsky total {total:.3f} s, peak device memory "
               f"{peak / 2**30:.2f} GiB; launches "
               f"{', '.join(f'{e} {v}' for e, v in n.items() if v) or 'none'} ({card})")

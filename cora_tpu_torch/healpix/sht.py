@@ -68,7 +68,7 @@ from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
                             legendre_contract, legendre_project, release)
 from ..ops.scan_legendre import (_lambda_blocks, planes_minor, scale_for,
                                  scan_contract, scan_project)
-from ..util.profiling import stage
+from ..util.profiling import build, stage
 from . import pixel
 
 _XI_HALF = 0.70710678  # 1/√2 per re/im plane, as the JAX f32 draw
@@ -152,7 +152,19 @@ class SHT:
         self.lambda_cache = lambda_cache
         self.ckpt_cache = ckpt_cache
         self.scan_ckpt = bool(scan_ckpt)
+        with build("sht_geometry", self.device):
+            self._host_geometry()
 
+        self._ck = None
+        self._lam_meta = self._lambda_chunk_meta()
+        self._lam_host = None
+        self._tables = {}
+        self._pix_index = None
+
+    def _host_geometry(self):
+        """The host tables (numpy float64): ring geometry, recurrence
+        coefficients, λ_mm seeds, the ring stage's phases and chirps, and
+        each pixel's ring and column."""
         info = pixel.ring_info(self.nside)
         nring = info["theta"].size
         self.nring = nring
@@ -242,12 +254,6 @@ class SHT:
                 and np.array_equal(self._phi0, self._phi0[::-1])):
             raise ValueError("ring geometry is not N/S symmetric")
 
-        self._ck = None
-        self._lam_meta = self._lambda_chunk_meta()
-        self._lam_host = None
-        self._tables = {}
-        self._pix_index = None
-
     @property
     def _ck_host(self):
         """The f32 tables' checkpoint rows (scan mode, and the device build
@@ -256,7 +262,7 @@ class SHT:
         (seconds of host recurrence at nside=512, which float64-only callers
         skip) and written there."""
         if self._ck is None:
-            with stage("checkpoints", self.device):
+            with build("checkpoints", self.device):
                 meta = np.array([self.nside, self.lmax, self.l_chunk,
                                  self.ckpt_every], dtype=np.int64)
                 d = _load_npz(self.ckpt_cache, meta)
@@ -426,7 +432,7 @@ class SHT:
         return t
 
     def _cached_tables(self, double):
-        with stage("lambda_build", self.device):
+        with build("lambda_build", self.device):
             if self.lambda_build == "device":
                 lam = self._build_lambda_device(double)
                 return dict(self.ring_tables(double), lam=lam,

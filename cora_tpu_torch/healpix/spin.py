@@ -45,7 +45,7 @@ from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
                             legendre_contract, legendre_project, release)
 from ..ops.scan_legendre import planes_minor
 from ..ops.wigner import wigner_contract, wigner_project
-from ..util.profiling import stage
+from ..util.profiling import build, stage
 from . import pixel
 from .sht import (_load_npz, _save_npz, get_sht, grid_to_rings_complex,
                   rings_to_grid_complex)
@@ -293,7 +293,7 @@ class SpinSHT:
         elif self.legendre_mode == "cached":
             fdt = torch.float64 if double else torch.float32
             desc = self.lambda_desc()[0]
-            with stage("lambda_build", self.device):
+            with build("lambda_build", self.device):
                 sp_t = {sp: (lam.to(fdt), desc) for sp, lam in self._spin_lambdas().items()}
             self._tables[key] = {"sc": self.scalar.ring_tables(double), "sp": sp_t}
             hold(self, key, sum(x.numel() * x.element_size() for x, _ in sp_t.values()))

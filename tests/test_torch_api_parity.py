@@ -64,6 +64,9 @@ NAMES_NOT_PORTED = {
         "cl_grid_combined cover it (ROADMAP 'Do not port')",
     ("parallel/mesh.py", "shard_map_compat"):
         "a shim over JAX's shard_map import paths; the port runs SPMD on torch.distributed",
+    **{("util/profiling.py", name):
+       "read by nothing in the port; its one tracing surface is `stage`"
+       for name in ("timed", "set_trace_dir", "annotate")},
     **{("util/interpolation.py", f"{cls}.{m}"): _PYTREE
        for cls in ("CubicSpline", "LogSpline", "SinhSpline")
        for m in ("tree_flatten", "tree_unflatten")},

@@ -1,14 +1,12 @@
 """The public helpers of ported modules that the port lacked (bilinear
-lookups, spline aliases and files, the Cholesky root, array-list files,
-profiling hooks) against cora_tpu's on the same inputs, on the CPU.
+lookups, spline aliases and files, the Cholesky root, array-list files)
+against cora_tpu's on the same inputs, on the CPU.
 
 Tolerances: the bilinear lookups and splines 1e-15·max (the same float64
 arithmetic); the Cholesky root 1e-12·max (LAPACK's Cholesky through two
 front ends), the eigh fallback compared as R Rᵀ; files read bit for bit
 across the two packages.
 """
-
-import logging
 
 import numpy as np
 import pytest
@@ -21,7 +19,6 @@ from cora_tpu.util import linalg as jlin
 from cora_tpu_torch.util import bilinear as tbil
 from cora_tpu_torch.util import interpolation as tint
 from cora_tpu_torch.util import linalg as tlin
-from cora_tpu_torch.util import profiling
 
 torch.set_num_threads(1)
 
@@ -143,23 +140,3 @@ def test_ndarray_list_files_cross_packages(tmp_path, writer):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
 
-
-def test_timed_logs_and_traces(tmp_path, caplog):
-    with caplog.at_level(logging.INFO, logger="cora_tpu_torch"):
-        with profiling.timed("square", n=3):
-            torch.ones(8).square().sum()
-    assert "square took" in caplog.text and "n=3" in caplog.text
-    profiling.set_trace_dir(tmp_path)
-    try:
-        with profiling.timed("traced"):
-            torch.ones(8).square().sum()
-    finally:
-        profiling.set_trace_dir(None)
-    assert any(p.name.startswith("traced") and p.name.endswith(".json")
-               for p in tmp_path.iterdir())
-
-
-def test_annotate_is_a_context_on_the_cpu():
-    with profiling.annotate("region"):
-        x = torch.ones(4).sum()
-    assert float(x) == 4.0
