@@ -11,7 +11,7 @@ no stage synchronises, and stages nest (``lambda_build`` holds
 
 1. device   — CUDA must be available; prints the card's name and power limit
               (nvidia-smi) and pins true f32 (TF32 off).
-2. build    — builds the four CUDA sources (with the shared headers
+2. build    — builds the five CUDA sources (with the shared headers
               csrc/*.cuh: tile building blocks, the scan recurrence of K1
               and K2, the adjoint loops of K2 and K3) with nvcc (one process
               per source, started together), prints the build time and
@@ -50,6 +50,15 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               of phase 3 has CUDA-event times, its bound (bytes or
               operations) and its share of that bound printed; K4 its
               GB/s and TFLOP/s, K1 and K2 their TFLOP/s.
+3e.         — K5 (jacobi_eigh, the batched f64 eigensolver of the
+              covariance roots) against its plain version and
+              torch.linalg.eigh on graded spectra (1 to 1e-12) at n = 1,
+              7, 32, 100, 256 and at the getsky shape [1536, 256, 256] on
+              the device C_ℓ engine's grid of sky21cm_n512: eigenvalues ≤
+              1e-12·max, VᵀV = I ≤ 1e-11, R Rᵀ ≤ 1e-11·max, the same bits
+              from two calls; the sweep count; CUDA-event times against its
+              bound, its plain version and the torch.linalg.eigh root
+              (library_ms); no launch for float32 or n > 256.
 4. parity   — in each Legendre mode, the same operator kind on cuda
               (kernels) and on cpu (plain versions; in cached mode a
               device-built Λ on both): mkfullsky at nside=64, nz=8 with the
@@ -64,7 +73,8 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               and roots built on the card in float64; the host C_ℓ path
               refused for the call) and the default operator (cached Λ
               built on the device), with the launch counters reset just
-              before: K4 launches > 0 and no K1 launch, every pixel finite;
+              before: K4 launches > 0 and no K1 launch, one K5 launch
+              (the roots), every pixel finite;
               each diagonal 16×16 channel block of the device grid within
               1e-6·max of the host f64 grid of that block, R Rᵀ within
               1e-10·max of the device grid, each channel's map variance
@@ -250,8 +260,9 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               generator) at nside 128 × 16 channels (400–500 MHz).  The
               child must import the copy and its _build/ (no kernel
               rebuilt), read ps_z1.5.npz and corr_z1.5.npz from the copy's
-              data/, launch K4 f32 (and no other kernel) as often as the
-              same call in this process, and give its maps bit for bit.
+              data/, launch K4 f32 and K5 (and no other kernel) as often
+              as the same call in this process, and give its maps bit for
+              bit.
               The data directory, the child's times and the card are
               printed.  A failing child ends the script.
 
@@ -316,11 +327,15 @@ def device_phase():
     return dev
 
 
-KERNELS = ("scan_legendre", "scan_project", "wigner_apply", "legendre_contract")
+KERNELS = ("scan_legendre", "scan_project", "wigner_apply", "legendre_contract",
+           "jacobi_eigh")
 K3_SRC = "cora_tpu_torch/csrc/wigner_apply.cu"
 K3_REPLACES = "cora_tpu/ops/pallas_scan_legendre.py:615"
 K4_SRC = "cora_tpu_torch/csrc/legendre_contract.cu"
 K4_REPLACES = "cora_tpu/ops/pallas_legendre.py:81"
+K5_SRC = "cora_tpu_torch/csrc/jacobi_eigh.cu"
+K5_REPLACES = ("none: the JAX package's roots are XLA's eigh (cora_tpu/util/linalg.py "
+               "batch_matrix_root, from cora_tpu/signal/clfast.py _roots_from_cla_jit)")
 
 # one H100 SXM (NVIDIA's data sheet, 700 W): 3.35 TB/s of device memory;
 # float32 67 TFLOP/s outside the tensor cores (no f32-exact tensor-core
@@ -346,6 +361,19 @@ def _bound(products, other, nbytes, itemsize):
     else:
         t_o = max(products / F64_MMA_FLOP_S, other / F64_FLOP_S) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _k5_bound(L, n):
+    """(bound_ms, bound_by, peak_ms) of L symmetric eigen-decompositions
+    and roots of n × n, from shapes alone whatever solves them: the larger
+    of the bytes (read C, write R: 2·L·n²·8) and the operations (LAPACK's
+    count less the tridiagonal solver: 4/3·n³ a matrix on the FP64 units,
+    then 2·n³ on the tensor cores).  ``peak_ms`` is the operations at the
+    card's float64 peak (all on the tensor cores), the least time at all."""
+    t_b = 2.0 * L * n * n * 8 / HBM_BYTES_S * 1e3
+    t_o = (4.0 / 3.0 * L * n**3 / F64_FLOP_S + 2.0 * L * n**3 / F64_MMA_FLOP_S) * 1e3
+    peak_ms = max(t_b, (4.0 / 3.0 + 2.0) * L * n**3 / F64_MMA_FLOP_S * 1e3)
+    return ((t_b, "bytes") if t_b >= t_o else (t_o, "operations")) + (peak_ms,)
 
 
 def _nbytes(*xs):
@@ -921,6 +949,148 @@ def legendre_phase(dev, reports):
     _nside1_check(dev)
 
 
+def _engine_grid_n512(dev, cfg=FLAGSHIP):
+    """The matrices getsky's covariance_roots factors at the flagship: the
+    device C_ℓ engine's grid [1536, 256, 256] of sky21cm_n512, each ℓ
+    normalised by its largest diagonal entry plus the 1e-12 jitter."""
+    import torch
+
+    from cora_tpu_torch.signal import clfast
+    from cora_tpu_torch.signal.corr21cm import Corr21cm
+
+    cr = Corr21cm()
+    cr.nside = cfg["nside"]
+    cr.frequencies = np.linspace(cfg["flo"], cfg["fhi"], cfg["nfreq"], endpoint=False)
+    tables = clfast.build_cl_tables_device(cr, np.asarray(cr.nu_pixels),
+                                           window="exact" if cr.oversample else "none",
+                                           device=dev)
+    cla = clfast.cl_grid_combined(tables, 3 * cfg["nside"] - 1)
+    del tables
+    dmax = cla.diagonal(dim1=-2, dim2=-1).abs().max(dim=-1).values
+    norm = torch.where(dmax > 0, dmax, torch.ones_like(dmax))
+    eye = torch.eye(cla.shape[-1], dtype=torch.float64, device=dev)
+    return cla.div_(norm[:, None, None]).add_(eye * 1e-12)
+
+
+def _graded_spd(B, n, seed, dev):
+    """Symmetric positive matrices with eigenvalues from 1 to 1e-12."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn(B, n, n, dtype=torch.float64, generator=g))
+    lam = torch.logspace(0, -12, n, dtype=torch.float64)
+    c = q @ torch.diag_embed(lam.expand(B, n)) @ q.transpose(-1, -2)
+    return ((c + c.transpose(-1, -2)) / 2).to(dev)
+
+
+def jacobi_phase(dev, reports):
+    """K5 (jacobi_eigh) against its plain version and torch.linalg.eigh: the
+    eigenvalues (≤ 1e-12·max), VᵀV = I (≤ 1e-11) and R Rᵀ at small sizes
+    and at the getsky shape [1536, 256, 256] on the engine's own grid, the
+    same bits from two calls, the sweep count, CUDA-event times against the
+    bound, the plain version and the library (library_ms), float32 on K5
+    against the library's float32 loop, and the routing: no launch for
+    n > 256."""
+    import torch
+
+    from cora_tpu_torch.ops import jacobi_eigh as k5
+    from cora_tpu_torch.util import linalg
+
+    phase("3e batched eigensolver (K5 jacobi_eigh) vs plain and torch.linalg.eigh")
+    gram = lambda R: torch.einsum("lij,lkj->lik", R, R)
+    for n in (1, 7, 32, 100, 256):
+        C = _graded_spd(2, n, n, dev)
+        w, V = k5.eigh(C)
+        R = k5.matrix_root(C)
+        sweeps = int(k5.last_sweeps)
+        Rp, sweeps_p = k5.matrix_root_plain(C)
+        w0, _ = torch.linalg.eigh(C)
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        dw = float((w - w0).abs().max() / w0.abs().max())
+        orth = float((V.transpose(-1, -2) @ V - eye).abs().max())
+        gap = float((gram(R) - gram(Rp)).abs().max() / C.abs().max())
+        same = torch.equal(R, k5.matrix_root(C))
+        print(f"   n={n}: sweeps {sweeps} (plain {int(sweeps_p.max())}), eigenvalues "
+              f"vs eigh {dw:.2e}·max, |VᵀV − I| {orth:.2e}, R Rᵀ vs plain {gap:.2e}·max, "
+              f"same bits twice: {same}")
+        check(dw <= 1e-12 and orth <= 1e-11 and gap <= 1e-11 and same,
+              f"K5 n={n}: eigenvalues, orthogonality, root and repeatability")
+
+    C = _engine_grid_n512(dev)
+    L, n = C.shape[0], C.shape[-1]
+    torch.cuda.synchronize(dev)
+    R = k5.matrix_root(C)
+    sweeps = int(k5.last_sweeps)
+    same = torch.equal(R, k5.matrix_root(C))
+    gap = float((gram(R) - C).abs().max() / C.abs().max())
+    w, V = k5.eigh(C)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    orth = float((torch.einsum("lji,ljk->lik", V, V) - eye).abs().max())
+    w0 = torch.linalg.eigvalsh(C)
+    dw = float((w - w0).abs().max() / w0.abs().max())
+    del V, w, w0
+    print(f"   getsky shape [{L}, {n}, {n}] (engine grid, nside 512): sweeps {sweeps}, "
+          f"R Rᵀ − C {gap:.3e}·max, |VᵀV − I| {orth:.3e}, eigenvalues vs eigh "
+          f"{dw:.3e}·max, same bits twice: {same}")
+    check(gap <= 1e-11 and orth <= 1e-11 and dw <= 1e-12 and same,
+          "K5 at the getsky shape: R Rᵀ ≤ 1e-11·max, VᵀV = I ≤ 1e-11, "
+          "eigenvalues ≤ 1e-12·max, the same bits twice")
+    ms = _cuda_time_ms(lambda: k5.matrix_root(C), 5)
+    plain = []
+    plain_ms = _cuda_time_ms(lambda: plain.append(k5.matrix_root_plain(C)), 1)
+    Rp, sweeps_p = plain[0]
+    gap_p = float((gram(R) - gram(Rp)).abs().max() / C.abs().max())
+    del plain, Rp
+    print(f"   getsky shape: R Rᵀ vs plain {gap_p:.3e}·max, plain sweeps "
+          f"{int(sweeps_p.min())}–{int(sweeps_p.max())}")
+    check(gap_p <= 1e-11, "K5 at the getsky shape: R Rᵀ within 1e-11·max of the "
+          "plain version's")
+    library_ms = _cuda_time_ms(lambda: _eigh_root(C), 2)
+    bound_ms, bound_by, peak_ms = _k5_bound(L, n)
+    print(f"   K5 [{L}, {n}, {n}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"torch.linalg.eigh root {library_ms:.3f} ms ({library_ms / ms:.1f}× the "
+          f"kernel's time), bound {bound_ms:.3f} ms ({bound_by}): "
+          f"{100 * bound_ms / ms:.2f}% of its bound; at the card's f64 peak "
+          f"{peak_ms:.3f} ms: {100 * peak_ms / ms:.2f}%")
+    reports["jacobi_eigh"] = dict(
+        name="jacobi_eigh", route="cuda", source=K5_SRC, replaces=K5_REPLACES,
+        shape=[L, n, n], sweeps=sweeps, rrt_gap=gap, rrt_gap_plain=gap_p, orth=orth,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        peak_ms=peak_ms, library_ms=library_ms)
+
+    # float32 batches are solved in float64 by K5: the library's float32
+    # syevd loop against K5 on a slice of the same grid
+    C32 = C[:128].float()
+    lib32_ms = _cuda_time_ms(lambda: torch.linalg.eigh(C32), 1)
+    k5_32_ms = _cuda_time_ms(lambda: linalg.batch_matrix_root(C32), 3)
+    print(f"   float32 [128, {n}, {n}]: torch.linalg.eigh {lib32_ms:.3f} ms, "
+          f"batch_matrix_root on K5 {k5_32_ms:.3f} ms")
+    reports["jacobi_eigh"].update(lib32_ms=lib32_ms, k5_32_ms=k5_32_ms)
+
+    _reset_counts()
+    wide = torch.eye(257, dtype=torch.float64, device=dev).expand(2, 257, 257)
+    linalg.batch_matrix_root(wide)
+    n_wide = _counts()["jacobi_eigh"]
+    R32 = linalg.batch_matrix_root(C32[:4])
+    R64 = linalg.batch_matrix_root(C[:4])
+    check(n_wide == 0 and _counts()["jacobi_eigh"] == 2 and R32.dtype == torch.float32
+          and torch.equal(R32, linalg.batch_matrix_root(C32[:4].double()).float()),
+          "batch_matrix_root: no K5 launch for n = 257, one each for float32 (solved "
+          "in float64) and float64 at n = 256")
+    del C, C32, R, R32, R64
+    torch.cuda.empty_cache()
+
+
+def _eigh_root(C):
+    """The root as torch.linalg.eigh computes it (the yardstick)."""
+    import torch
+
+    evals, evecs = torch.linalg.eigh(C)
+    emax = evals.max(dim=-1, keepdim=True).values
+    evals = torch.where(evals > emax * 1e-16, evals, torch.zeros_like(evals))
+    return evecs * evals.sqrt()[..., None, :]
+
+
 def _nside1_check(dev):
     """Cached mode at nside=1 in float32: R=2 rings are not a whole 16-byte
     vector, so K4's wrapper pads Λ's rings; the scalar and the spin operator
@@ -1057,6 +1227,7 @@ def _triangle(rng, shape, lmin=2):
 
 
 def _reset_counts():
+    from cora_tpu_torch.ops import jacobi_eigh as k5
     from cora_tpu_torch.ops import legendre as k4
     from cora_tpu_torch.ops import scan_legendre as k
     from cora_tpu_torch.ops import wigner as k3
@@ -1067,12 +1238,15 @@ def _reset_counts():
         mod.entry_launches.clear()
     k4.launches = 0
     k4.entry_launches.clear()
+    k5.launches = 0
+    k5.matrices = 0
 
 
 def _counts():
     """Launches per C entry point since the last :func:`_reset_counts`, by
     report name (``scan_contract``, ``scan_contract_f64``, …,
-    ``legendre_contract``, ``legendre_contract_f64``)."""
+    ``legendre_contract``, ``legendre_contract_f64``, ``jacobi_eigh``)."""
+    from cora_tpu_torch.ops import jacobi_eigh as k5
     from cora_tpu_torch.ops import legendre as k4
     from cora_tpu_torch.ops import scan_legendre as k
     from cora_tpu_torch.ops import wigner as k3
@@ -1083,6 +1257,7 @@ def _counts():
          for b in base for name in (b, b + "_f64")}
     n["legendre_contract"] = k4.entry_launches.get("cora_legendre_contract_f32", 0)
     n["legendre_contract_f64"] = k4.entry_launches.get("cora_legendre_contract_f64", 0)
+    n["jacobi_eigh"] = k5.launches
     return n
 
 
@@ -1157,6 +1332,8 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
     check(n["legendre_contract"] > 0 and n["scan_contract"] == 0
           and n["legendre_contract_f64"] == 0,
           "main path launched the f32 legendre_contract kernel (K4) only, and no K1")
+    print(f"   jacobi_eigh (K5) launches {n['jacobi_eigh']}")
+    check(n["jacobi_eigh"] == 1, "one K5 launch for getsky's covariance_roots")
     npix = 12 * cfg["nside"] ** 2
     check(tuple(sky.shape) == (cfg["nfreq"], npix), f"sky shape {tuple(sky.shape)}")
     check(bool(torch.isfinite(sky).all()), "every pixel finite")
@@ -3286,6 +3463,10 @@ def nside2048_phase(dev, cfg=NSIDE2048, fchunk=8, n64=2):
         check(op._ck is None and "lam_ck" not in t, "scan_ckpt=False built no checkpoint rows")
         roots64, cl = run("C_ℓ grid and roots (device engine, f64)",
                           lambda: _roots_21cm(dev, cfg))
+        if dev.type == "cuda":
+            from cora_tpu_torch.ops import jacobi_eigh as k5
+
+            print(f"   K5 sweeps on the [{lmax + 1}, {nz}, {nz}] grid: {int(k5.last_sweeps)}")
         roots = roots64.float()
         del roots64
         pod = pd.make_pod_mesh(freq_hosts=1, device=dev.type)
@@ -3631,9 +3812,10 @@ def standalone_phase(dev, cfg=STANDALONE, seed=STANDALONE_SEED):
     n_here = _counts()
     print(f"   in-tree getsky {t_here:.3f} s; launches "
           f"{', '.join(f'{e} {v}' for e, v in n_here.items() if v) or 'none'} ({card})")
-    check(n_here["legendre_contract"] > 0
-          and all(v == 0 for e, v in n_here.items() if e != "legendre_contract"),
-          "in-tree: the f32 K4 launched, and no other kernel")
+    check(n_here["legendre_contract"] > 0 and n_here["jacobi_eigh"] == 1
+          and all(v == 0 for e, v in n_here.items()
+                  if e not in ("legendre_contract", "jacobi_eigh")),
+          "in-tree: the f32 K4 launched, K5 once (the roots), and no other kernel")
     with tempfile.TemporaryDirectory() as tmp:
         copy = os.path.realpath(tmp)
         pkg = os.path.join(copy, "cora_tpu_torch")
@@ -3691,6 +3873,7 @@ def main():
     kernel64_phase(dev, reports)
     wigner_phase(dev, reports)
     legendre_phase(dev, reports)
+    jacobi_phase(dev, reports)
     parity_phase(dev)
     sky, cl_diag, roots = main_phase(dev, reports)
     analysis_phase(dev, reports, sky, cl_diag)
@@ -3713,7 +3896,7 @@ def main():
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",
              "wigner_project", "wigner_project_f64", "legendre_contract",
-             "legendre_contract_f64")
+             "legendre_contract_f64", "jacobi_eigh")
     print(json.dumps({"kernels": [reports[n] for n in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

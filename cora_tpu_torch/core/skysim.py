@@ -1,7 +1,7 @@
 """Correlated full-sky Gaussian realisations (port of ``cora_tpu/core/skysim.py``).
 
-The synthesis path: C_l(z, z') → per-ℓ covariance roots (batched f64
-``eigh`` on the device) → a correlated a_lm draw per ℓ-chunk → the fused
+The synthesis path: C_l(z, z') → per-ℓ covariance roots (a batched f64
+eigensolver on the device) → a correlated a_lm draw per ℓ-chunk → the fused
 scan-Legendre kernel → the ring FFT stage → HEALPix pixels, streamed over
 frequency chunks so the a_lm cube never exists in full.
 
@@ -86,10 +86,12 @@ def covariance_roots(corr, device="cuda", threshold=1e-16):
     Counterpart of ``cora_tpu.core.skysim.host_covariance_roots`` and
     ``cora_tpu.signal.clfast._roots_from_cla_jit``: per-ℓ normalisation by
     the largest diagonal entry, a 1e-12 diagonal jitter, a batched f64
-    ``eigh`` with eigenvalues below ``threshold·max`` clipped to zero, and
+    eigensolver with eigenvalues below ``threshold·max`` clipped to zero, and
     the scale restored (an all-zero C_l gives a zero root, as on the host).
     ``corr`` may be a numpy array or a tensor; one already on ``device``
-    (the device-built C_l grid) is used where it lies.
+    (the device-built C_l grid) is used where it lies.  On CUDA up to 256
+    channels go to the Jacobi kernel K5
+    (:func:`cora_tpu_torch.util.linalg.batch_matrix_root`).
     """
     dev = resolve_device(device)
     cla = torch.as_tensor(corr, dtype=torch.float64, device=dev)
@@ -99,7 +101,7 @@ def covariance_roots(corr, device="cuda", threshold=1e-16):
     eye = torch.eye(nz, dtype=torch.float64, device=dev)
     cla_n = cla / norm[:, None, None] + eye * 1e-12
     roots = linalg.batch_matrix_root(cla_n, threshold=threshold)
-    return roots * dmax.sqrt()[:, None, None]  # an all-zero C_l keeps a zero root
+    return roots.mul_(dmax.sqrt()[:, None, None])  # an all-zero C_l keeps a zero root
 
 
 def _chunk_seeds(generator, nchunk):

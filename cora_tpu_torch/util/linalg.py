@@ -1,15 +1,23 @@
 """Matrix roots, complex normal variates and array-list files (port of
 ``cora_tpu/util/linalg.py``).
 
-``batch_matrix_root`` is one batched ``torch.linalg.eigh`` with eigenvalue
-clipping; on a GPU it runs in float64 on the card (an H100 has full-rate
-f64 solvers), so no host f64 fallback is needed.
+``batch_matrix_root`` is a batched symmetric eigensolver with eigenvalue
+clipping.  Real CUDA batches of matrices up to 256 wide go to the
+hand-written batched Jacobi kernel K5
+(:mod:`cora_tpu_torch.ops.jacobi_eigh`), float32 solved in float64:
+``torch.linalg.eigh`` calls cuSOLVER's ``syevd`` once per matrix there,
+one after another, which made the roots 91% of a 256-channel cube's wall
+time on an H100.  Where K5 cannot run (CPU tensors, wider matrices, whose
+A and V do not fit the kernel's tiles) one batched ``torch.linalg.eigh``
+stays.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops import jacobi_eigh
 
 
 def matrix_root_manynull(mat, threshold=1e-16, truncate=True):
@@ -38,8 +46,14 @@ def batch_matrix_root(mats, threshold=1e-16):
     """Batched root ``R`` with ``R Rᵀ = mats`` (tiny/negative modes clipped).
 
     mats : tensor[..., n, n] symmetric PSD(-ish).  Eigenvalues below
-    ``threshold · max eigenvalue`` (per matrix) are zeroed before the root.
+    ``threshold · max eigenvalue`` (per matrix) are zeroed before the root;
+    columns follow the eigenvalues in ascending order.  Float32 and float64
+    CUDA matrices up to 256 wide go to K5 in float64
+    (:func:`cora_tpu_torch.ops.jacobi_eigh.routes_to_kernel`), the root
+    returned in ``mats``' dtype; the rest to ``torch.linalg.eigh``.
     """
+    if jacobi_eigh.routes_to_kernel(mats.device, mats.dtype, mats.shape[-1]):
+        return jacobi_eigh.matrix_root(mats.double(), threshold).to(mats.dtype)
     evals, evecs = torch.linalg.eigh(mats)
     emax = evals.max(dim=-1, keepdim=True).values
     evals = torch.where(evals > emax * threshold, evals, torch.zeros_like(evals))
