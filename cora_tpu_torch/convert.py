@@ -5,8 +5,8 @@ per-ℓ covariance roots.  These helpers load numpy copies of the JAX
 package's state into the port, so both packages can run on identical
 tables (isolating the kernel and the ring stage from table construction).
 
-    d = {k: np.asarray(v) for k, v in jax_op.tables(False).items()}
-    op.load_tables(sht_tables_from_numpy(d, op.device))
+    d = {k: np.asarray(v) for k, v in jax_op.tables(True).items()}
+    op.load_tables(sht_tables_from_numpy(d, op.device))   # float32 transforms
 
     spin_op.load_wigner_tables(wigner_tables_from_numpy(jax_spin_op._tab))
 
@@ -28,7 +28,7 @@ from .device import resolve_device
 # base tables the port's synthesis reads (SHT.load_tables derives the
 # kernel layout from these; the pixel gather is pure geometry)
 SHT_TABLE_KEYS = (
-    "rec_a", "rec_b", "lam_mm", "lam_k0", "z_half", "lam_ck",
+    "rec_a", "rec_b", "lam_mm", "lam_k0", "z_half",
     "eq_phase", "eq_twid", "bl_A_cap", "bl_C_cap", "bl_Bf_cap",
 )
 
@@ -36,17 +36,24 @@ SHT_TABLE_KEYS = (
 def sht_tables_from_numpy(d: dict, device) -> dict:
     """Torch tensors on ``device`` for the base SHT tables in ``d``.
 
-    ``d`` is a numpy copy of a JAX operator's ``tables(False)`` (scan mode,
-    ``ring_mode="split"``).  Entries the port does not read are dropped:
-    the TPU matmul-FFT tables, the cached-Λ chunks (carried by
-    :func:`lambda_chunks_from_numpy`), and the ``psl_*``
-    padded kernel tables (the port derives its kernel layout from the base
-    tables).  Complex arrays stay complex.
+    ``d`` is a numpy copy of a JAX operator's ``tables(True)`` (scan mode,
+    ``ring_mode="split"``): its seeds are scaled with S=512, β=256, as the
+    port's float64 carry takes them in both precisions
+    (:meth:`~cora_tpu_torch.healpix.sht.SHT.load_tables` casts the ring
+    tables to the precision asked for).  The float32 ``tables(False)``,
+    scaled for a float32 carry, are refused.  Entries the port does not
+    read are dropped: the TPU matmul-FFT tables, the checkpoint rows, the
+    cached-Λ chunks (carried by :func:`lambda_chunks_from_numpy`), and the
+    ``psl_*`` padded kernel tables (the port derives its kernel layout from
+    the base tables).  Complex arrays stay complex.
     """
     dev = resolve_device(device)
-    missing = [k for k in SHT_TABLE_KEYS if k not in d and k != "lam_ck"]
+    missing = [k for k in SHT_TABLE_KEYS if k not in d]
     if missing:
         raise KeyError(f"tables lack {missing}")
+    if np.asarray(d["lam_mm"]).dtype != np.float64:
+        raise ValueError("the port's scan tables are the float64 ones "
+                         "(seeds scaled with S=512, β=256): pass tables(True)")
     return {
         k: torch.from_numpy(np.array(d[k])).to(dev)
         for k in SHT_TABLE_KEYS if k in d

@@ -44,8 +44,7 @@
 // sources in registers), the 2·FT values of a row pair leave a warp
 // through a transpose-reduction (each shuffle step halves the values a
 // lane keeps), and the warps' sums are added in warp order once per step.
-// FT = 4 or 8 planes a block; steps start at the row pair that holds m (so a
-// policy must take band starts inside a step).
+// FT = 4 or 8 planes a block; steps start at the row pair that holds m.
 //
 // What holds project_kernel back (cut-down variants of this source timed on
 // an H100 80GB HBM3, 700 W, at K3's L=1536, R=1024, F2=32 in f32, 4.9–5.1 ms
@@ -57,19 +56,21 @@
 // tiles of 16 and repeats the recurrence four times at F2=64.
 //
 // A policy P supplies the recurrence and the row layout:
-//   T          float or double
+//   T          float or double: sources, products and outputs
+//   Rc         the element of a coefficient slot (K2: double whatever T)
 //   kParity    true (K2): class q has its own source src_q and output
 //              out_q [L/2, M, fs], row j; false (K3): one source, one
 //              output [L, M, fs], row 2j + q
 //   MT, CPT    m values a block; (m, ring) columns a thread
-//   LB, SLOT   rows a step; elements of one coefficient slot
+//   LB, SLOT   rows a step; Rc elements of one coefficient slot
 //   Tables     the recurrence tables, passed by value
 //   load_rows(slot, tb, lb, m0, L, M)   start the copies of the coefficient
 //              rows [lb, lb + LB) of the block's m group (no commit)
 //   Column     a thread's columns c = tid + i·256 of the block's MT × RT,
 //              m-major: init<RT>(tb, m0, r0, M, R, lstart), begin(tb, lb,
-//              first) before a step's rows are generated, pair(tb, l, slot,
-//              p, o0, o1): the emitted rows l, l + 1 of each column
+//              first) before a step's rows are generated, pair<kFirst>(tb,
+//              l, slot, p, o0, o1): the emitted rows l, l + 1 of each
+//              column (kFirst: the pair lies in the block's first step)
 
 #pragma once
 
@@ -77,6 +78,7 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper_tiles.cuh"
 
@@ -107,7 +109,7 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <typename T, int FP, int LB, int SLOT, bool kTwo>
+template <typename T, typename Rc, int FP, int LB, int SLOT, bool kTwo>
 struct ProjLayout {
   static constexpr int MT = kProjMT, RT = kProjRT, NJ = LB / 2;
   static constexpr bool f64 = sizeof(T) == 8;
@@ -118,9 +120,10 @@ struct ProjLayout {
   static constexpr int LAM = MT * 2 * NJ * RTP;      // [MT][2][NJ][RTP]
   static constexpr int E = MT * 2 * NJ * FP;         // [MT][2][NJ][FP]
   static constexpr int PART = 2 * E;                 // [2 halves][E]
-  static constexpr int REC = (SLOT + 3) / 4 * 4;
-  static constexpr int TOTAL = SRC + 2 * LAM + 2 * PART + kProjNS * REC;
-  static constexpr size_t BYTES = sizeof(T) * TOTAL;
+  static constexpr int REC = (SLOT + 3) / 4 * 4;     // Rc elements
+  static constexpr int TOTAL = SRC + 2 * LAM + 2 * PART;
+  static constexpr size_t BYTES = sizeof(T) * TOTAL + sizeof(Rc) * kProjNS * REC;
+  static_assert((sizeof(T) * TOTAL) % 16 == 0, "coefficient slots aligned");
 };
 
 // Where the value of class q, pair j, column m, plane f goes (nullptr past
@@ -143,7 +146,8 @@ project_kernel(typename P::Tables tb, const typename P::T* __restrict__ src0,
                typename P::T* __restrict__ out0,
                typename P::T* __restrict__ out1, int L, int M, int R, int fs) {
   using T = typename P::T;
-  using Y = ProjLayout<T, FP, P::LB, P::SLOT, P::kParity>;
+  using Rc = typename P::Rc;
+  using Y = ProjLayout<T, Rc, FP, P::LB, P::SLOT, P::kParity>;
   constexpr int MT = Y::MT, RT = Y::RT, LB = P::LB, NJ = Y::NJ, HR = RT / 2;
   constexpr int V = 16 / sizeof(T);
   static_assert(P::MT == MT && P::CPT == 1 && MT * RT == kThreads,
@@ -153,7 +157,7 @@ project_kernel(typename P::Tables tb, const typename P::T* __restrict__ src0,
   T* const sSrc = reinterpret_cast<T*>(smem_raw);
   T* const sLam = sSrc + Y::SRC;
   T* const sPart = sLam + 2 * Y::LAM;
-  T* const sRec = sPart + 2 * Y::PART;
+  Rc* const sRec = reinterpret_cast<Rc*>(sPart + 2 * Y::PART);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -224,11 +228,12 @@ project_kernel(typename P::Tables tb, const typename P::T* __restrict__ src0,
     cp_async_wait<1>();
     __syncthreads();
 
-    // λ rows of pair p of step j into buffer j & 1
-    auto gen_pair = [&](int j, int p) {
+    // λ rows of pair p of step j into buffer j & 1 (first: j == 0)
+    auto gen_pair = [&](int j, int p, auto first) {
       T o0[1], o1[1];
-      rc.pair(tb, lstart + j * LB + 2 * p, sRec + (j % kProjNS) * Y::REC, p,
-              o0, o1);
+      rc.template pair<decltype(first)::value>(
+          tb, lstart + j * LB + 2 * p, sRec + (j % kProjNS) * Y::REC, p, o0,
+          o1);
       T* dst = sLam + (j & 1) * Y::LAM + ((cm * 2) * NJ + p) * Y::RTP + cr;
       dst[0] = o0[0];
       dst[NJ * Y::RTP] = o1[0];
@@ -274,7 +279,7 @@ project_kernel(typename P::Tables tb, const typename P::T* __restrict__ src0,
     const int e0 = rank * kThreads + tid;
 
     rc.begin(tb, lstart, true);
-    for (int p = 0; p < NJ; ++p) gen_pair(0, p);
+    for (int p = 0; p < NJ; ++p) gen_pair(0, p, std::true_type{});
     cp_async_wait<0>();
     __syncthreads();
 
@@ -332,7 +337,7 @@ project_kernel(typename P::Tables tb, const typename P::T* __restrict__ src0,
               acc[i][3] = fmaf(lv[i][u], sv.w, acc[i][3]);
             }
           }
-          if (more) gen_pair(s + 1, k4);
+          if (more) gen_pair(s + 1, k4, std::false_type{});
         }
 #pragma unroll
         for (int i = 0; i < TJ; ++i)
@@ -359,7 +364,8 @@ project_kernel(typename P::Tables tb, const typename P::T* __restrict__ src0,
             const double* a = src + (4 * k4 + t) * Y::FPP + 16 * i + g;
             dmma16(acc[i][0], acc[i][1], a[0], a[8], b);
           }
-          if (more && k4 % GEN == 0) gen_pair(s + 1, k4 / GEN);
+          if (more && k4 % GEN == 0)
+            gen_pair(s + 1, k4 / GEN, std::false_type{});
         }
 #pragma unroll
         for (int i = 0; i < NFT; ++i)
@@ -403,7 +409,7 @@ cudaError_t launch_project_tile(const typename P::Tables& tb, const void* src0,
                                 int L, int M, int R, int fs,
                                 cudaStream_t stream) {
   using T = typename P::T;
-  using Y = ProjLayout<T, FP, P::LB, P::SLOT, P::kParity>;
+  using Y = ProjLayout<T, typename P::Rc, FP, P::LB, P::SLOT, P::kParity>;
   auto kern = project_kernel<P, FP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Y::BYTES);
@@ -474,7 +480,7 @@ project_small_kernel(typename P::Tables tb,
   constexpr int NSRC = P::kParity ? 2 : 1;
   constexpr int REC = (P::SLOT + 3) / 4 * 4;
   static_assert(P::MT == 1, "one m a block");
-  __shared__ __align__(16) T s_rec[kProjNS * REC];
+  __shared__ __align__(16) typename P::Rc s_rec[kProjNS * REC];
   __shared__ T s_red[NW][NJ][NV];
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -517,10 +523,13 @@ project_small_kernel(typename P::Tables tb,
                      M);
       cp_async_commit();
       rc.begin(tb, lb, st == 0);
-      const T* slot = s_rec + (st % kProjNS) * REC;
+      const typename P::Rc* slot = s_rec + (st % kProjNS) * REC;
       for (int p = 0; p < NJ; ++p) {
         T o[2][CPT];
-        rc.pair(tb, lb + 2 * p, slot, p, o[0], o[1]);
+        if (st == 0 && p == 0)  // the pair that holds ℓ = m
+          rc.template pair<true>(tb, lb, slot, 0, o[0], o[1]);
+        else
+          rc.template pair<false>(tb, lb + 2 * p, slot, p, o[0], o[1]);
         T v[NV];
 #pragma unroll
         for (int q = 0; q < 2; ++q)

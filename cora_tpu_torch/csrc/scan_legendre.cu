@@ -2,30 +2,31 @@
 //
 // Replaces the TPU kernel cora_tpu/ops/pallas_scan_legendre.py
 // `scan_contract_fused` (kernel body `_kernel`).  Same function, same
-// layout at the wrapper (cora_tpu_torch/ops/scan_legendre.py):
+// layout at the wrapper (cora_tpu_torch/ops/scan_legendre.py), minus the
+// checkpoint rows:
 //
-//   rec_a, rec_b [L, M]     recurrence rows a_lm, b_lm
+//   rec_a, rec_b [L, M]     recurrence rows a_lm, b_lm (double)
 //   seed_T, k0_T [M, R]     pre-scaled λ_mm seeds and their 2^S scale counts
-//   z            [R]        cosθ of the northern rings
-//   ck_T [nband, 2, M, R]   checkpoint rows (λ_{l0-2}, λ_{l0-1}) per band
+//                           (double)
+//   z            [R]        cosθ of the northern rings (double)
 //   alm0, alm1 [F2, L/2, M] even-ℓ / odd-ℓ a_lm planes
 //   He, Ho     [F2, R, M]   He = Σ_{ℓ even} λ·alm0,  Ho = Σ_{ℓ odd} λ·alm1
 //
 // λ_ℓ = a_ℓm·(z·λ_{ℓ-1}) + b_ℓm·λ_{ℓ-2}; at ℓ = m the seed and its scale
 // count k are injected; a row is emitted only where k == 0; once per row
-// pair (after the odd row) a value with |λ| > 2^β and k > 0 is scaled by
-// 2^-S and k drops by one; at each band start (every `band_rows` rows)
-// the carry restarts from the checkpoint rows where both exceed 2^-20.
-// Two instantiations: float (S=60, β=30, the f32 tables' scaling) and
-// double (S=512, β=256, the f64 tables', which carry no checkpoints).
+// pair (after the odd row) a value with |λ| > 2^256 and k > 0 is scaled by
+// 2^-512 and k drops by one.  The carry is double in both instantiations
+// (scan_recurrence.cuh says why); float (planes, products and He/Ho in
+// float, each emitted λ rounded once to float) and double.
 //
 // What bounds it on an H100: per (f, ℓ, ring, m ≤ ℓ) one multiply-add,
-// plus about 4 operations of recurrence per (ℓ, ring, m); the a_lm planes
+// plus about 4 operations of recurrence per (ℓ, ring, m), on the FP64
+// units (34 TFLOP/s) in both instantiations; the a_lm planes
 // are the only large input and He/Ho are written once, so device memory
 // traffic is small next to the arithmetic.  At the flagship call (L=1536,
 // R=1024, F2=32) 82 GFLOP: 1.23 ms at 67 TFLOP/s in f32; in f64 (L=1537,
 // F2=64) the products on the tensor cores (DMMA, 67 TFLOP/s) take 2.31 ms
-// beside the recurrence on the FP64 units (34 TFLOP/s).
+// beside the recurrence.
 //
 // What limited the first design (one warp per m, one lane per ring, 16
 // planes a block in f32 and 8 in f64 as a grid axis, one LDS.128 of planes
@@ -45,9 +46,7 @@
 //  * λ through shared memory: each thread runs the recurrence of its (m,
 //    ring) columns and writes the emitted rows to a double buffer; the rows
 //    of step j+1 are generated inside the loop that contracts step j, so
-//    the recurrence's dependent chain hides behind independent FMAs.  When
-//    the re-seed cadence divides the step (the operators' default), band
-//    starts are handled at step boundaries and that loop has no branch.
+//    the recurrence's dependent chain hides behind independent FMAs.
 //  * The planes of coming steps (and the recurrence rows a_lm, b_lm one
 //    step further on) arrive by cp.async in a ring of 3 stages, one
 //    __syncthreads per 32-row step; the planes as 16-byte copies from
@@ -64,21 +63,21 @@
 //    a warp, from stages padded so a half warp reads distinct banks; the
 //    recurrence stays on the FP64 units.
 //  * A block starts at the step holding its first m (rows ℓ < m are exactly
-//    zero and leave the carry at zero); the checkpoint rows of a coming
-//    band start are fetched a step ahead.  He/Ho are staged in shared
-//    memory and written once, m-contiguous, no atomics.
+//    zero and leave the carry at zero).  He/Ho are staged in shared memory
+//    and written once, m-contiguous, no atomics.
 //
 // What holds it back (probed on the same card by cut-down variants of this
 // source): in f32 the contraction with its loads alone takes 3.21 ms, the
 // recurrence with the loads 2.92 ms, and at one block of 8 warps per SM
 // the two overlap only in part; in f64 the DMMA loop, as in K4, runs at
-// about a quarter of the tensor cores' rate.  A re-seed cadence that does
-// not divide the 32-row step (none of the operators' defaults) takes a
-// per-pair check and runs slower.
+// about a quarter of the tensor cores' rate.  Those figures are of the
+// float carry that re-seeded from checkpoint rows; PERF.md has the double
+// carry's.
 
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper_tiles.cuh"
 #include "scan_recurrence.cuh"
@@ -138,25 +137,27 @@ struct F32Layout {
   using C = Tile<float, FP>;
   static constexpr int NP = C::LB / 2;
   static constexpr int FPP = FP + 4, KS = C::MT * FPP;
-  static constexpr int P_STAGE = 2 * NP * KS;          // [2][NP][KS]
-  static constexpr int REC = 2 * C::LB * C::MT;        // [2][LB][MT]
-  static constexpr int LAM = C::MT * C::LB * C::RT;    // [MT][LB][RT]
-  static constexpr int TOTAL = C::NS * P_STAGE + (C::NS + 1) * REC + 2 * LAM;
-  static constexpr int EPI = 2 * FP * C::RT * C::MT;   // [2][FP][RT][MT]
-  static constexpr size_t BYTES = 4 * (TOTAL > EPI ? TOTAL : EPI);
+  static constexpr int P_STAGE = 2 * NP * KS;          // [2][NP][KS] float
+  static constexpr int REC = 2 * C::LB * C::MT;        // [2][LB][MT] double
+  static constexpr int LAM = C::MT * C::LB * C::RT;    // [MT][LB][RT] float
+  static constexpr size_t TOTAL =
+      4 * (C::NS * P_STAGE + 2 * LAM) + 8 * (C::NS + 1) * REC;
+  static constexpr size_t EPI = 4 * 2 * FP * C::RT * C::MT;  // [2][FP][RT][MT]
+  static constexpr size_t BYTES = TOTAL > EPI ? TOTAL : EPI;
+  static_assert((4 * C::NS * P_STAGE) % 16 == 0, "double slots aligned");
 };
 
-template <int FP, bool kMid>
+template <int FP>
 __global__ void __launch_bounds__(kThreads, FP <= 8 ? 2 : 1)
-scan_contract_f32(const float* __restrict__ rec_a,
-                  const float* __restrict__ rec_b,
-                  const float* __restrict__ seed_T,
-                  const float* __restrict__ k0_T, const float* __restrict__ z,
-                  const float* __restrict__ ck_T, int nband,
+scan_contract_f32(const double* __restrict__ rec_a,
+                  const double* __restrict__ rec_b,
+                  const double* __restrict__ seed_T,
+                  const double* __restrict__ k0_T,
+                  const double* __restrict__ z,
                   const float* __restrict__ alm0,
                   const float* __restrict__ alm1, float* __restrict__ he,
                   float* __restrict__ ho, int L, int M, int R, int F2,
-                  int band_rows, int fs) {
+                  int fs) {
   using C = Tile<float, FP>;
   using Y = F32Layout<FP>;
   constexpr int MT = C::MT, RT = C::RT, LB = C::LB, NP = Y::NP, NS = C::NS;
@@ -164,8 +165,8 @@ scan_contract_f32(const float* __restrict__ rec_a,
   constexpr int VP = TP < 4 ? TP : 4, VR = TR < 4 ? TR : 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* const sP = reinterpret_cast<float*>(smem_raw);
-  float* const sRec = sP + NS * Y::P_STAGE;
-  float* const sLam = sRec + (NS + 1) * Y::REC;
+  double* const sRec = reinterpret_cast<double*>(sP + NS * Y::P_STAGE);
+  float* const sLam = reinterpret_cast<float*>(sRec + (NS + 1) * Y::REC);
 
   static_assert(MT * 2 * 32 == kThreads, "a warp per (m, parity)");
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -179,7 +180,7 @@ scan_contract_f32(const float* __restrict__ rec_a,
   // warps of that m after the next barrier
   const int cm = threadIdx.x / RT, cr = threadIdx.x % RT;
   Recurrence<float, 1> rc;
-  rc.init<RT>(seed_T, k0_T, z, m0, r0, M, R, nband, band_rows, lstart);
+  rc.init<RT>(seed_T, k0_T, z, m0, r0, M, R);
 
   // fragment offsets: planes of lane p, rings of lane q; this warp's m and
   // parity
@@ -196,17 +197,18 @@ scan_contract_f32(const float* __restrict__ rec_a,
       load_planes<float, MT, NP, FP, Y::FPP, Y::KS>(
           sP + (st * 2 + 1) * NP * Y::KS, alm1, lb / 2, m0, f0, Lh, M, F2, fs);
       if (j + 1 < nsteps)
-        load_rec<float, MT, LB>(sRec + st * Y::REC, rec_a, rec_b, lb + LB,
-                                m0, L, M);
+        load_rec<MT, LB>(sRec + st * Y::REC, rec_a, rec_b, lb + LB, m0, L,
+                         M);
     }
     cora::cp_async_commit();
   };
   // λ rows of step j into buffer j & 1, the rec rows at `rec`
-  auto gen_pair = [&](int j, int p, const float* rec) {
+  // (step 0 holds the block's seed rows)
+  auto gen_pair = [&](int j, int p, const double* rec, auto seed) {
     float o0[1], o1[1];
     const int l = lstart + j * LB + 2 * p;
-    rc.pair<kMid>(ck_T, nband, band_rows, M, R, l, rec + 2 * p * MT,
-                  rec + LB * MT + 2 * p * MT, MT, o0, o1);
+    rc.template pair<decltype(seed)::value>(
+        l, rec + 2 * p * MT, rec + LB * MT + 2 * p * MT, MT, o0, o1);
     float* dst = sLam + ((j & 1) * MT + cm) * LB * RT + 2 * p * RT + cr;
     dst[0] = o0[0];
     dst[RT] = o1[0];
@@ -219,17 +221,14 @@ scan_contract_f32(const float* __restrict__ rec_a,
     for (int t = 0; t < TR; ++t) acc[i][t] = 0.f;
 
   if (nsteps > 0) {
-    load_rec<float, MT, LB>(sRec + NS * Y::REC, rec_a, rec_b, lstart, m0, L,
-                            M);
+    load_rec<MT, LB>(sRec + NS * Y::REC, rec_a, rec_b, lstart, m0, L, M);
     cora::cp_async_commit();
 #pragma unroll
     for (int j = 0; j < NS - 1; ++j) fill(j);
     cora::cp_async_wait<NS - 1>();
     __syncthreads();
-    rc.prefetch(ck_T, nband, band_rows, lstart, LB, M, R);
-    if (!kMid) rc.start(ck_T, nband, band_rows, M, R, lstart);
-    for (int p = 0; p < NP; ++p) gen_pair(0, p, sRec + NS * Y::REC);
-    if (!kMid) rc.prefetch(ck_T, nband, band_rows, lstart + LB, LB, M, R);
+    for (int p = 0; p < NP; ++p)
+      gen_pair(0, p, sRec + NS * Y::REC, std::true_type{});
   }
 
   for (int s = 0; s < nsteps; ++s) {
@@ -237,34 +236,23 @@ scan_contract_f32(const float* __restrict__ rec_a,
     __syncthreads();  // planes of s, rec rows of s + 1, λ of s in place
     fill(s + NS - 1);
     const bool more = s + 1 < nsteps;
-    if (more) {  // the checkpoint rows: one step ahead, two when aligned
-      const int lb1 = lstart + (s + 1) * LB;
-      if (kMid) {
-        rc.prefetch(ck_T, nband, band_rows, lb1, LB, M, R);
-      } else {
-        rc.start(ck_T, nband, band_rows, M, R, lb1);
-        rc.prefetch(ck_T, nband, band_rows, lb1 + LB, LB, M, R);
-      }
-    }
     const float* P = sP + (s % NS) * 2 * NP * Y::KS;
     const float* lam = sLam + ((s & 1) * MT) * LB * RT;
-    const float* rec = sRec + (s % NS) * Y::REC;
+    const double* rec = sRec + (s % NS) * Y::REC;
     // this warp's parity rows into a fresh partial, a row pair of step
-    // s + 1 generated beside each (the per-pair band check of kMid unrolled
-    // less, to stay within the registers)
+    // s + 1 generated beside each
     float part[TP][TR];
 #pragma unroll
     for (int i = 0; i < TP; ++i)
 #pragma unroll
       for (int t = 0; t < TR; ++t) part[i][t] = 0.f;
-    constexpr int kUnroll = kMid ? 2 : NP;
-#pragma unroll kUnroll
+#pragma unroll
     for (int p = 0; p < NP; ++p) {
       float a[TP], b[TR];
       cora::lds_vec<TP, VP>(a, P + p * Y::KS + a_off, VP * PG);
       cora::lds_vec<TR, VR>(b, lam + 2 * p * RT + l_off, VR * RG);
       cora::outer_fma(part, a, b);
-      if (more) gen_pair(s + 1, p, rec);
+      if (more) gen_pair(s + 1, p, rec, std::false_type{});
     }
 #pragma unroll
     for (int i = 0; i < TP; ++i)
@@ -312,18 +300,17 @@ struct F64Layout {
   static constexpr size_t BYTES = 8 * (TOTAL > EPI ? TOTAL : EPI);
 };
 
-template <int FP, bool kMid>
+template <int FP>
 __global__ void __launch_bounds__(kThreads, 1)
 scan_contract_f64(const double* __restrict__ rec_a,
                   const double* __restrict__ rec_b,
                   const double* __restrict__ seed_T,
                   const double* __restrict__ k0_T,
                   const double* __restrict__ z,
-                  const double* __restrict__ ck_T, int nband,
                   const double* __restrict__ alm0,
                   const double* __restrict__ alm1, double* __restrict__ he,
                   double* __restrict__ ho, int L, int M, int R, int F2,
-                  int band_rows, int fs) {
+                  int fs) {
   using C = Tile<double, FP>;
   using Y = F64Layout<FP>;
   constexpr int MT = C::MT, RT = C::RT, LB = C::LB, NP = Y::NP, NS = C::NS;
@@ -343,7 +330,7 @@ scan_contract_f64(const double* __restrict__ rec_a,
   const int nsteps = lstart < L ? (L - lstart + LB - 1) / LB : 0;
 
   Recurrence<double, CPT> rc;
-  rc.template init<RT>(seed_T, k0_T, z, m0, r0, M, R, nband, band_rows, lstart);
+  rc.template init<RT>(seed_T, k0_T, z, m0, r0, M, R);
 
   const int g = lane >> 2, t = lane & 3;
   const int wm = w / C::WPM, fw = (w % C::WPM) * 32;
@@ -357,17 +344,18 @@ scan_contract_f64(const double* __restrict__ rec_a,
       load_planes<double, MT, NP, FP, Y::FPP, Y::KS>(
           sP + st * Y::P_STAGE, alm, lb / 2, m0, f0, Lh, M, F2, fs);
       if (j + 1 < nsteps)
-        load_rec<double, MT, LB>(sRec + st * Y::REC, rec_a, rec_b, lb + LB,
-                                 m0, L, M);
+        load_rec<MT, LB>(sRec + st * Y::REC, rec_a, rec_b, lb + LB, m0, L,
+                         M);
     }
     cora::cp_async_commit();
   };
   // the block's parity row of pair p of step j into buffer j & 1
-  auto gen_pair = [&](int j, int p, const double* rec) {
+  // (step 0 holds the block's seed rows)
+  auto gen_pair = [&](int j, int p, const double* rec, auto seed) {
     double o0[CPT], o1[CPT];
     const int l = lstart + j * LB + 2 * p;
-    rc.template pair<kMid>(ck_T, nband, band_rows, M, R, l, rec + 2 * p * MT,
-                           rec + LB * MT + 2 * p * MT, MT, o0, o1);
+    rc.template pair<decltype(seed)::value>(
+        l, rec + 2 * p * MT, rec + LB * MT + 2 * p * MT, MT, o0, o1);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       sLam[(((j & 1) * MT + rc.mm[c]) * NP + p) * Y::RTP + rc.rl[c]] =
@@ -381,17 +369,14 @@ scan_contract_f64(const double* __restrict__ rec_a,
     for (int j = 0; j < RTT; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
 
   if (nsteps > 0) {
-    load_rec<double, MT, LB>(sRec + NS * Y::REC, rec_a, rec_b, lstart, m0, L,
-                             M);
+    load_rec<MT, LB>(sRec + NS * Y::REC, rec_a, rec_b, lstart, m0, L, M);
     cora::cp_async_commit();
 #pragma unroll
     for (int j = 0; j < NS - 1; ++j) fill(j);
     cora::cp_async_wait<NS - 1>();
     __syncthreads();
-    rc.prefetch(ck_T, nband, band_rows, lstart, LB, M, R);
-    if (!kMid) rc.start(ck_T, nband, band_rows, M, R, lstart);
-    for (int p = 0; p < NP; ++p) gen_pair(0, p, sRec + NS * Y::REC);
-    if (!kMid) rc.prefetch(ck_T, nband, band_rows, lstart + LB, LB, M, R);
+    for (int p = 0; p < NP; ++p)
+      gen_pair(0, p, sRec + NS * Y::REC, std::true_type{});
   }
 
   for (int s = 0; s < nsteps; ++s) {
@@ -399,15 +384,6 @@ scan_contract_f64(const double* __restrict__ rec_a,
     __syncthreads();
     fill(s + NS - 1);
     const bool more = s + 1 < nsteps;
-    if (more) {
-      const int lb1 = lstart + (s + 1) * LB;
-      if (kMid) {
-        rc.prefetch(ck_T, nband, band_rows, lb1, LB, M, R);
-      } else {
-        rc.start(ck_T, nband, band_rows, M, R, lb1);
-        rc.prefetch(ck_T, nband, band_rows, lb1 + LB, LB, M, R);
-      }
-    }
     const double* P = sP + (s % NS) * Y::P_STAGE;
     const double* lam = sLam + (s & 1) * MT * NP * Y::RTP;
     const double* rec = sRec + (s % NS) * Y::REC;
@@ -426,7 +402,8 @@ scan_contract_f64(const double* __restrict__ rec_a,
           cora::dmma16(acc[i][j], acc[i + 1][j], a[i], a[i + 1], b[j]);
       if (more) {
 #pragma unroll
-        for (int p = 4 * kk; p < 4 * kk + 4; ++p) gen_pair(s + 1, p, rec);
+        for (int p = 4 * kk; p < 4 * kk + 4; ++p)
+          gen_pair(s + 1, p, rec, std::false_type{});
       }
     }
   }
@@ -456,22 +433,20 @@ scan_contract_f64(const double* __restrict__ rec_a,
 template <typename T, int FP>
 cudaError_t launch_tile(const void* rec_a, const void* rec_b,
                         const void* seed_T, const void* k0_T, const void* z,
-                        const void* ck_T, int nband, const void* alm0,
-                        const void* alm1, void* he, void* ho, int L, int M,
-                        int R, int F2, int band_rows, int fs,
+                        const void* alm0, const void* alm1, void* he,
+                        void* ho, int L, int M, int R, int F2, int fs,
                         cudaStream_t stream) {
   using C = Tile<T, FP>;
   constexpr bool f64 = sizeof(T) == 8;
   size_t bytes;
-  void (*kern)(const T*, const T*, const T*, const T*, const T*, const T*,
-               int, const T*, const T*, T*, T*, int, int, int, int, int, int);
-  // band starts inside a step need the per-pair check
-  const bool mid = nband > 1 && band_rows % C::LB != 0;
+  void (*kern)(const double*, const double*, const double*, const double*,
+               const double*, const T*, const T*, T*, T*, int, int, int, int,
+               int);
   if constexpr (f64) {
-    kern = mid ? scan_contract_f64<FP, true> : scan_contract_f64<FP, false>;
+    kern = scan_contract_f64<FP>;
     bytes = F64Layout<FP>::BYTES;
   } else {
-    kern = mid ? scan_contract_f32<FP, true> : scan_contract_f32<FP, false>;
+    kern = scan_contract_f32<FP>;
     bytes = F32Layout<FP>::BYTES;
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -480,18 +455,17 @@ cudaError_t launch_tile(const void* rec_a, const void* rec_b,
   const dim3 grid((R + C::RT - 1) / C::RT, (M + C::MT - 1) / C::MT,
                   ((F2 + FP - 1) / FP) * (f64 ? 2 : 1));
   kern<<<grid, kThreads, bytes, stream>>>(
-      (const T*)rec_a, (const T*)rec_b, (const T*)seed_T, (const T*)k0_T,
-      (const T*)z, (const T*)ck_T, nband, (const T*)alm0, (const T*)alm1,
-      (T*)he, (T*)ho, L, M, R, F2, band_rows, fs);
+      (const double*)rec_a, (const double*)rec_b, (const double*)seed_T,
+      (const double*)k0_T, (const double*)z, (const T*)alm0, (const T*)alm1,
+      (T*)he, (T*)ho, L, M, R, F2, fs);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* rec_a, const void* rec_b, const void* seed_T,
-           const void* k0_T, const void* z, const void* ck_T, int nband,
-           const void* alm0, const void* alm1, void* he, void* ho, int L,
-           int M, int R, int F2, int band_rows, int fs, int device,
-           void* stream) {
+           const void* k0_T, const void* z, const void* alm0,
+           const void* alm1, void* he, void* ho, int L, int M, int R, int F2,
+           int fs, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (L <= 0 || M <= 0 || R <= 0 || F2 <= 0) return 0;
@@ -502,12 +476,10 @@ int launch(const void* rec_a, const void* rec_b, const void* seed_T,
   cudaStream_t st = (cudaStream_t)stream;
   constexpr int small = sizeof(T) == 4 ? 8 : 32, big = sizeof(T) == 4 ? 32 : 64;
   err = F2 <= small
-            ? launch_tile<T, small>(rec_a, rec_b, seed_T, k0_T, z, ck_T, nband,
-                                    alm0, alm1, he, ho, L, M, R, F2, band_rows,
-                                    fs, st)
-            : launch_tile<T, big>(rec_a, rec_b, seed_T, k0_T, z, ck_T, nband,
-                                  alm0, alm1, he, ho, L, M, R, F2, band_rows,
-                                  fs, st);
+            ? launch_tile<T, small>(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1,
+                                    he, ho, L, M, R, F2, fs, st)
+            : launch_tile<T, big>(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1,
+                                  he, ho, L, M, R, F2, fs, st);
   return (int)err;
 }
 
@@ -517,29 +489,26 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of device `device`; returns the
 // cudaError_t of the launch (0 on success).  The caller owns all buffers;
-// every element of he and ho is written.  alm0/alm1 are planes-minor [L/2,
-// M, fs] (fs ≥ F2 a multiple of 16 bytes, 16-byte aligned).
+// every element of he and ho is written.  The tables are double (S=512,
+// β=256); alm0/alm1 are float, planes-minor [L/2, M, fs] (fs ≥ F2 a
+// multiple of 16 bytes, 16-byte aligned).
 int cora_scan_contract(const void* rec_a, const void* rec_b,
                        const void* seed_T, const void* k0_T, const void* z,
-                       const void* ck_T, int nband, const void* alm0,
-                       const void* alm1, void* he, void* ho, int L, int M,
-                       int R, int F2, int band_rows, int fs, int device,
+                       const void* alm0, const void* alm1, void* he, void* ho,
+                       int L, int M, int R, int F2, int fs, int device,
                        void* stream) {
-  return launch<float>(rec_a, rec_b, seed_T, k0_T, z, ck_T, nband, alm0,
-                       alm1, he, ho, L, M, R, F2, band_rows, fs, device,
-                       stream);
+  return launch<float>(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1, he, ho, L,
+                       M, R, F2, fs, device, stream);
 }
 
-// The same on double tables (S=512, β=256) and planes.
+// The same on double planes.
 int cora_scan_contract_f64(const void* rec_a, const void* rec_b,
                            const void* seed_T, const void* k0_T,
-                           const void* z, const void* ck_T, int nband,
-                           const void* alm0, const void* alm1, void* he,
-                           void* ho, int L, int M, int R, int F2,
-                           int band_rows, int fs, int device, void* stream) {
-  return launch<double>(rec_a, rec_b, seed_T, k0_T, z, ck_T, nband, alm0,
-                        alm1, he, ho, L, M, R, F2, band_rows, fs, device,
-                        stream);
+                           const void* z, const void* alm0, const void* alm1,
+                           void* he, void* ho, int L, int M, int R, int F2,
+                           int fs, int device, void* stream) {
+  return launch<double>(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1, he, ho, L,
+                        M, R, F2, fs, device, stream);
 }
 
 }  // extern "C"

@@ -525,6 +525,7 @@ cudaError_t launch_contract_tile(const WigTables<T>& tb, const void* x,
 template <typename Real, int MT_, int CPT_>
 struct WigProj {
   using T = Real;
+  using Rc = Real;
   static constexpr bool kParity = false;
   static constexpr int MT = MT_, CPT = CPT_;
   static constexpr int LB = sizeof(T) == 4 ? 32 : 16;
@@ -552,6 +553,7 @@ struct WigProj {
       }
     }
     __device__ __forceinline__ void begin(const Tables&, int, bool) {}
+    template <bool kFirst>
     __device__ __forceinline__ void pair(const Tables&, int l, const T* slot,
                                          int p, T (&o0)[CPT], T (&o1)[CPT]) {
 #pragma unroll

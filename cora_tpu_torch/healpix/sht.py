@@ -5,25 +5,25 @@
 CUDA at nside ≤ 512, as the reference's on an accelerator): the
 associated-Legendre rows are stored once per operator as the parity-packed
 Λ chunks [mw, nrows, nh] of one flat allocation (5.23 GB in f32 at
-nside=512, lmax=1535).  They are built on the device from the scaled,
-checkpointed recurrence (``lambda_build="device"``, the scan mode's rows,
-exact f64 without checkpoints in float64) or by the host f64 recurrence
-(``"host"``, cast to ``cache_dtype``, cached on disk), at the first
-``tables()``.  Synthesis contracts them with kernel K4
+nside=512, lmax=1535).  They are built on the device from the scaled
+recurrence carried in float64 (``lambda_build="device"``, the scan mode's
+rows, each rounded once to the table's precision) or by the host f64
+recurrence (``"host"``, cast to ``cache_dtype``, cached on disk), at the
+first ``tables()``.  Synthesis contracts them with kernel K4
 (:func:`cora_tpu_torch.ops.legendre.legendre_contract`), the adjoint with
 one ``torch.bmm`` per chunk; the correlated draw parity-packs each
 frequency chunk's a_lm planes and runs K4 once.
 
 **Scan mode** (``"scan"``; the default on the CPU and above nside=512): the
-Λ-free, checkpointed configuration whose Legendre stages are the fused
-recurrence kernels, K1 for synthesis and K2 for its adjoint (analysis):
+Λ-free configuration whose Legendre stages are the fused recurrence
+kernels, K1 for synthesis and K2 for its adjoint (analysis):
 
 * **Host tables** (numpy float64, built once per operator): recurrence
   coefficients ``rec_a``/``rec_b``, the λ_mm seeds built in log space and
-  pre-scaled by powers of 2^60, exact f64 checkpoint rows every
-  ``l_chunk·ckpt_every`` ℓ (cached on disk, ``ck_*.npz``), and the ring
-  geometry (equatorial phases and
-  twiddles, polar-cap chirp tables at the foldless FFT size ``nfft2``).
+  pre-scaled by powers of 2^512 (the recurrence is carried in float64 in
+  both precisions, from the seeds alone), and the ring geometry
+  (equatorial phases and twiddles, polar-cap chirp tables at the foldless
+  FFT size ``nfft2``).
 * **Legendre stage**: :func:`fused_GeGo` (alm → even/odd ring spectra) and
   :func:`_fused_scan_GeGo` (correlated draw → a_lm planes → kernel), both
   through :func:`cora_tpu_torch.ops.scan_legendre.scan_contract`.
@@ -46,9 +46,9 @@ recurrence kernels, K1 for synthesis and K2 for its adjoint (analysis):
   fold; ``alm2map_der1`` (one batched spin-1 synthesis) on top.
 
 Both precisions run on the card: complex64/float32 inputs take the f32
-tables and kernels, complex128/float64 inputs the f64 tables (no
-checkpoints, S=512, β=256; a host-built Λ cast to float64) and the
-kernels' double instantiations.
+kernels and ring tables, complex128/float64 inputs the kernels' double
+instantiations and complex128 ring tables (a host-built Λ cast to
+float64); the scan tables are float64 (S=512, β=256) for both.
 
 The TPU-only knobs of the JAX operator (matmul FFTs, conv and precision
 modes, the banded cap) are not part of this port.
@@ -66,7 +66,7 @@ import torch
 from ..device import resolve_device
 from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
                             legendre_contract, legendre_project, release)
-from ..ops.scan_legendre import (_lambda_blocks, planes_minor, scale_for,
+from ..ops.scan_legendre import (SCALE, _lambda_blocks, planes_minor,
                                  scan_contract, scan_project)
 from ..util.profiling import build, stage
 from . import pixel
@@ -80,6 +80,48 @@ def _next_fft_size(n):
     while s < n:
         s *= 2
     return s
+
+
+def _legendre_tables(lmax, theta, mmax=None):
+    """The recurrence's host tables (numpy float64) at colatitudes
+    ``theta``, for m ≤ ``mmax`` (default lmax): coefficient rows ``rec_a``,
+    ``rec_b`` [L, M] (zero for m ≥ ℓ), and the λ_mm seeds as their signs and
+    natural logs of their magnitudes [R, M]."""
+    L = int(lmax) + 1
+    M = L if mmax is None else int(mmax) + 1
+    l = np.arange(L)[:, None].astype(np.float64)
+    m = np.arange(M)[None, :].astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        a = np.sqrt((4 * l**2 - 1.0) / (l**2 - m**2))
+        b = -np.sqrt(
+            ((2 * l + 1.0) / (2 * l - 3.0))
+            * ((l - 1) ** 2 - m**2)
+            / (l**2 - m**2)
+        )
+    valid = l > m
+    rec_a = np.where(valid, a, 0.0)
+    rec_b = np.where(valid, b, 0.0)
+    # λ_mm via a log-space cumulative product
+    ln_sth = np.log(np.sin(theta))[:, None]
+    ratio = 0.5 * np.concatenate(
+        [[0.0], np.log((2 * np.arange(1, M) + 1.0) / (2 * np.arange(1, M)))]
+    )
+    ln_lam = (0.5 * np.log(1.0 / (4 * np.pi)) + np.cumsum(ratio)[None, :]
+              + m * ln_sth)
+    sign = np.where(np.arange(M)[None, :] % 2 == 0, 1.0, -1.0)
+    return rec_a, rec_b, sign, ln_lam
+
+
+def _scaled_seeds(sign, ln_lam_mm):
+    """(seeds, k0): λ_mm pre-scaled by 2^(S·k0), k0 the least count that
+    lifts it above 2^-β (S, β = :data:`~cora_tpu_torch.ops.scan_legendre.
+    SCALE`), as the scaled recurrence takes them."""
+    S, beta = SCALE
+    log2_lam_mm = ln_lam_mm / np.log(2.0)
+    k0 = np.ceil(np.maximum(0.0, -(log2_lam_mm + beta) / S))
+    with np.errstate(under="ignore"):
+        seeds = sign * np.exp2(log2_lam_mm + S * k0)
+    return seeds, k0
 
 
 def _band_mw(L, lc, c_lo, nc):
@@ -96,13 +138,13 @@ class SHT:
     ----------
     nside, lmax : int
     l_chunk : int (even)
-        ℓ rows per draw chunk (and per parity in a Λ chunk); with
-        ``ckpt_every`` it sets the re-seed cadence ``band_rows =
-        l_chunk·ckpt_every``: the f32 recurrence is re-seeded from exact
-        f64 checkpoint rows at every band start (bounds the error growth
-        to O(band_rows·ε)).
+        ℓ rows per draw chunk (and per parity in a Λ chunk).
     ckpt_every : int
-        Chunks per checkpoint band.
+        ℓ-chunks per band of the correlated draw: each band draws its
+        white noise over the band's m-width (:func:`_draw_blocks`).  It
+        once also set the re-seed cadence of a float32 recurrence; the
+        recurrence is now carried in float64 from its seeds, re-seeded by
+        no rows.
     device : str or torch.device
         Where the operator's tables live and its transforms run.
     legendre_mode : {"scan", "cached"}
@@ -111,21 +153,16 @@ class SHT:
     lambda_build : {"host", "device"}
         Cached mode: the host f64 recurrence cast to ``cache_dtype`` (the
         accuracy reference, disk-cached at ``lambda_cache``), or the scaled
-        checkpointed recurrence on the device (the scan-mode accuracy
-        class; exact f64 in float64).
+        recurrence of the scan kernels on the device (carried in float64,
+        each row rounded once to the table's precision).
     ckpt_cache : str, optional
-        npz file that keeps the f32 tables' checkpoint rows across
-        processes (read when it holds this geometry, else written).
+        Kept for the reference's signature; reads and writes nothing: the
+        float64 carry needs no checkpoint rows.
     scan_ckpt : bool
-        Scan mode: re-seed the f32 recurrence from the checkpoint rows at
-        every band start (the default here, as :func:`get_sht` and every
-        caller of the port; the reference's constructor defaults to False,
-        its ``get_sht`` on an accelerator to True).  False builds no rows
-        (no ``checkpoints`` stage, no ``lam_ck``; ``psl_ck`` is the
-        no-re-seed placeholder): the f32 recurrence runs unre-seeded, the
-        O(L·ε) drift class, as the reference ran nside 2048 on one chip.
-        A cached operator with ``lambda_build="device"`` builds its rows
-        whatever this is.
+        Kept for the reference's signature (whose float32 scan recurrence
+        re-seeds from checkpoint rows when True); changes nothing here:
+        both precisions carry the recurrence in float64 from the seeds,
+        and no operator builds rows.
     """
 
     def __init__(self, nside: int, lmax: int, l_chunk: int = 64,
@@ -141,7 +178,6 @@ class SHT:
         if self.l_chunk <= 0 or self.l_chunk % 2:
             raise ValueError("l_chunk must be a positive even number")
         self.ckpt_every = max(1, int(ckpt_every))
-        self.band_rows = self.l_chunk * self.ckpt_every
         if legendre_mode not in ("scan", "cached"):
             raise ValueError(f"unknown legendre_mode {legendre_mode!r}")
         if lambda_build not in ("host", "device"):
@@ -150,12 +186,9 @@ class SHT:
         self.lambda_build = lambda_build
         self.cache_dtype = np.dtype(cache_dtype)
         self.lambda_cache = lambda_cache
-        self.ckpt_cache = ckpt_cache
-        self.scan_ckpt = bool(scan_ckpt)
         with build("sht_geometry", self.device):
             self._host_geometry()
 
-        self._ck = None
         self._lam_meta = self._lambda_chunk_meta()
         self._lam_host = None
         self._tables = {}
@@ -173,34 +206,13 @@ class SHT:
         self._phi0 = info["phi0"]
         self._start = info["start"]
         self._z_half = np.cos(info["theta"][:nh])
-        self._sth_half = np.sin(info["theta"][:nh])
 
-        # --- recurrence coefficients a[l, m], b[l, m] (host, float64)
+        # --- recurrence coefficients a[l, m], b[l, m] and λ_mm seeds [nh, L]
         L = self.lmax + 1
-        l = np.arange(L)[:, None].astype(np.float64)
-        m = np.arange(L)[None, :].astype(np.float64)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            a = np.sqrt((4 * l**2 - 1.0) / (l**2 - m**2))
-            b = -np.sqrt(
-                ((2 * l + 1.0) / (2 * l - 3.0))
-                * ((l - 1) ** 2 - m**2)
-                / (l**2 - m**2)
-            )
-        valid = l > m
-        self._rec_a = np.where(valid, a, 0.0)
-        self._rec_b = np.where(valid, b, 0.0)
-
-        # --- λ_mm seeds [nh, L] via a log-space cumulative product
-        ln_sth = np.log(self._sth_half)[:, None]
-        ratio = 0.5 * np.concatenate(
-            [[0.0], np.log((2 * np.arange(1, L) + 1.0) / (2 * np.arange(1, L)))]
-        )
-        ln_lam = (0.5 * np.log(1.0 / (4 * np.pi)) + np.cumsum(ratio)[None, :]
-                  + m * ln_sth)
-        self._lam_sign = np.where(np.arange(L)[None, :] % 2 == 0, 1.0, -1.0)
+        self._rec_a, self._rec_b, self._lam_sign, self._ln_lam_mm = (
+            _legendre_tables(self.lmax, info["theta"][:nh]))
         with np.errstate(under="ignore"):
-            self._lam_mm = self._lam_sign * np.exp(ln_lam)
-        self._log2_lam_mm = ln_lam / np.log(2.0)
+            self._lam_mm = self._lam_sign * np.exp(self._ln_lam_mm)
 
         # --- equatorial band: the run of rings with n_r == W = 4·nside,
         # one Hermitian-packed inverse DFT at W/2 with phases e^{imφ0}
@@ -254,73 +266,10 @@ class SHT:
                 and np.array_equal(self._phi0, self._phi0[::-1])):
             raise ValueError("ring geometry is not N/S symmetric")
 
-    @property
-    def _ck_host(self):
-        """The f32 tables' checkpoint rows (scan mode, and the device build
-        of an f32 Λ), at first use: read from ``ckpt_cache`` when it holds
-        this geometry [nside, lmax, l_chunk, ckpt_every], else built
-        (seconds of host recurrence at nside=512, which float64-only callers
-        skip) and written there."""
-        if self._ck is None:
-            with build("checkpoints", self.device):
-                meta = np.array([self.nside, self.lmax, self.l_chunk,
-                                 self.ckpt_every], dtype=np.int64)
-                d = _load_npz(self.ckpt_cache, meta)
-                if d is not None and "ck" in d:
-                    self._ck = d["ck"]
-                else:
-                    self._ck = self._build_scan_checkpoints()
-                    if self.ckpt_cache:
-                        _save_npz(self.ckpt_cache, meta=meta, ck=self._ck)
-        return self._ck
-
-    # ------------------------------------------------------------------
-
-    def _build_scan_checkpoints(self):
-        """Exact λ carry rows at band boundaries: [n_ck, 2, nh, L] float32.
-
-        Rows (λ_{l0-2}, λ_{l0-1}) for each band start l0 = c·l_chunk·
-        ckpt_every (zeros for band 0), from the host f64 recurrence.
-        """
-        L = self.lmax + 1
-        nh = self.nhalf
-        lc = self.l_chunk
-        ke = self.ckpt_every
-        nchunk = -(-L // lc)
-        n_ck = -(-nchunk // ke)
-
-        z = self._z_half
-        ck = np.zeros((n_ck, 2, nh, L), dtype=np.float32)
-        lam_p = np.zeros((nh, L))
-        lam_pp = np.zeros((nh, L))
-        az = np.empty((nh, L))
-        with np.errstate(under="ignore"):
-            for ll in range(L):
-                # triangle update in place: λ is zero for m > ll
-                sl = slice(0, ll + 1)
-                lam = lam_pp
-                np.multiply(z[:, None], lam_p[:, sl], out=az[:, sl])
-                az[:, sl] *= self._rec_a[ll, sl][None, :]
-                lam[:, sl] *= self._rec_b[ll, sl][None, :]
-                lam[:, sl] += az[:, sl]
-                lam[:, ll] = self._lam_mm[:, ll]
-                lam_pp = lam_p
-                lam_p = lam
-                nxt = ll + 1
-                if nxt % (lc * ke) == 0 and nxt // lc < nchunk:
-                    c = nxt // (lc * ke)
-                    ck[c, 0] = lam_pp.astype(np.float32)
-                    ck[c, 1] = lam_p.astype(np.float32)
-        return ck
-
-    def _scaled_seeds(self, double=False):
-        """(seeds, k0) [nh, L] for the scaled recurrence at the requested
-        precision (S=60, β=30 in f32; S=512, β=256 in f64)."""
-        S, beta = scale_for(torch.float64 if double else torch.float32)
-        k0 = np.ceil(np.maximum(0.0, -(self._log2_lam_mm + beta) / S))
-        with np.errstate(under="ignore"):
-            seeds = self._lam_sign * np.exp2(self._log2_lam_mm + S * k0)
-        return seeds, k0
+    def _scaled_seeds(self):
+        """(seeds, k0) [nh, L] for the scaled recurrence (S=512, β=256; the
+        float64 carry of both precisions)."""
+        return _scaled_seeds(self._lam_sign, self._ln_lam_mm)
 
     # --- the cached mode's Λ chunks ------------------------------------
 
@@ -398,17 +347,17 @@ class SHT:
         return lam
 
     def _build_lambda_device(self, double=False):
-        """Flat Λ on the device from the scaled, checkpointed recurrence of
-        the scan kernels (:func:`cora_tpu_torch.ops.scan_legendre.
-        _lambda_blocks`, K1's exact semantics; f64: no checkpoints, S=512,
-        β=256), each block of rows written into its parity chunks."""
+        """Flat Λ on the device from the scaled recurrence of the scan
+        kernels (:func:`cora_tpu_torch.ops.scan_legendre._lambda_blocks`,
+        K1's exact semantics: carried in float64, each row rounded once to
+        the table's precision), each block of rows written into its parity
+        chunks."""
         desc, total = self.lambda_desc()
         fdt = torch.float64 if double else torch.float32
         lam = torch.zeros(total, dtype=fdt, device=self.device)
         views = chunk_views(lam, desc, self.nhalf)
         t = self._scan_layout(self._scan_base_tables(double), double)
-        for j0, le, lo in _lambda_blocks(*_kernel_tables(t), self.band_rows,
-                                         scale_for(fdt), fdt):
+        for j0, le, lo in _lambda_blocks(*_kernel_tables(t), fdt):
             nj = le.shape[0]
             for (p, sub_lo, nrows, mw), v in zip(self._lam_meta, views):
                 a, b = max(j0, sub_lo), min(j0 + nj, sub_lo + nrows)
@@ -447,12 +396,14 @@ class SHT:
 
         Cached mode: the ring tables, the flat Λ ``lam`` and its descriptor
         ``lam_desc`` (:meth:`lambda_desc`), built here at the first call.
-        Scan mode, keys mirroring the JAX operator's ``tables()``: recurrence
-        rows ``rec_a``/``rec_b``, seeds ``lam_mm``/``lam_k0`` (scaled for the
-        recurrence at this precision), ``z_half``, checkpoints ``lam_ck``
-        (f32 with ``scan_ckpt`` only: re-seeding an f64 recurrence from
-        f32-cast rows would cost it its precision), and the ring tables;
-        plus the derived kernel layout (``psl_*``).
+        Scan mode, keys mirroring the JAX operator's ``tables(True)``:
+        recurrence rows ``rec_a``/``rec_b``, seeds ``lam_mm``/``lam_k0``
+        (scaled with S=512, β=256) and ``z_half``, float64 at either
+        precision (the kernels carry the recurrence in float64; no
+        checkpoint rows ``lam_ck``: re-seeding a float64 carry from
+        float32-cast rows would cost it its precision), and the ring tables
+        at the requested precision; plus the derived kernel layout
+        (``psl_*``).
         """
         key = bool(double)
         if key not in self._tables:
@@ -466,28 +417,22 @@ class SHT:
         return self._tables[key]
 
     def _scan_base_tables(self, double):
-        fdt = np.float64 if double else np.float32
-        seeds, k0 = self._scaled_seeds(double)
-        t = dict(
-            rec_a=self._rec_a.astype(fdt),
-            rec_b=self._rec_b.astype(fdt),
-            lam_mm=seeds.astype(fdt),
-            lam_k0=k0.astype(fdt),
-            z_half=self._z_half.astype(fdt),
-        )
-        # the device Λ build re-seeds from the rows in either case
-        if not double and (self.scan_ckpt or self.legendre_mode == "cached"):
-            t["lam_ck"] = self._ck_host
-        t = {k_: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-             for k_, v in t.items()}
-        t.update(self.ring_tables(double))
+        """The scan tables on the device: the recurrence's (float64 for
+        both precisions) and the ring tables at the requested one."""
+        with build("scan_tables", self.device):
+            seeds, k0 = self._scaled_seeds()
+            t = dict(rec_a=self._rec_a, rec_b=self._rec_b, lam_mm=seeds,
+                     lam_k0=k0, z_half=self._z_half)
+            t = {k_: torch.from_numpy(np.ascontiguousarray(v, np.float64))
+                 .to(self.device) for k_, v in t.items()}
+            t.update(self.ring_tables(double))
         return t
 
     def ring_tables(self, double: bool = False):
         """The ring stage's tables alone (``eq_phase``, ``eq_twid``,
         ``bl_A_cap``, ``bl_C_cap``, ``bl_Bf_cap``) at the requested
         precision, cached: what the spin transforms need of this operator,
-        without the Legendre tables or their checkpoint rows."""
+        without the Legendre tables."""
         key = ("ring", bool(double))
         if key not in self._tables:
             cdt = np.complex128 if double else np.complex64
@@ -499,36 +444,35 @@ class SHT:
         return self._tables[key]
 
     def load_tables(self, t, double: bool = False):
-        """Install base tables ``t`` (tensors on this operator's device) and
-        derive the kernel layout from them.
+        """Install base tables ``t`` (tensors on this operator's device; the
+        seeds scaled with S=512, β=256, as the reference's ``tables(True)``)
+        and derive the kernel layout from them: the recurrence's tables in
+        float64, the ring tables at the requested precision.
 
         ``psl_rec_a``/``psl_rec_b`` [Lk, L]: recurrence rows zero-padded to
-        whole ℓ-chunks (Lk = nchunk·l_chunk); ``psl_seed``/``psl_k0`` [L, nh]
-        and ``psl_ck`` [nband, 2, L, nh]: m-leading transposes.
+        whole ℓ-chunks (Lk = nchunk·l_chunk); ``psl_seed``/``psl_k0``
+        [L, nh]: m-leading transposes.
         """
         t = self._scan_layout(t, double)
         self._tables[bool(double)] = t
         return t
 
     def _scan_layout(self, t, double):
-        """``t`` with the scan kernels' layout (``psl_*``) derived."""
+        """``t`` with the scan kernels' layout (``psl_*``) derived, the
+        recurrence's tables float64 and the ring tables complex at the
+        precision of ``double``."""
         L = self.lmax + 1
         lc = self.l_chunk
         Lk = -(-L // lc) * lc
-        fdt = torch.float64 if double else torch.float32
-        t = dict(t)
-        rec_a = t["rec_a"].to(fdt)
-        rec_b = t["rec_b"].to(fdt)
-        t["psl_rec_a"] = torch.nn.functional.pad(rec_a, (0, 0, 0, Lk - L)).contiguous()
-        t["psl_rec_b"] = torch.nn.functional.pad(rec_b, (0, 0, 0, Lk - L)).contiguous()
-        t["psl_seed"] = t["lam_mm"].to(fdt).T.contiguous()
-        t["psl_k0"] = t["lam_k0"].to(fdt).T.contiguous()
-        t["psl_z"] = t["z_half"].to(fdt).contiguous()
-        ck = t.get("lam_ck")
-        if ck is not None and ck.shape[0] > 1:
-            t["psl_ck"] = ck.to(fdt).permute(0, 1, 3, 2).contiguous()
-        else:
-            t["psl_ck"] = torch.zeros((1, 2, 1, 1), dtype=fdt, device=self.device)
+        f64 = torch.float64
+        cdt = torch.complex128 if double else torch.complex64
+        t = {k_: (v.to(cdt) if v.is_complex() else v) for k_, v in t.items()}
+        pad = (0, 0, 0, Lk - L)
+        t["psl_rec_a"] = torch.nn.functional.pad(t["rec_a"].to(f64), pad).contiguous()
+        t["psl_rec_b"] = torch.nn.functional.pad(t["rec_b"].to(f64), pad).contiguous()
+        t["psl_seed"] = t["lam_mm"].to(f64).T.contiguous()
+        t["psl_k0"] = t["lam_k0"].to(f64).T.contiguous()
+        t["psl_z"] = t["z_half"].to(f64).contiguous()
         return t
 
     # ------------------------------------------------------------------
@@ -619,9 +563,9 @@ def default_legendre_mode(device_type: str, nside: int) -> str:
 def _user_cache_dir():
     """Disk cache for host-built tables: $CORA_TPU_TORCH_CACHE,
     ~/.cache/cora_tpu_torch, or None ("" or an unwritable directory).  It
-    holds Λ chunks (``lam_*.npz``), scan checkpoint rows (``ck_*.npz``) and
-    the C_l engine's DCT tables (``dct_*.npz``): each a pure function of
-    its key (geometry, or grid and a probe of P(k))."""
+    holds Λ chunks (``lam_*.npz``) and the C_l engine's DCT tables
+    (``dct_*.npz``): each a pure function of its key (geometry, or grid
+    and a probe of P(k))."""
     d = os.environ.get("CORA_TPU_TORCH_CACHE")
     if d == "":
         return None
@@ -669,14 +613,12 @@ def _save_npz(path, **arrays):
 def _get_sht_cached(nside, lmax, l_chunk, legendre_mode, lambda_build, device):
     ke = max(1, (nside // 512) ** 2)
     cdir = _user_cache_dir()
-    lam_cache = ck_cache = None
-    if cdir:
-        ck_cache = os.path.join(cdir, f"ck_{nside}_{lmax}_{l_chunk}_{ke}.npz")
-        if legendre_mode == "cached" and lambda_build == "host":
-            lam_cache = os.path.join(cdir, f"lam_{nside}_{lmax}_{l_chunk}.npz")
+    lam_cache = None
+    if cdir and legendre_mode == "cached" and lambda_build == "host":
+        lam_cache = os.path.join(cdir, f"lam_{nside}_{lmax}_{l_chunk}.npz")
     return SHT(nside, lmax, l_chunk=l_chunk, ckpt_every=ke, device=device,
                legendre_mode=legendre_mode, lambda_build=lambda_build,
-               lambda_cache=lam_cache, ckpt_cache=ck_cache)
+               lambda_cache=lam_cache)
 
 
 def get_sht(nside: int, lmax: int, l_chunk: int = 64, legendre_mode=None,
@@ -684,9 +626,8 @@ def get_sht(nside: int, lmax: int, l_chunk: int = 64, legendre_mode=None,
     """Cached operator with the JAX factory's defaults: the mode of
     :func:`default_legendre_mode` (cached on CUDA at 2 ≤ nside ≤ 512, scan
     otherwise), a device-built Λ on CUDA and a host-built one on the CPU
-    (disk-cached under :func:`_user_cache_dir`, as the checkpoint rows
-    are), and ``ckpt_every = max(1,
-    (nside // 512)²)``.  ``legendre_mode="scan"`` forces the scan kernels.
+    (disk-cached under :func:`_user_cache_dir`), and ``ckpt_every = max(1,
+    (nside // 512)²)`` (the draw's bands).  ``legendre_mode="scan"`` forces the scan kernels.
 
     A cached-mode operator holds its Λ per precision in use: at nside=512,
     lmax=1535, 5.2 GB in float32 and 10.5 GB in float64.  The Λ tables of
@@ -846,13 +787,17 @@ def _route(H0c, H1c, L, out=(None, None)):
 
 def _kernel_tables(t):
     return (t["psl_rec_a"], t["psl_rec_b"], t["psl_seed"], t["psl_k0"],
-            t["psl_z"], t["psl_ck"])
+            t["psl_z"])
+
+
+def _scan_dtype(t):
+    """The real dtype of the transforms of scan tables ``t``: their ring
+    tables' precision (the recurrence's tables are float64 for both)."""
+    return torch.float64 if t["eq_twid"].dtype == torch.complex128 else torch.float32
 
 
 def _contract(op, t, A0, A1):
-    # tables of each precision are scaled for it (SHT._scaled_seeds)
-    return scan_contract(*_kernel_tables(t), A0, A1, band_rows=op.band_rows,
-                         scale=scale_for(t["psl_rec_a"].dtype))
+    return scan_contract(*_kernel_tables(t), A0, A1)
 
 
 def fused_GeGo(op, t, alm):
@@ -865,7 +810,7 @@ def fused_GeGo(op, t, alm):
     L = op.lmax + 1
     Lk = t["psl_rec_a"].shape[0]
     batch = tuple(alm.shape[:-2])
-    planes = _planes(alm, t["psl_rec_a"].dtype)
+    planes = _planes(alm, _scan_dtype(t))
     planes = torch.nn.functional.pad(planes, (0, 0, 0, Lk - L))
     A = [planes_minor(planes.shape[0], Lk // 2, L, planes.dtype, planes.device)
          .copy_(planes[:, p::2]) for p in (0, 1)]
@@ -883,14 +828,13 @@ def fused_project(op, t, Ge, Go):
     plane axis as ``[all real; all imag]``.
     """
     L = op.lmax + 1
-    rdt = t["psl_rec_a"].dtype
+    rdt = _scan_dtype(t)
     batch = tuple(Ge.shape[:-2])
     Pe, Po = _planes(Ge, rdt), _planes(Go, rdt)
     # the sources planes-minor, as K2 reads them
     src0, src1 = _route(Pe, Po, L, out=[planes_minor(*Pe.shape, rdt, Pe.device)
                                         for _ in range(2)])
-    A0, A1 = scan_project(*_kernel_tables(t), src0, src1,
-                          band_rows=op.band_rows, scale=scale_for(rdt))
+    A0, A1 = scan_project(*_kernel_tables(t), src0, src1)
     # interleave the even/odd ℓ rows, trim the padded rows
     alm = torch.stack([A0, A1], dim=2).reshape(A0.shape[0], -1, L)[:, :L]
     return _join(alm, batch)
@@ -1032,7 +976,7 @@ def _fused_scan_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
     L = op.lmax + 1
     lc = op.l_chunk
     Lk = t["psl_rec_a"].shape[0]
-    fdt = t["psl_rec_a"].dtype
+    fdt = _scan_dtype(t)
     F2 = 2 * nz_chunk
     dev = op.device
     A0, A1 = (planes_minor(F2, Lk // 2, L, fdt, dev).zero_() for _ in range(2))

@@ -132,8 +132,8 @@ class SpinSHT:
     (``_tab[sp] = (A, B, C, seed[nh, L], l0[L])``, the reference's layout)
     and the cached scalar operator of the same (nside, lmax)
     (:func:`~cora_tpu_torch.healpix.sht.get_sht`) for the ring geometry;
-    only its ring tables are taken, so no Legendre table or checkpoint
-    row is built for a spin transform.  ``legendre_mode="cached"`` stores
+    only its ring tables are taken, so no Legendre table is built for a
+    spin transform.  ``legendre_mode="cached"`` stores
     the rows of both families (see the module notes) in chunks of
     ``l_chunk`` rows; ``lambda_cache``, an npz path, keeps them across
     processes (read when its ``meta`` holds this (nside, lmax, spin,

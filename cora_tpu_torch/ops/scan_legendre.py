@@ -34,9 +34,13 @@ F2 ≤ 8 one block per m keeps the carry and the sources in registers
 times in ``PERF.md``).  Both kernels read their input planes as 16-byte
 vectors from planes-minor storage (:func:`planes_minor`,
 :func:`kernel_planes`), the layout the transforms build, and K2 returns
-planes-minor views.  Both come in float32 (tables scaled with S=60, β=30)
-and float64 (S=512, β=256); the tensors' dtype picks the entry point and
-must match the tables' scaling.  ``launches`` counts K1 launches,
+planes-minor views.  Both come in float32 and float64 planes; in both the
+recurrence is carried in float64 from float64 tables scaled with S=512,
+β=256, and reads no checkpoint rows (``csrc/scan_recurrence.cuh`` says
+why: near the poles at nside 2048 a float32 carry ends 17.9% off, 4.1%
+even when re-seeded every 1024 ℓ).  The float32 kernels round each emitted
+λ once to float32 for their products.  The planes' dtype picks the entry
+point.  ``launches`` counts K1 launches,
 ``project_launches`` K2 launches, in either precision; ``entry_launches``
 counts them per C entry point (``cora_scan_contract``,
 ``cora_scan_contract_f64``, ``cora_scan_project``,
@@ -49,15 +53,11 @@ import ctypes
 
 import torch
 
-# f32 scaled-recurrence constants (the TPU kernel's _SCALE_S/_SCALE_BETA/
-# _CK_USE_TH): the f32 seed tables are pre-scaled for exactly these, and
-# the CUDA kernels hard-code them
-SCALE_S = 60.0
-SCALE_BETA = 30.0
-CK_USE_TH = 2.0**-20
-# float64 tables use a far wider step (cora_tpu's _lam_scale_params): the
-# entries still scaled (never emitted) then have |λ| < 2^-256
-SCALE_F64 = (512.0, 256.0)
+# (S, β) of the scaled recurrence, in both precisions (cora_tpu's float64
+# _lam_scale_params): the seed tables are pre-scaled for exactly these and
+# the CUDA kernels hard-code them; the entries still scaled (never emitted)
+# have |λ| < 2^-256
+SCALE = (512.0, 256.0)
 
 launches = 0
 project_launches = 0
@@ -68,16 +68,10 @@ _DTYPES = (torch.float32, torch.float64)
 _FNS = {}
 
 
-def scale_for(dtype):
-    """(S, β) of the scaled recurrence for tables of ``dtype``."""
-    return SCALE_F64 if dtype == torch.float64 else (SCALE_S, SCALE_BETA)
-
-
 def _kernel_fn(lib_name, fn_name):
     """A kernel's C entry point, with its signature declared.  The entry
-    points take (6 table pointers, nband, in0, in1, out0, out1, L, M, R,
-    F2, band_rows, fs, device, stream), fs the planes' vector stride
-    (:func:`kernel_planes`)."""
+    points take (5 table pointers, in0, in1, out0, out1, L, M, R, F2, fs,
+    device, stream), fs the planes' vector stride (:func:`kernel_planes`)."""
     fn = _FNS.get(fn_name)
     if fn is None:
         from . import _build
@@ -85,7 +79,7 @@ def _kernel_fn(lib_name, fn_name):
         fn = getattr(_build.load(lib_name), fn_name)
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.restype = I
-        fn.argtypes = [P] * 6 + [I] + [P] * 4 + [I] * 7 + [P]
+        fn.argtypes = [P] * 9 + [I] * 6 + [P]
         _FNS[fn_name] = fn
     return fn
 
@@ -126,65 +120,55 @@ def kernel_planes(x, name="planes"):
     return planes_minor(F2, n, M, x.dtype, x.device).copy_(x), fs
 
 
-def scan_contract(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1, *,
-                  band_rows, scale=(SCALE_S, SCALE_BETA)):
+def scan_contract(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1):
     """(He, Ho) [F2, R, M] from the recurrence tables and a_lm planes.
 
     Parameters
     ----------
-    rec_a, rec_b : [L, M] recurrence rows (L even).
-    seed_T, k0_T : [M, R] pre-scaled λ_mm seeds and scale counts.
-    z : [R] cosθ of the northern rings.
-    ck_T : [nband, 2, M, R] checkpoint rows for the band starting at row
-        ``b·band_rows``; band 0 is never read, and ``nband <= 1`` means
-        no re-seeding.
-    alm0, alm1 : [F2, L/2, M] even-ℓ / odd-ℓ a_lm planes.
-    band_rows : int, even — the re-seed cadence in ℓ rows.
-    scale : (S, β) the seed tables were scaled for (:func:`scale_for`).
+    rec_a, rec_b : [L, M] recurrence rows (L even), float64.
+    seed_T, k0_T : [M, R] λ_mm seeds pre-scaled for :data:`SCALE` and
+        their scale counts, float64.
+    z : [R] cosθ of the northern rings, float64.
+    alm0, alm1 : [F2, L/2, M] even-ℓ / odd-ℓ a_lm planes, float32 or
+        float64: the precision of the products and of (He, Ho).
 
-    CPU tensors run :func:`scan_contract_plain`; CUDA tensors launch the
-    kernel (float32 or float64, matching ``scale``) or raise.
+    The recurrence is carried in float64 whatever the planes, from the
+    seeds alone (no checkpoint rows).  CPU tensors run
+    :func:`scan_contract_plain`; CUDA tensors launch the kernel or raise.
     """
-    tabs = (rec_a, rec_b, seed_T, k0_T, z, ck_T)
-    dev = alm0.device
-    if dev.type == "cpu":
-        return scan_contract_plain(*tabs, alm0, alm1, band_rows=band_rows,
-                                   scale=scale)
+    tabs = (rec_a, rec_b, seed_T, k0_T, z)
+    if alm0.device.type == "cpu":
+        return scan_contract_plain(*tabs, alm0, alm1)
     global launches
     L, M = rec_a.shape
     F2 = alm0.shape[0]
     # the largest grid of either precision: 32-ring tiles, 4 m values a
     # block, a plane tile of 8 and two ℓ parities (csrc/scan_legendre.cu)
     out = _launch("scan_contract", "scan_legendre", tabs, alm0, alm1,
-                  (F2, L // 2, M), (F2, z.shape[0], M), band_rows, scale,
+                  (F2, L // 2, M), (F2, z.shape[0], M),
                   (-(-z.shape[0] // 32), -(-M // 4), 2 * -(-F2 // 8)))
     launches += 1
     return out
 
 
-def scan_project(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1, *,
-                 band_rows, scale=(SCALE_S, SCALE_BETA)):
+def scan_project(rec_a, rec_b, seed_T, k0_T, z, src0, src1):
     """(alm0, alm1) [F2, L/2, M] — the adjoint of :func:`scan_contract`.
 
-    ``src0``/``src1`` [F2, R, M] are the sources of the even-ℓ / odd-ℓ rows;
-    the tables, ``band_rows`` and ``scale`` are those of
-    :func:`scan_contract`.  CPU tensors run :func:`scan_project_plain`;
-    CUDA tensors launch the kernel (float32 or float64) or raise.  The
-    kernel reads the sources planes-minor (:func:`kernel_planes`) and
-    returns planes-minor views (:func:`planes_minor`), every element
-    written.
+    ``src0``/``src1`` [F2, R, M] are the sources of the even-ℓ / odd-ℓ rows
+    (float32 or float64); the tables are those of :func:`scan_contract`.
+    CPU tensors run :func:`scan_project_plain`; CUDA tensors launch the
+    kernel or raise.  The kernel reads the sources planes-minor
+    (:func:`kernel_planes`) and returns planes-minor views
+    (:func:`planes_minor`), every element written.
     """
-    tabs = (rec_a, rec_b, seed_T, k0_T, z, ck_T)
-    dev = src0.device
-    if dev.type == "cpu":
-        return scan_project_plain(*tabs, src0, src1, band_rows=band_rows,
-                                  scale=scale)
+    tabs = (rec_a, rec_b, seed_T, k0_T, z)
+    if src0.device.type == "cpu":
+        return scan_project_plain(*tabs, src0, src1)
     global project_launches
     L, M = rec_a.shape
     out = _launch("scan_project", "scan_project", tabs, src0, src1,
                   (src0.shape[0], z.shape[0], M), (src0.shape[0], L // 2, M),
-                  band_rows, scale, (8, -(-M // 2), -(-src0.shape[0] // 8)),
-                  minor_out=True)
+                  (8, -(-M // 2), -(-src0.shape[0] // 8)), minor_out=True)
     project_launches += 1
     return out
 
@@ -200,8 +184,8 @@ def _check(name, x, shape, dev, contiguous=True):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
-            band_rows, scale, grid, minor_out=False):
+def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape, grid,
+            minor_out=False):
     """Check every argument of a kernel, allocate its outputs and launch it
     on the current stream.  The input planes are taken as
     :func:`kernel_planes` says; the outputs are left unset (both kernels
@@ -209,38 +193,34 @@ def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
     planes-minor.
 
     The dtype of ``in0`` picks the float32 or the float64 entry point; the
-    tables must have been scaled for that dtype (:func:`scale_for`).
+    tables are float64 for both.
     """
     dt = in0.dtype
     if dt not in _DTYPES:
         raise TypeError(f"{fn_name}: float32 or float64 planes, got {dt}")
-    for name, x in zip(("rec_a", "rec_b", "seed_T", "k0_T", "z", "ck_T",
-                        "in0", "in1"), tabs + (in0, in1)):
-        if x.dtype != dt:
-            raise TypeError(f"{fn_name}: {name} must be {dt}, got {x.dtype}")
-    if tuple(scale) != scale_for(dt):
-        raise ValueError(f"{fn_name}: tables scaled with (S, β) = "
-                         f"{tuple(scale)} do not match {dt} planes, which "
-                         f"take {scale_for(dt)}")
+    if in1.dtype != dt:
+        raise TypeError(f"{fn_name}: in1 must be {dt}, got {in1.dtype}")
+    for name, x in zip(("rec_a", "rec_b", "seed_T", "k0_T", "z"), tabs):
+        if x.dtype != torch.float64:
+            raise TypeError(f"{fn_name}: {name} must be torch.float64 (the "
+                            f"carry is float64 for {dt} planes too), got "
+                            f"{x.dtype}")
     dev = in0.device
     if dev.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {dev}")
     (in0, fs), (in1, _) = (kernel_planes(x, f"{fn_name}: {name}")
                            for x, name in ((in0, "in0"), (in1, "in1")))
-    rec_a, rec_b, seed_T, k0_T, z, ck_T = tabs
+    rec_a, rec_b, seed_T, k0_T, z = tabs
     L, M = rec_a.shape
     R = z.shape[0]
-    nband = ck_T.shape[0]
-    if L % 2 or band_rows <= 0 or band_rows % 2:
-        raise ValueError(f"{fn_name}: L and band_rows must be even")
+    if L % 2:
+        raise ValueError(f"{fn_name}: L must be even")
     for name, x, shape in (("rec_a", rec_a, (L, M)), ("rec_b", rec_b, (L, M)),
                            ("seed_T", seed_T, (M, R)), ("k0_T", k0_T, (M, R)),
                            ("z", z, (R,)), ("in0", in0, in_shape),
                            ("in1", in1, in_shape)):
         _check(f"{fn_name}: {name}", x, shape, dev,
                contiguous=not name.startswith("in"))
-    if nband > 1:
-        _check(f"{fn_name}: ck_T", ck_T, (nband, 2, M, R), dev)
     if grid[0] >= 2**31 or max(grid[1:]) > 65535:
         raise ValueError(f"{fn_name}: shape exceeds the kernel's grid")
 
@@ -252,103 +232,91 @@ def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape,
     stream = torch.cuda.current_stream(dev).cuda_stream
     entry = "cora_" + fn_name + ("_f64" if dt == torch.float64 else "")
     err = _kernel_fn(lib_name, entry)(
-        *(x.data_ptr() for x in tabs), int(nband), in0.data_ptr(),
-        in1.data_ptr(), out0.data_ptr(), out1.data_ptr(), int(L), int(M),
-        int(R), int(in0.shape[0]), int(band_rows), int(fs), int(dev.index),
-        stream)
+        *(x.data_ptr() for x in tabs), in0.data_ptr(), in1.data_ptr(),
+        out0.data_ptr(), out1.data_ptr(), int(L), int(M), int(R),
+        int(in0.shape[0]), int(fs), int(dev.index), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
     entry_launches[entry] = entry_launches.get(entry, 0) + 1
     return out0, out1
 
 
-def _lambda_blocks(rec_a, rec_b, seed_T, k0_T, z, ck_T, band_rows, scale,
-                   dt):
+def _lambda_blocks(rec_a, rec_b, seed_T, k0_T, z, dt):
     """The scaled recurrence of both kernels, in plain PyTorch.
 
     Yields ``(j0, lam_even, lam_odd)`` per block of 64 ℓ rows: the block's
-    emitted rows [nj, M, R] of each ℓ parity (j0 = first row pair).  Exact
-    kernel semantics — seed at m == ℓ, emission only where k == 0, rescale
-    once per row pair after the odd row, re-seed at band starts.
+    emitted rows [nj, M, R] of each ℓ parity in ``dt`` (j0 = first row
+    pair).  Exact kernel semantics — the carry in float64 whatever ``dt``
+    (the tables are cast to it), seed at m == ℓ, emission only where
+    k == 0 (each emitted value rounded once to ``dt``), rescale by 2^-S
+    once per row pair after the odd row, no checkpoint rows.
     """
     dev = rec_a.device
     L, M = rec_a.shape
     R = z.shape[0]
-    if L % 2 or band_rows <= 0 or band_rows % 2:
-        raise ValueError("scan Legendre: L and band_rows must be even")
-    rec_a, rec_b, seed_T, k0_T = (x.to(dt) for x in (rec_a, rec_b, seed_T, k0_T))
-    zz = z.to(dt)[None, :]
-    nband = ck_T.shape[0]
-    thresh = 2.0 ** scale[1]
-    down = 2.0 ** -scale[0]
+    if L % 2:
+        raise ValueError("scan Legendre: L must be even")
+    f64 = torch.float64
+    rec_a, rec_b, seed_T, k0_T = (x.to(f64) for x in (rec_a, rec_b, seed_T, k0_T))
+    zz = z.to(f64)[None, :]
+    thresh = 2.0 ** SCALE[1]
+    down = 2.0 ** -SCALE[0]
 
-    lam_p = torch.zeros((M, R), dtype=dt, device=dev)
+    lam_p = torch.zeros((M, R), dtype=f64, device=dev)
     lam_pp = torch.zeros_like(lam_p)
     k = torch.zeros_like(lam_p)
-    zero = torch.zeros((), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=f64, device=dev)
     for lb0 in range(0, L, _PLAIN_L_BLOCK):
         nb = min(_PLAIN_L_BLOCK, L - lb0)
         rows = ([], [])
-        for p in range(nb // 2):
-            l_even = lb0 + 2 * p
-            b = l_even // band_rows
-            if nband > 1 and l_even > 0 and l_even % band_rows == 0 and b < nband:
-                c0 = ck_T[b, 0].to(dt)
-                c1 = ck_T[b, 1].to(dt)
-                use = (c0.abs() > CK_USE_TH) & (c1.abs() > CK_USE_TH)
-                lam_pp = torch.where(use, c0, lam_pp)
-                lam_p = torch.where(use, c1, lam_p)
-                k = torch.where(use, zero, k)
-            for l in (l_even, l_even + 1):
-                lam = rec_a[l][:, None] * (zz * lam_p) + rec_b[l][:, None] * lam_pp
-                if l < M:  # seed row: column m = l restarts from λ_mm
-                    lam[l] = seed_T[l]
-                    k[l] = k0_T[l]
-                rows[l % 2].append(torch.where(k == 0, lam, zero))
-                lam_pp, lam_p = lam_p, lam
-            grow = (lam_p.abs() > thresh) & (k > 0)
-            lam_p = torch.where(grow, lam_p * down, lam_p)
-            lam_pp = torch.where(grow, lam_pp * down, lam_pp)
-            k = torch.where(grow, k - 1, k)
+        for l in range(lb0, lb0 + nb):
+            lam = rec_a[l][:, None] * (zz * lam_p) + rec_b[l][:, None] * lam_pp
+            if l < M:  # seed row: column m = l restarts from λ_mm
+                lam[l] = seed_T[l]
+                k[l] = k0_T[l]
+            rows[l % 2].append(torch.where(k == 0, lam, zero).to(dt))
+            lam_pp, lam_p = lam_p, lam
+            if l % 2:
+                grow = (lam_p.abs() > thresh) & (k > 0)
+                lam_p = torch.where(grow, lam_p * down, lam_p)
+                lam_pp = torch.where(grow, lam_pp * down, lam_pp)
+                k = torch.where(grow, k - 1, k)
         yield lb0 // 2, torch.stack(rows[0]), torch.stack(rows[1])
 
 
-def scan_contract_plain(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1, *,
-                        band_rows, scale=(SCALE_S, SCALE_BETA)):
-    """Plain PyTorch version of :func:`scan_contract` (any float dtype).
+def scan_contract_plain(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1):
+    """Plain PyTorch version of :func:`scan_contract` (float32 or float64
+    planes; the carry in float64 either way).
 
     Generates each block of 64 λ rows (:func:`_lambda_blocks`) and
-    contracts it with one einsum per parity, m as the batch axis.  Runs in
-    the dtype of ``alm0`` (float64 gives the reference the kernel is held
-    to).
+    contracts it with one einsum per parity, m as the batch axis, in the
+    dtype of ``alm0`` (float64 gives the reference the kernel is held to).
     """
     F2 = alm0.shape[0]
     M = rec_a.shape[1]
     R = z.shape[0]
     he = torch.zeros((F2, R, M), dtype=alm0.dtype, device=alm0.device)
     ho = torch.zeros_like(he)
-    for j0, le, lo in _lambda_blocks(rec_a, rec_b, seed_T, k0_T, z, ck_T,
-                                     band_rows, scale, alm0.dtype):
+    for j0, le, lo in _lambda_blocks(rec_a, rec_b, seed_T, k0_T, z, alm0.dtype):
         nj = le.shape[0]
         he += torch.einsum("fjm,jmr->frm", alm0[:, j0:j0 + nj], le)
         ho += torch.einsum("fjm,jmr->frm", alm1[:, j0:j0 + nj], lo)
     return he, ho
 
 
-def scan_project_plain(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1, *,
-                       band_rows, scale=(SCALE_S, SCALE_BETA)):
-    """Plain PyTorch version of :func:`scan_project` (any float dtype).
+def scan_project_plain(rec_a, rec_b, seed_T, k0_T, z, src0, src1):
+    """Plain PyTorch version of :func:`scan_project` (float32 or float64
+    sources; the carry in float64 either way).
 
     The λ rows of :func:`scan_contract_plain`, each block of 64 projected
     onto the sources with one einsum per parity (the ring sum inside
-    the einsum).  Runs in the dtype of ``src0``.
+    the einsum), in the dtype of ``src0``.
     """
     L, M = rec_a.shape
     F2 = src0.shape[0]
     alm0 = torch.zeros((F2, L // 2, M), dtype=src0.dtype, device=src0.device)
     alm1 = torch.zeros_like(alm0)
-    for j0, le, lo in _lambda_blocks(rec_a, rec_b, seed_T, k0_T, z, ck_T,
-                                     band_rows, scale, src0.dtype):
+    for j0, le, lo in _lambda_blocks(rec_a, rec_b, seed_T, k0_T, z, src0.dtype):
         nj = le.shape[0]
         alm0[:, j0:j0 + nj] = torch.einsum("jmr,frm->fjm", le, src0)
         alm1[:, j0:j0 + nj] = torch.einsum("jmr,frm->fjm", lo, src1)

@@ -302,17 +302,16 @@ def synthesize_cube_sims_sharded(op, tables, roots, key, n_sims, mesh, fchunk=No
 # --- the 2-D (frequency × ring band) program ---------------------------------
 
 # the scan tables' leaves indexed by northern ring, and their ring axis: the
-# reference's ring_axis_of (z_half, lam_mm, lam_k0, lam_ck) and the kernel
-# layout derived from them (psl_*); every other leaf is replicated
-_RING_AXIS = {"z_half": 0, "lam_mm": 0, "lam_k0": 0, "lam_ck": 2,
-              "psl_z": 0, "psl_seed": 1, "psl_k0": 1, "psl_ck": 3}
+# reference's ring_axis_of (z_half, lam_mm, lam_k0) and the kernel layout
+# derived from them (psl_*); every other leaf is replicated
+_RING_AXIS = {"z_half": 0, "lam_mm": 0, "lam_k0": 0,
+              "psl_z": 0, "psl_seed": 1, "psl_k0": 1}
 
 
 def ring_band_tables(tables, r0, r1):
     """Scan tables (``SHT.tables`` in scan mode) cut to the northern rings
-    [r0, r1): each ring-indexed leaf sliced on its ring axis (``psl_ck``
-    only when it holds more than one band; the no-re-seed placeholder is
-    kept) and made contiguous, as K1 takes them; the ring-stage tables and
+    [r0, r1): each ring-indexed leaf sliced on its ring axis and made
+    contiguous, as K1 takes them; the ring-stage tables and
     the recurrence rows replicated.  The recurrence is independent per
     ring, so K1 on the slice computes those rows of the whole."""
     if "lam" in tables:
@@ -320,7 +319,7 @@ def ring_band_tables(tables, r0, r1):
     out = {}
     for k, v in tables.items():
         ax = _RING_AXIS.get(k)
-        if ax is None or (k == "psl_ck" and v.shape[0] <= 1):
+        if ax is None:
             out[k] = v
         else:
             out[k] = v.narrow(ax, r0, r1 - r0).contiguous()

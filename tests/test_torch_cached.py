@@ -289,7 +289,7 @@ def test_mode_rule(monkeypatch):
 
 def test_spin_operator_builds_no_scalar_lambda(monkeypatch):
     """A spin operator on a cached scalar operator takes its ring tables
-    only: no Λ and no checkpoint rows are built for it."""
+    only: no Λ and no scan tables are built for it."""
     monkeypatch.setenv("CORA_TPU_TORCH_CACHE", "")  # no disk cache
     monkeypatch.setattr(tsht, "default_legendre_mode", lambda dev, nside: "cached")
     tsht._get_sht_cached.cache_clear()
@@ -298,7 +298,7 @@ def test_spin_operator_builds_no_scalar_lambda(monkeypatch):
         assert op.scalar.legendre_mode == "cached"
         E = torch.from_numpy(_ralm(np.random.default_rng(11), 23, (1,), lo=2))
         op.synthesis(E, E)
-        assert op.scalar._lam_host is None and op.scalar._ck is None
+        assert op.scalar._lam_host is None
         assert not {False, True} & set(op.scalar._tables)
     finally:
         tsht._get_sht_cached.cache_clear()
@@ -373,47 +373,30 @@ def test_cached_mode_at_nside1_matches_scan_mode(kind):
     assert _rms_rel(maps[0].numpy(), maps[1].numpy()) <= 1e-5
 
 
-def test_checkpoint_rows_disk_cache(tmp_path, monkeypatch):
-    """The scan checkpoint rows: written at the first build, read back bit
-    for bit with no recurrence run; a file of another geometry (its
-    ``meta``) or one cut short is rebuilt and rewritten."""
-    path = str(tmp_path / "ck.npz")
-    kw = dict(l_chunk=8, device="cpu", ckpt_cache=path)
-    ck = tsht.SHT(8, 23, **kw)._ck_host
-    assert ck.shape[0] == 3 and np.abs(ck).max() > 0  # three bands of rows
-    op2 = tsht.SHT(8, 23, **kw)
-    monkeypatch.setattr(op2, "_build_scan_checkpoints",
-                        lambda: pytest.fail("rebuilt cached checkpoint rows"))
-    np.testing.assert_array_equal(op2._ck_host, ck)
-    # the rows reach the kernel tables unchanged
-    np.testing.assert_array_equal(op2.tables(False)["lam_ck"].numpy(), ck)
-
-    def rebuilt(op):
-        built = []
-        real = op._build_scan_checkpoints
-        monkeypatch.setattr(op, "_build_scan_checkpoints",
-                            lambda: built.append(1) or real())
-        rows = op._ck_host
-        return built == [1], rows
-
-    ok, rows = rebuilt(tsht.SHT(8, 22, **kw))  # another geometry's meta
-    assert ok and rows.shape[-1] == 23
-    with np.load(path) as d:
-        assert d["meta"].tolist() == [8, 22, 8, 1]
-    with open(path, "r+b") as f:
-        f.truncate(64)
-    ok, rows = rebuilt(tsht.SHT(8, 23, **kw))
-    assert ok
-    np.testing.assert_array_equal(rows, ck)
-    ok, rows = rebuilt(tsht.SHT(8, 23, **kw))
-    assert not ok
-    np.testing.assert_array_equal(rows, ck)
+@pytest.mark.parametrize("mode", ["scan", "cached"])
+def test_checkpoint_rows_disk_cache(mode, tmp_path):
+    """No checkpoint rows in either precision or mode (the scan recurrence
+    is carried in float64 from its seeds, the device Λ build too):
+    ``ckpt_cache`` is neither read nor written — a file of junk there
+    stays as it was — and the tables are those of an operator without it."""
+    path = tmp_path / "ck.npz"
+    path.write_bytes(b"not a checkpoint file")
+    kw = dict(l_chunk=8, device="cpu", legendre_mode=mode, lambda_build="device")
+    op = tsht.SHT(8, 23, ckpt_cache=str(path), **kw)
+    ref = tsht.SHT(8, 23, **kw)
+    for double in (False, True):
+        t, t_ref = op.tables(double), ref.tables(double)
+        assert "lam_ck" not in t and "psl_ck" not in t
+        key = "lam" if mode == "cached" else "psl_seed"
+        assert torch.equal(t[key], t_ref[key])
+    assert path.read_bytes() == b"not a checkpoint file"
+    assert [p.name for p in tmp_path.iterdir()] == ["ck.npz"]
 
 
 @pytest.mark.parametrize("setting", ["dir", "off"])
 def test_get_sht_checkpoint_cache_file(setting, tmp_path, monkeypatch):
-    """``get_sht`` keys the rows ``ck_{nside}_{lmax}_{l_chunk}_{ckpt_every}
-    .npz`` under ``$CORA_TPU_TORCH_CACHE``; ``""`` writes nothing."""
+    """``get_sht`` gives a scan operator no checkpoint-row file: with
+    ``$CORA_TPU_TORCH_CACHE`` set or ``""``, its tables write nothing."""
     cdir = tmp_path / "cache"
     monkeypatch.setenv("CORA_TPU_TORCH_CACHE", str(cdir) if setting == "dir" else "")
     monkeypatch.setenv("HOME", str(tmp_path / "home"))
@@ -423,9 +406,5 @@ def test_get_sht_checkpoint_cache_file(setting, tmp_path, monkeypatch):
         op.tables(False)
     finally:
         tsht._get_sht_cached.cache_clear()
-    if setting == "dir":
-        assert op.ckpt_cache == str(cdir / "ck_8_23_64_1.npz")
-        assert sorted(p.name for p in cdir.iterdir()) == ["ck_8_23_64_1.npz"]
-    else:
-        assert op.ckpt_cache is None and op.lambda_cache is None
-        assert not any(tmp_path.rglob("*.npz"))
+    assert op.legendre_mode == "scan" and op.lambda_cache is None
+    assert not any(tmp_path.rglob("*.npz"))

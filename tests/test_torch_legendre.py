@@ -127,14 +127,13 @@ def test_host_build_matches_reference(nside, lmax, lc, cache_dtype):
 @pytest.mark.parametrize("nside,lmax,lc,ke", [(16, 47, 8, 1), (16, 47, 8, 2),
                                               (16, 40, 8, 2)])
 def test_device_build_matches_reference_host_build(nside, lmax, lc, ke):
-    """The device build (the scan kernels' scaled f32 recurrence, re-seeded
-    from checkpoint rows every l_chunk·ckpt_every rows) against the
-    reference's host-built chunks: ≤ 5e-6·max per chunk at ckpt_every=1 and
-    maps within 3e-6 RMS — the bounds of the reference's own device-build
-    test, whose operators re-seed every chunk.  The recurrence error grows
-    with the re-seed spacing (O(band_rows·ε), the reference's
-    ``_build_scan_checkpoints`` notes), so the chunk bound scales with
-    ckpt_every (measured: 7.9e-6·max at ckpt_every=2)."""
+    """The float32 device build (the scan kernels' scaled recurrence,
+    carried in float64 and each row rounded once to float32; no checkpoint
+    rows) against the reference's host-built chunks (its host float64
+    recurrence cast to float32): ≤ 5e-6·max per chunk (times ckpt_every,
+    the bound when the build re-seeded a float32 carry every
+    l_chunk·ckpt_every rows) and maps within 3e-6 RMS — the bounds of the
+    reference's own device-build test."""
     jop = _jax_cached(nside, lmax, lc)
     top = _port_cached(nside, lmax, lc, ckpt_every=ke, lambda_build="device")
     t = top.tables(False)

@@ -143,18 +143,19 @@ def test_resolve_rejects_other_devices():
 
 
 def _tiny_inputs(device, F2=3, L=8, M=6, R=5):
+    """float64 tables (rec_a, rec_b, seed_T, k0_T, z) and float32 planes."""
     g = torch.Generator().manual_seed(0)
-    rnd = lambda *s: torch.randn(*s, generator=g).to(device)
-    return (rnd(L, M), rnd(L, M), rnd(M, R), torch.zeros(M, R, device=device),
-            rnd(R), torch.zeros(1, 2, 1, 1, device=device),
-            rnd(F2, L // 2, M), rnd(F2, L // 2, M))
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64).to(device)
+    return (rnd(L, M), rnd(L, M), rnd(M, R),
+            torch.zeros(M, R, dtype=torch.float64, device=device), rnd(R),
+            rnd(F2, L // 2, M).float(), rnd(F2, L // 2, M).float())
 
 
 def test_wrapper_cpu_runs_plain_without_launch():
     args = _tiny_inputs("cpu")
     before = k1.launches
-    he, ho = k1.scan_contract(*args, band_rows=4)
-    he_p, ho_p = k1.scan_contract_plain(*args, band_rows=4)
+    he, ho = k1.scan_contract(*args)
+    he_p, ho_p = k1.scan_contract_plain(*args)
     assert k1.launches == before
     assert torch.equal(he, he_p) and torch.equal(ho, ho_p)
     assert he.shape == (3, 5, 6)
@@ -163,21 +164,21 @@ def test_wrapper_cpu_runs_plain_without_launch():
 def test_wrapper_other_device_raises():
     args = _tiny_inputs("meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        k1.scan_contract(*args, band_rows=4)
+        k1.scan_contract(*args)
 
 
 def _tiny_project_inputs(device, F2=3, L=8, M=6, R=5):
     args = _tiny_inputs(device, F2, L, M, R)
     g = torch.Generator().manual_seed(1)
     src = [torch.randn(F2, R, M, generator=g).to(device) for _ in range(2)]
-    return args[:6] + tuple(src)
+    return args[:5] + tuple(src)
 
 
 def test_project_wrapper_cpu_runs_plain_without_launch():
     args = _tiny_project_inputs("cpu")
     before = (k1.launches, k1.project_launches)
-    a0, a1 = k1.scan_project(*args, band_rows=4)
-    p0, p1 = k1.scan_project_plain(*args, band_rows=4)
+    a0, a1 = k1.scan_project(*args)
+    p0, p1 = k1.scan_project_plain(*args)
     assert (k1.launches, k1.project_launches) == before
     assert torch.equal(a0, p0) and torch.equal(a1, p1)
     assert a0.shape == (3, 4, 6)
@@ -185,26 +186,27 @@ def test_project_wrapper_cpu_runs_plain_without_launch():
 
 def test_project_wrapper_other_device_raises():
     with pytest.raises(ValueError, match="unsupported device"):
-        k1.scan_project(*_tiny_project_inputs("meta"), band_rows=4)
+        k1.scan_project(*_tiny_project_inputs("meta"))
 
 
 @pytest.mark.parametrize("kernel", ["scan_contract", "scan_project"])
 def test_kernels_take_f64_tables_and_refuse_mismatch(kernel):
-    """float64 tensors with tables scaled for float64 (S=512, β=256) pass
-    the wrapper's checks and reach the launch (on a non-CUDA device: the
-    device check, which comes last); a dtype/scale mismatch is refused
-    before anything launches."""
+    """float32 and float64 planes both take the float64 tables (the carry
+    is float64, scaled with S=512, β=256) and pass the wrapper's checks to
+    the launch (on a non-CUDA device: the device check, which comes last);
+    float32 tables, or planes of two dtypes, are refused before anything
+    launches."""
     fn = getattr(k1, kernel)
     args = _tiny_project_inputs("meta")
-    args64 = [a.double() for a in args]
-    with pytest.raises(ValueError, match="unsupported device"):
-        fn(*args64, band_rows=4, scale=k1.SCALE_F64)
-    with pytest.raises(ValueError, match="do not match"):
-        fn(*args, band_rows=4, scale=k1.SCALE_F64)
-    with pytest.raises(ValueError, match="do not match"):
-        fn(*args64, band_rows=4)
-    assert k1.scale_for(torch.float64) == k1.SCALE_F64
-    assert k1.scale_for(torch.float32) == (k1.SCALE_S, k1.SCALE_BETA)
+    tabs, planes = args[:5], args[5:]
+    for dt in (torch.float32, torch.float64):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*tabs, *(x.to(dt) for x in planes))
+    with pytest.raises(TypeError, match="must be torch.float64"):
+        fn(*(x.float() for x in tabs), *planes)
+    with pytest.raises(TypeError, match="in1 must be"):
+        fn(*tabs, planes[0], planes[1].double())
+    assert k1.SCALE == (512.0, 256.0)
 
 
 def _tiny_wigner_inputs(device, F2=3, L=9, M=7, R=5, adjoint=False):
@@ -264,13 +266,13 @@ def test_wrapper_cuda_rejects_bad_inputs(cuda_device):
     bad = list(args)
     bad[6] = bad[6].double()
     with pytest.raises(TypeError):
-        k1.scan_contract(*bad, band_rows=4)
+        k1.scan_contract(*bad)
     bad = list(args)
     bad[6] = bad[6].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):
-        k1.scan_contract(*bad, band_rows=4)
-    with pytest.raises(ValueError):
-        k1.scan_contract(*args, band_rows=3)
+        k1.scan_contract(*bad)
+    with pytest.raises(ValueError):  # odd L
+        k1.scan_contract(*list(_tiny_inputs(cuda_device, L=7)))
 
 
 @pytest.mark.cuda
@@ -279,19 +281,19 @@ def test_project_wrapper_cuda_rejects_bad_inputs(cuda_device):
     bad = list(args)
     bad[6] = bad[6].double()
     with pytest.raises(TypeError):
-        k1.scan_project(*bad, band_rows=4)
-    with pytest.raises(ValueError):
-        k1.scan_project(*args, band_rows=3)
+        k1.scan_project(*bad)
+    with pytest.raises(ValueError):  # odd L
+        k1.scan_project(*_tiny_project_inputs(cuda_device, L=7))
 
 
 @pytest.mark.cuda
 def test_project_kernel_matches_plain_on_gpu(cuda_device):
     args = _tiny_project_inputs(cuda_device, F2=20, L=40, M=37, R=300)
     before = k1.project_launches
-    a0, a1 = k1.scan_project(*args, band_rows=4)
+    a0, a1 = k1.scan_project(*args)
     torch.cuda.synchronize()
     assert k1.project_launches == before + 1
-    p0, p1 = k1.scan_project_plain(*args, band_rows=4)
+    p0, p1 = k1.scan_project_plain(*args)
     sc = float(p0.abs().max())
     assert float((a0 - p0).abs().max()) < 1e-4 * sc
     assert float((a1 - p1).abs().max()) < 1e-4 * sc
@@ -301,10 +303,10 @@ def test_project_kernel_matches_plain_on_gpu(cuda_device):
 def test_kernel_matches_plain_on_gpu(cuda_device):
     args = _tiny_inputs(cuda_device, F2=20, L=40, M=37, R=70)
     before = k1.launches
-    he, ho = k1.scan_contract(*args, band_rows=4)
+    he, ho = k1.scan_contract(*args)
     torch.cuda.synchronize()
     assert k1.launches == before + 1
-    he_p, ho_p = k1.scan_contract_plain(*args, band_rows=4)
+    he_p, ho_p = k1.scan_contract_plain(*args)
     sc = float(he_p.abs().max())
     assert float((he - he_p).abs().max()) < 1e-4 * sc
     assert float((ho - ho_p).abs().max()) < 1e-4 * sc

@@ -133,9 +133,10 @@ def test_sims_on_a_2d_mesh_and_each_sims_seed(worlds):
 
 @pytest.fixture(scope="module")
 def fullsky_reference():
-    """cora_tpu's synthesis (``_synthesis_grid``) of the correlated a_ℓm
-    of the port's roots of worker.corr and worker.fullsky_xi, as maps, in
-    complex64/f32 and complex128/f64.  The port's roots are checked
+    """cora_tpu's float64 synthesis (``_synthesis_grid``) of the correlated
+    a_ℓm of the port's roots of worker.corr and worker.fullsky_xi, as maps:
+    the a_ℓm drawn in complex64 (the port's float32 draw) and in
+    complex128.  The port's roots are checked
     against cora_tpu's ``batch_matrix_root`` by R Rᵀ (eigenvector signs
     differ between LAPACK builds, so the roots themselves are not
     compared)."""
@@ -156,7 +157,8 @@ def fullsky_reference():
     for name, cdt in (("fullsky_xi", np.complex64), ("fullsky_xi64", np.complex128)):
         alm = np.einsum("lzy,lym->zlm", R.astype(cdt), worker.fullsky_xi(L, nz).astype(cdt))
         alm *= np.arange(L)[None, :] <= np.arange(L)[:, None]
-        grid = jsht._synthesis_grid(jop, jop.tables(cdt == np.complex128), jnp.asarray(alm))
+        grid = jsht._synthesis_grid(jop, jop.tables(True),
+                                    jnp.asarray(alm.astype(np.complex128)))
         ref[name] = np.asarray(jop.grid_to_map(grid), dtype=np.float64)
     return ref
 
@@ -165,9 +167,10 @@ def fullsky_reference():
 @pytest.mark.parametrize("name,tol", [("fullsky_xi", 1e-6), ("fullsky_xi64", 1e-12)])
 def test_mkfullsky_sharded_matches_reference_synthesis(worlds, fullsky_reference, world,
                                                        name, tol):
-    """mkfullsky_sharded given ξ, in each world, against cora_tpu's synthesis
-    of the same roots × ξ in the same precision: complex64 draws (f32
-    maps) within 1e-6·max, complex128 (f64 maps) within 1e-12·max."""
+    """mkfullsky_sharded given ξ, in each world, against cora_tpu's float64
+    synthesis of the same a_ℓm: complex64 draws (f32 maps, the recurrence
+    carried in float64) within 1e-6·max, complex128 (f64 maps) within
+    1e-12·max."""
     op = sht.get_sht(8, 23, device="cpu")
     got = op.grid_to_map(torch.from_numpy(worlds[world][name])).numpy()
     assert got.dtype == (np.float32 if name == "fullsky_xi" else np.float64)

@@ -14,8 +14,9 @@ per rank, so the roots-row permutation is load-bearing):
 * given the reference's scan-mode ξ, the world of 4 (2×2) and the
   one-process run against cora_tpu's oracle for its 2-D program, its
   ``synthesis_grid_correlated`` chunks (``tests/test_parallel.py``): by
-  ``test_torch_scan_correlated.within_reference``, the two packages' f32
-  recurrences rounding apart;
+  ``test_torch_scan_correlated.within_reference``, the port held to the
+  float64 synthesis of the same a_ℓm (its recurrence is carried in
+  float64, the reference's in float32);
 * the reference's refusals.
 """
 
@@ -156,8 +157,8 @@ def test_ring_band_tables_are_contiguous_row_slices():
     g = torch.Generator().manual_seed(1)
     A = [torch.randn((6,) + tuple(t["psl_rec_a"].shape), generator=g)[:, p::2] for p in (0, 1)]
     args = lambda tt: (tt["psl_rec_a"], tt["psl_rec_b"], tt["psl_seed"], tt["psl_k0"],
-                       tt["psl_z"], tt["psl_ck"])
-    whole = scan_contract(*args(t), *A, band_rows=op.band_rows)
-    part = scan_contract(*args(tb), *A, band_rows=op.band_rows)
+                       tt["psl_z"])
+    whole = scan_contract(*args(t), *A)
+    part = scan_contract(*args(tb), *A)
     for w, p in zip(whole, part):
         assert torch.equal(w[:, 8:16], p)

@@ -79,12 +79,12 @@ def test_device_lambda_records_sht_builds_once(monkeypatch):
                          device="cpu")
         op.tables(False)
         new = profiling.builds[n0:]
-        assert {n for n, _, _ in new} == {"sht_geometry", "checkpoints", "lambda_build"}
+        assert {n for n, _, _ in new} == {"sht_geometry", "scan_tables", "lambda_build"}
         assert all(e >= s for _, s, e in new)
-        # the device Λ build reads the checkpoint rows: the rows' span lies inside
+        # the device Λ build uploads the scan tables: their span lies inside
         spans = {n: (s, e) for n, s, e in new}
-        lb, ck = spans["lambda_build"], spans["checkpoints"]
-        assert lb[0] <= ck[0] <= ck[1] <= lb[1]
+        lb, st = spans["lambda_build"], spans["scan_tables"]
+        assert lb[0] <= st[0] <= st[1] <= lb[1]
         sht.get_sht(8, 23, legendre_mode="cached", lambda_build="device",
                     device="cpu").tables(False)
         assert len(profiling.builds) == n0 + 3

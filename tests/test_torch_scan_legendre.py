@@ -1,13 +1,15 @@
 """The scan-Legendre contraction (kernel K1) and projection (K2) of the port.
 
 On the CPU the wrapper runs the plain PyTorch version, held here to the
-JAX package's XLA scan formulation on identical tables (the oracle that
-``tests/test_pallas.py`` holds the Pallas kernel to) and, at the block
+JAX package's XLA scan formulation in float64 on identical float64 tables
+(the port carries the recurrence in float64 for float32 planes too, so its
+float32 results are held to the float64 reference) and, at the block
 level, to a numpy emulation of the CUDA kernel's loop structure (ℓ-block
-start per m tile, band counter, F tiling, two-level sums), which pins the
-kernel's design to the plain version's semantics without a GPU.  The
+start per m tile, the float64 carry, F tiling, two-level sums), which pins
+the kernel's design to the plain version's semantics without a GPU.  The
 projection is held the same way: its plain version to JAX
-``_legendre_project_scan`` (XLA route), to K1-plain by adjointness, and
+``_legendre_project_scan`` (XLA route, float64), to K1-plain by
+adjointness, and
 numpy replays of csrc/project_tiles.cuh's two loops (ring tiles whose
 partial sums are added in rank order, in passes of one cluster; one block
 per m with the warp reduction at F2 ≤ 8) to the plain version.  The CUDA
@@ -35,23 +37,24 @@ def _triangle_alm(rng, B, L):
 
 
 def test_plain_matches_jax_scan_streamed():
-    """fused_GeGo through the plain version vs the JAX streamed scan, same
-    tables (SHT(16, 47, l_chunk=8, ckpt_every=2), 3 alm planes):
-    ≤ 5e-6·max|Ge_ref| (the Pallas kernel's bound)."""
+    """fused_GeGo (float32) through the plain version vs the JAX streamed
+    scan in float64, same float64 tables (SHT(16, 47, l_chunk=8,
+    ckpt_every=2), 3 alm planes): ≤ 5e-6·max|Ge_ref| (the Pallas kernel's
+    bound)."""
     nside, lmax = 16, 47
     L = lmax + 1
     jop = jsht.SHT(nside, lmax, legendre_mode="scan", l_chunk=8,
                    scan_ckpt=True, ckpt_every=2)
-    jt = jop.tables(False)
+    jt = jop.tables(True)
     alm = _triangle_alm(np.random.default_rng(0), 3, L)
-    ja = jnp.asarray(alm)
+    ja = jnp.asarray(alm.astype(np.complex128))
 
     def alm_blk(c, l0, nrows, mw):
         blk = jax.lax.dynamic_slice_in_dim(ja, l0, nrows, axis=-2)[..., :mw]
-        return jnp.stack([blk.real, blk.imag], axis=1).astype(jnp.float32)
+        return jnp.stack([blk.real, blk.imag], axis=1)
 
     Ge_r, Go_r = jsht._legendre_contract_scan_streamed(
-        jop, jt, alm_blk, (3, 2), jnp.float32, expand=False)
+        jop, jt, alm_blk, (3, 2), jnp.float64, expand=False)
     Ge_r = np.asarray(jsht._join_planes(Ge_r))
     Go_r = np.asarray(jsht._join_planes(Go_r))
 
@@ -60,13 +63,14 @@ def test_plain_matches_jax_scan_streamed():
     t = top.load_tables(convert.sht_tables_from_numpy(
         {k: np.asarray(v) for k, v in jt.items()}, "cpu"))
     Ge, Go = tsht.fused_GeGo(top, t, torch.from_numpy(alm))
+    assert Ge.dtype == torch.complex64
     sc = np.abs(Ge_r).max()
     assert np.abs(Ge.numpy() - Ge_r).max() <= 5e-6 * sc
     assert np.abs(Go.numpy() - Go_r).max() <= 5e-6 * sc
 
 
 def _xi_blk(roots_p, xi):
-    half = np.float32(0.70710678)
+    half = 0.70710678
 
     def alm_blk(c, l0, nrows, mw):
         r = jax.lax.dynamic_slice_in_dim(jnp.asarray(roots_p), l0, nrows, 0)
@@ -78,20 +82,22 @@ def _xi_blk(roots_p, xi):
 
 
 def test_correlated_path_matches_jax_xla():
-    """The correlated draw + contraction (_fused_scan_GeGo) vs the JAX XLA
-    scan path with the same white noise (nside=64, lmax=191, l_chunk=128,
-    nz=4): ≤ 1e-4·max, the scan drift class of test_pallas.py."""
+    """The float32 correlated draw + contraction (_fused_scan_GeGo) vs the
+    JAX XLA scan path in float64 with the same white noise and roots
+    (nside=64, lmax=191, l_chunk=128, nz=4): ≤ 1e-4·max, the scan drift
+    class of test_pallas.py."""
     nside, lmax, nz = 64, 191, 4
     L = lmax + 1
     jop = jsht.SHT(nside, lmax, legendre_mode="scan", l_chunk=128,
                    scan_ckpt=True, ckpt_every=1)
-    jt = jop.tables(False)
+    jt = jop.tables(True)
     roots = (np.random.RandomState(2).randn(L, nz, nz) * 0.1).astype(np.float32)
     Lp = 256
     xi = np.random.default_rng(5).standard_normal((Lp, nz, 2, L)).astype(np.float32)
-    roots_p = np.pad(roots, ((0, Lp - L), (0, 0), (0, 0)))
+    roots_p = np.pad(roots, ((0, Lp - L), (0, 0), (0, 0))).astype(np.float64)
     Ge_r, Go_r = jsht._legendre_contract_scan_streamed(
-        jop, jt, _xi_blk(roots_p, xi), (nz, 2), jnp.float32, expand=False)
+        jop, jt, _xi_blk(roots_p, xi.astype(np.float64)), (nz, 2), jnp.float64,
+        expand=False)
     Ge_r = np.asarray(jsht._join_planes(Ge_r))
     Go_r = np.asarray(jsht._join_planes(Go_r))
 
@@ -100,6 +106,7 @@ def test_correlated_path_matches_jax_xla():
     Ge, Go = tsht._fused_scan_GeGo(top, top.tables(False),
                                    convert.roots_from_numpy(roots, "cpu"),
                                    tsht.xi_from_array(xi), 0, nz)
+    assert Ge.dtype == torch.complex64
     sc = np.abs(Ge_r).max()
     assert np.abs(Ge.numpy() - Ge_r).max() <= 1e-4 * sc
     assert np.abs(Go.numpy() - Go_r).max() <= 1e-4 * sc
@@ -111,56 +118,45 @@ def _sum4(g):
     return (g[0] + g[1]) + (g[2] + g[3])
 
 
-def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
-                    band_rows, warps=4, ft=32, lb=32, scale=(60, 30),
-                    dmma=False):
-    """numpy replay of csrc/scan_legendre.cu's block loop, in the dtype of
-    the planes (scaled with ``scale`` = (S, β)): ``warps`` m values and
-    ``ft`` planes a block, steps of ``lb`` rows from the step holding the
-    block's first m.  f32 sums each parity in a fresh partial per step,
-    added at the step's end; with ``dmma`` (f64, the tensor cores' m8n8k4)
-    each group of 4 rows of one parity is summed pairwise and added to the
-    running total."""
+def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1, warps=4,
+                    ft=32, lb=32, dmma=False):
+    """numpy replay of csrc/scan_legendre.cu's block loop: the recurrence
+    carried in float64 from the float64 tables (scaled with S=512, β=256),
+    each emitted row rounded to the dtype of the planes, the products in
+    that dtype: ``warps`` m values and ``ft`` planes a block, steps of
+    ``lb`` rows from the step holding the block's first m.  f32 sums each
+    parity in a fresh partial per step, added at the step's end; with
+    ``dmma`` (f64, the tensor cores' m8n8k4) each group of 4 rows of one
+    parity is summed pairwise and added to the running total."""
     f32 = alm0.dtype.type
+    S, beta = k1.SCALE
     L, M = rec_a.shape
     R = z.size
     F2 = alm0.shape[0]
-    nband = ck_T.shape[0]
     he = np.zeros((F2, R, M), f32)
     ho = np.zeros((F2, R, M), f32)
     for m0 in range(0, M, warps):
         ms = np.arange(m0, min(m0 + warps, M))
         for f0 in range(0, F2, ft):
             fs = np.arange(f0, min(f0 + ft, F2))
-            lp = np.zeros((ms.size, R), f32)
+            lp = np.zeros((ms.size, R))
             lpp = np.zeros_like(lp)
             k = np.zeros_like(lp)
             seed, k0 = seed_T[ms], k0_T[ms]
             acc = [np.zeros((fs.size, ms.size, R), f32) for _ in range(2)]
             lstart = (m0 // lb) * lb
-            next_ck = (max(band_rows, -(-lstart // band_rows) * band_rows)
-                       if nband > 1 else None)
             for lb0 in range(lstart, L, lb):
                 part = [np.zeros_like(acc[0]) for _ in range(2)]
                 group = [[], []]
                 for p in range(min(lb // 2, (L - lb0) // 2)):
                     l = lb0 + 2 * p
-                    if l == next_ck:
-                        b = l // band_rows
-                        if b < nband:
-                            c0, c1 = ck_T[b, 0][ms], ck_T[b, 1][ms]
-                            use = (np.abs(c0) > 2.0**-20) & (np.abs(c1) > 2.0**-20)
-                            lpp = np.where(use, c0, lpp)
-                            lp = np.where(use, c1, lp)
-                            k = np.where(use, f32(0), k)
-                        next_ck += band_rows
                     for row, par, alm in ((l, 0, alm0), (l + 1, 1, alm1)):
                         lam = (rec_a[row, ms][:, None] * (z[None, :] * lp)
                                + rec_b[row, ms][:, None] * lpp)
                         at = (ms == row)[:, None]
                         lam = np.where(at, seed, lam)
                         k = np.where(at, k0, k)
-                        out = np.where(k == 0, lam, f32(0))
+                        out = np.where(k == 0, lam, 0.0).astype(f32)
                         lpp, lp = lp, lam
                         a = alm[fs][:, row // 2][:, ms]
                         if dmma:
@@ -170,9 +166,9 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
                                 group[par] = []
                         else:
                             part[par] += a[:, :, None] * out[None]
-                    grow = (np.abs(lp) > 2.0**scale[1]) & (k > 0)
-                    lp = np.where(grow, lp * f32(2.0**-scale[0]), lp)
-                    lpp = np.where(grow, lpp * f32(2.0**-scale[0]), lpp)
+                    grow = (np.abs(lp) > 2.0**beta) & (k > 0)
+                    lp = np.where(grow, lp * 2.0**-S, lp)
+                    lpp = np.where(grow, lpp * 2.0**-S, lpp)
                     k = np.where(grow, k - 1, k)
                 for par in (0, 1):
                     if group[par]:  # a short last step: rows past L are zero
@@ -184,7 +180,7 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, alm0, alm1,
 
 
 @pytest.mark.parametrize("nside,lmax,lc,ke,F2", [
-    (8, 23, 6, 2, 6),     # band_rows 12: cadence does not divide the ℓ-block
+    (8, 23, 6, 2, 6),     # l_chunk 6: padded rows end inside a 32-row step
     (16, 47, 8, 2, 18),   # two F tiles, ragged second one
     (8, 23, 4, 1, 4),
 ])
@@ -199,24 +195,23 @@ def test_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2):
     planes *= (np.arange(L)[None, :] <= np.arange(Lk)[:, None])
     A0 = torch.from_numpy(np.ascontiguousarray(planes[:, 0::2]))
     A1 = torch.from_numpy(np.ascontiguousarray(planes[:, 1::2]))
-    args = [t[k] for k in ("psl_rec_a", "psl_rec_b", "psl_seed", "psl_k0",
-                           "psl_z", "psl_ck")]
-    he_p, ho_p = k1.scan_contract_plain(*args, A0, A1, band_rows=op.band_rows)
+    args = tsht._kernel_tables(t)
+    he_p, ho_p = k1.scan_contract_plain(*args, A0, A1)
     he_e, ho_e = _emulate_kernel(*[a.numpy() for a in args], A0.numpy(),
-                                 A1.numpy(), op.band_rows)
+                                 A1.numpy())
     sc = float(he_p.abs().max())
     assert np.abs(he_e - he_p.numpy()).max() <= 2e-6 * sc
     assert np.abs(ho_e - ho_p.numpy()).max() <= 2e-6 * sc
 
 
 def _f64_scaled_inputs(F2, seed):
-    """SHT(8, 111) float64 tables — no checkpoints, S=512, β=256; the polar
-    seeds λ_mm drop below 2^-256 for m ≳ 80, so the scale counts and the
-    rescale step are exercised — and random planes of both kinds."""
+    """SHT(8, 111) float64 tables — S=512, β=256; the polar seeds λ_mm drop
+    below 2^-256 for m ≳ 80, so the scale counts and the rescale step are
+    exercised — and random planes of both kinds."""
     op = tsht.SHT(8, 111, l_chunk=16, device="cpu")
     t = op.tables(True)
     args = tsht._kernel_tables(t)
-    assert args[0].dtype == torch.float64 and args[5].shape[0] == 1
+    assert all(a.dtype == torch.float64 for a in args) and len(args) == 5
     assert float(args[3].max()) >= 1  # some seeds carry a scale count
     L, Lk = op.lmax + 1, args[0].shape[0]
     rng = np.random.default_rng(seed)
@@ -232,11 +227,10 @@ def test_kernel_block_structure_matches_plain_f64():
     steps, DMMA groups of 4 rows; S=512, β=256) replayed in numpy float64
     against the f64 plain version."""
     op, args, A, _ = _f64_scaled_inputs(11, 3)
-    he_p, ho_p = k1.scan_contract_plain(*args, *A, band_rows=op.band_rows,
-                                        scale=k1.SCALE_F64)
+    he_p, ho_p = k1.scan_contract_plain(*args, *A)
     he_e, ho_e = _emulate_kernel(*[a.numpy() for a in args], A[0].numpy(),
-                                 A[1].numpy(), op.band_rows, warps=4, ft=64,
-                                 lb=32, scale=k1.SCALE_F64, dmma=True)
+                                 A[1].numpy(), warps=4, ft=64, lb=32,
+                                 dmma=True)
     sc = float(he_p.abs().max())
     assert np.abs(he_e - he_p.numpy()).max() <= 1e-13 * sc
     assert np.abs(ho_e - ho_p.numpy()).max() <= 1e-13 * sc
@@ -252,11 +246,9 @@ def test_project_kernel_block_structure_matches_plain_f64(F2, kw):
     plane tiles of 16; at F2 ≤ 8 two rings a thread) replayed in numpy
     float64 against the f64 plain version."""
     op, args, _, S = _f64_scaled_inputs(F2, 4)
-    a0_p, a1_p = k1.scan_project_plain(*args, *S, band_rows=op.band_rows,
-                                       scale=k1.SCALE_F64)
+    a0_p, a1_p = k1.scan_project_plain(*args, *S)
     a0_e, a1_e = _emulate_project_kernel(*[a.numpy() for a in args], S[0].numpy(),
-                                         S[1].numpy(), op.band_rows,
-                                         scale=k1.SCALE_F64, **kw)
+                                         S[1].numpy(), **kw)
     sc = float(a0_p.abs().max())
     assert np.abs(a0_e - a0_p.numpy()).max() <= 1e-13 * sc
     assert np.abs(a1_e - a1_p.numpy()).max() <= 1e-13 * sc
@@ -270,14 +262,12 @@ def test_plain_f32_vs_f64_accuracy_class():
     L, Lk = 96, t["psl_rec_a"].shape[0]
     planes = np.random.default_rng(1).standard_normal((4, Lk, L))
     planes *= (np.arange(L)[None, :] <= np.arange(Lk)[:, None])
-    args = [t[k] for k in ("psl_rec_a", "psl_rec_b", "psl_seed", "psl_k0",
-                           "psl_z", "psl_ck")]
+    args = tsht._kernel_tables(t)
     A0 = torch.from_numpy(np.ascontiguousarray(planes[:, 0::2]))
     A1 = torch.from_numpy(np.ascontiguousarray(planes[:, 1::2]))
-    he32, _ = k1.scan_contract_plain(*args, A0.float(), A1.float(),
-                                     band_rows=op.band_rows)
-    he64, _ = k1.scan_contract_plain(*[a.double() for a in args], A0, A1,
-                                     band_rows=op.band_rows)
+    he32, _ = k1.scan_contract_plain(*args, A0.float(), A1.float())
+    assert he32.dtype == torch.float32
+    he64, _ = k1.scan_contract_plain(*args, A0, A1)
     assert he64.dtype == torch.float64
     sc = float(he64.abs().max())
     assert float((he32.double() - he64).abs().max()) <= 2e-6 * sc
@@ -357,26 +347,28 @@ def test_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
 @pytest.mark.parametrize("double,tol", [(True, 1e-12), (False, 1e-5)])
 def test_project_plain_matches_jax_xla(double, tol):
     """The port's projection (fold + parity mixes + scan_project_plain)
-    against JAX _legendre_project_scan on its XLA route, driven by the JAX
-    operator's own tables carried across (SHT(16, 47, l_chunk=8,
-    ckpt_every=2): re-seeded in f32, exact in f64)."""
+    against JAX _legendre_project_scan on its XLA route in float64, driven
+    by the JAX operator's float64 tables carried across (SHT(16, 47,
+    l_chunk=8, ckpt_every=2)); the port's float32 projection (its
+    recurrence carried in float64, no checkpoint rows) is held to the same
+    float64 reference."""
     nside, lmax = 16, 47
     L = lmax + 1
     jop = jsht.SHT(nside, lmax, legendre_mode="scan", l_chunk=8,
                    scan_ckpt=True, ckpt_every=2)
-    jt = jop.tables(double)
+    jt = jop.tables(True)
     assert "psl_rec_a" not in jt  # the XLA route
     rng = np.random.default_rng(11)
     G = rng.standard_normal((3, 4 * nside - 1, L)) + 1j * rng.standard_normal(
         (3, 4 * nside - 1, L))
-    G = G.astype(np.complex128 if double else np.complex64)
     ref = np.asarray(jsht._legendre_project_scan(jop, jt, jnp.asarray(G)))
+    G = G.astype(np.complex128 if double else np.complex64)
 
     top = tsht.SHT(nside, lmax, l_chunk=8, ckpt_every=2,
                    device="cpu")
     t = top.load_tables(convert.sht_tables_from_numpy(
         {k: np.asarray(v) for k, v in jt.items()}, "cpu"), double)
-    assert ("psl_ck" in t) and (t["psl_ck"].shape[0] > 1) != double
+    assert "psl_ck" not in t and t["psl_rec_a"].dtype == torch.float64
     got = tsht.fused_project(top, t, *tsht._fold_rows(top, torch.from_numpy(G)))
     assert got.dtype == (torch.complex128 if double else torch.complex64)
     assert np.abs(got.numpy() - ref).max() <= tol * np.abs(ref).max()
@@ -479,75 +471,62 @@ def replay_project_small(make_rows, srcs, L, M, R, lb=32, rpt=4, threads=256,
     return res
 
 
-def _scan_rows(rec_a, rec_b, seed_T, k0_T, z, ck_T, band_rows, lb, scale):
+def _scan_rows(rec_a, rec_b, seed_T, k0_T, z, lb, dt):
     """``make_rows`` of the scaled Legendre recurrence as the kernels run it:
     from ``lstart`` (default: the step holding the group's first m), the
-    band counter started there, a re-seed wherever a band starts (inside a step too), the seed
-    and scale count injected at ℓ = m, emission where k == 0, one rescale
-    per row pair."""
-    f32 = rec_a.dtype.type
+    carry in float64 from the float64 tables, the seed and scale count
+    injected at ℓ = m, emission where k == 0 (rounded to ``dt``), one
+    rescale per row pair."""
+    S, beta = k1.SCALE
     L = rec_a.shape[0]
     R = z.size
-    nband = ck_T.shape[0]
 
     def make_rows(ms, rr, lstart=None):
         live = (rr < R)[None, :]
         ri = np.minimum(rr, R - 1)
-        zr = np.where(live, z[ri][None, :], f32(0))
-        seed = np.where(live, seed_T[ms][:, ri], f32(0))
-        k0 = np.where(live, k0_T[ms][:, ri], f32(1))
-        lp = np.zeros((ms.size, rr.size), f32)
+        zr = np.where(live, z[ri][None, :], 0.0)
+        seed = np.where(live, seed_T[ms][:, ri], 0.0)
+        k0 = np.where(live, k0_T[ms][:, ri], 1.0)
+        lp = np.zeros((ms.size, rr.size))
         lpp = np.zeros_like(lp)
         k = np.zeros_like(lp)
         if lstart is None:
             lstart = (ms[0] // lb) * lb
-        next_ck = (max(band_rows, -(-lstart // band_rows) * band_rows)
-                   if nband > 1 else None)
         for lb0 in range(lstart, L, lb):
-            rows = np.zeros((lb, ms.size, rr.size), f32)
+            rows = np.zeros((lb, ms.size, rr.size), dt)
             for p in range(lb // 2):
                 l = lb0 + 2 * p
-                if l == next_ck:
-                    b = l // band_rows
-                    if b < nband:
-                        c0 = np.where(live, ck_T[b, 0][ms][:, ri], f32(0))
-                        c1 = np.where(live, ck_T[b, 1][ms][:, ri], f32(0))
-                        use = (np.abs(c0) > 2.0**-20) & (np.abs(c1) > 2.0**-20)
-                        lpp = np.where(use, c0, lpp)
-                        lp = np.where(use, c1, lp)
-                        k = np.where(use, f32(0), k)
-                    next_ck += band_rows
                 for row in (l, l + 1):
                     a, b = ((rec_a[row, ms], rec_b[row, ms]) if row < L
-                            else (np.zeros(ms.size, f32),) * 2)
+                            else (np.zeros(ms.size),) * 2)
                     lam = a[:, None] * (zr * lp) + b[:, None] * lpp
                     at = (ms == row)[:, None]
                     lam = np.where(at, seed, lam)
                     k = np.where(at, k0, k)
-                    rows[row - lb0] = np.where(k == 0, lam, f32(0))
+                    rows[row - lb0] = np.where(k == 0, lam, 0.0)
                     lpp, lp = lp, lam
-                grow = (np.abs(lp) > 2.0**scale[1]) & (k > 0)
-                lp = np.where(grow, lp * f32(2.0**-scale[0]), lp)
-                lpp = np.where(grow, lpp * f32(2.0**-scale[0]), lpp)
+                grow = (np.abs(lp) > 2.0**beta) & (k > 0)
+                lp = np.where(grow, lp * 2.0**-S, lp)
+                lpp = np.where(grow, lpp * 2.0**-S, lpp)
                 k = np.where(grow, k - 1, k)
             yield rows
 
     return make_rows
 
 
-def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1,
-                            band_rows, lb=32, scale=(60, 30), small=None, **kw):
+def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, src0, src1,
+                            lb=32, small=None, **kw):
     """csrc/scan_project.cu replayed in numpy: project_kernel's loop, or with
     ``small`` (rpt, threads, ft) project_small_kernel's."""
     L, M = rec_a.shape
-    rows = _scan_rows(rec_a, rec_b, seed_T, k0_T, z, ck_T, band_rows, lb, scale)
+    rows = _scan_rows(rec_a, rec_b, seed_T, k0_T, z, lb, src0.dtype.type)
     if small is not None:
         return replay_project_small(rows, (src0, src1), L, M, z.size, lb=lb, **small)
     return replay_project(rows, (src0, src1), L, M, z.size, lb=lb, **kw)
 
 
 @pytest.mark.parametrize("nside,lmax,lc,ke,F2,kw", [
-    # band_rows 12: the cadence does not divide the 32-row step; ragged F2
+    # l_chunk 6: the padded rows end inside a 32-row step; ragged F2
     (8, 23, 6, 2, 11, {}),
     # two plane tiles, ragged second one
     (16, 47, 8, 2, 40, {}),
@@ -555,7 +534,7 @@ def _emulate_project_kernel(rec_a, rec_b, seed_T, k0_T, z, ck_T, src0, src1,
     (128, 15, 4, 1, 12, {}),
     # 128 rings in tiles of 16, clusters of 2: four passes
     (64, 31, 8, 1, 9, dict(rt=16, cluster=2)),
-    # F2 ≤ 8, a tile of 4 planes; the cadence does not divide the step
+    # F2 ≤ 8, a tile of 4 planes
     (8, 23, 6, 2, 2, dict(small=dict(ft=4))),
     # F2 ≤ 8: 128 rings over 32 threads·2, two ring chunks; ragged F2
     (64, 31, 8, 1, 6, dict(small=dict(rpt=2, threads=32))),
@@ -569,9 +548,9 @@ def test_project_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2, k
     s0 = torch.from_numpy(rng.standard_normal((F2, R, L)).astype(np.float32))
     s1 = torch.from_numpy(rng.standard_normal((F2, R, L)).astype(np.float32))
     args = tsht._kernel_tables(t)
-    a0_p, a1_p = k1.scan_project_plain(*args, s0, s1, band_rows=op.band_rows)
+    a0_p, a1_p = k1.scan_project_plain(*args, s0, s1)
     a0_e, a1_e = _emulate_project_kernel(*[a.numpy() for a in args], s0.numpy(),
-                                         s1.numpy(), op.band_rows, **kw)
+                                         s1.numpy(), **kw)
     sc = float(a0_p.abs().max())
     assert np.abs(a0_e - a0_p.numpy()).max() <= 2e-6 * sc
     assert np.abs(a1_e - a1_p.numpy()).max() <= 2e-6 * sc
@@ -593,7 +572,7 @@ def test_fused_project_builds_planes_minor_sources(monkeypatch):
     seen = []
 
     def spy(*args, **kw):
-        seen.append(args[6:8])
+        seen.append(args[5:7])
         return k1.scan_project(*args, **kw)
 
     monkeypatch.setattr(tsht, "scan_project", spy)
@@ -606,8 +585,7 @@ def test_fused_project_builds_planes_minor_sources(monkeypatch):
     c0, c1 = tsht._route(tsht._planes(Ge, torch.float32),
                          tsht._planes(Go, torch.float32), L)
     assert c0.is_contiguous() and torch.equal(c0, s0) and torch.equal(c1, s1)
-    A0, A1 = k1.scan_project_plain(*tsht._kernel_tables(t), c0, c1,
-                                   band_rows=op.band_rows)
+    A0, A1 = k1.scan_project_plain(*tsht._kernel_tables(t), c0, c1)
     ref = tsht._join(torch.stack([A0, A1], dim=2).reshape(F2, -1, L)[:, :L], (3,))
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
@@ -615,8 +593,8 @@ def test_fused_project_builds_planes_minor_sources(monkeypatch):
 def test_contract_project_adjoint_f64():
     """K1-plain and K2-plain are exact adjoints in f64 (as
     tests/test_sht.py::test_adjointness): on ring spectra G through the
-    operator hooks (f64 tables), and on kernel planes with the f32 tables
-    (checkpoints included) cast to f64."""
+    operator hooks (f64 tables), and on kernel planes with the tables the
+    float32 transforms take (float64, no checkpoint rows)."""
     nside, lmax = 16, 20
     L = lmax + 1
     op = tsht.SHT(nside, lmax, l_chunk=8, ckpt_every=1, device="cpu")
@@ -628,13 +606,14 @@ def test_contract_project_adjoint_f64():
     assert abs(lhs - rhs) / abs(lhs) < 1e-13
 
     t = op.tables(False)
-    assert t["psl_ck"].shape[0] > 1
-    args = [a.double() for a in tsht._kernel_tables(t)]
+    assert "psl_ck" not in t
+    args = tsht._kernel_tables(t)
+    assert all(a.dtype == torch.float64 for a in args)
     Lk = args[0].shape[0]
     A0, A1 = (torch.from_numpy(rng.standard_normal((3, Lk // 2, L))) for _ in range(2))
     S0, S1 = (torch.from_numpy(rng.standard_normal((3, op.nhalf, L))) for _ in range(2))
-    He, Ho = k1.scan_contract_plain(*args, A0, A1, band_rows=op.band_rows)
-    P0, P1 = k1.scan_project_plain(*args, S0, S1, band_rows=op.band_rows)
+    He, Ho = k1.scan_contract_plain(*args, A0, A1)
+    P0, P1 = k1.scan_project_plain(*args, S0, S1)
     lhs = float((He * S0).sum() + (Ho * S1).sum())
     rhs = float((A0 * P0).sum() + (A1 * P1).sum())
     assert abs(lhs - rhs) <= 1e-13 * abs(lhs)
@@ -672,21 +651,19 @@ _RING_CASES = [(16, 40, 8, 2), (256, 23, 6, 2), (1024, 15, 8, 1)]
 def test_project_kernel_tiles_on_card(cuda_device, nside, lmax, lc, ke, F2, double):
     """K2 against its plain version at every plane tile (F2 = 2, 6: the
     loop of F2 ≤ 8; 11, 32, 64: ring tiles in a cluster) and ring count (one
-    tile, several, two passes of a cluster), odd L, a re-seed cadence of 12
-    rows that does not divide the step; sources contiguous (laid out by the
+    tile, several, two passes of a cluster), odd L, padded rows ending
+    inside a step (l_chunk 6); sources contiguous (laid out by the
     wrapper) — f32 ≤ 1e-4·max, f64 ≤ 1e-10·max — and two launches on the
     same input give the same bits (fixed-order sums, no atomics)."""
     op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke, device="cpu")
     args, _, S = _planes_for(op, op.tables(double), F2, 7 + F2, double)
-    kw = dict(band_rows=op.band_rows,
-              scale=k1.scale_for(torch.float64 if double else torch.float32))
-    ref = k1.scan_project_plain(*args, *S, **kw)
+    ref = k1.scan_project_plain(*args, *S)
     entry = "cora_scan_project" + ("_f64" if double else "")
     before = k1.entry_launches.get(entry, 0)
     dev_args = [a.to(cuda_device) for a in args]
     dev_S = [x.to(cuda_device) for x in S]
-    got = k1.scan_project(*dev_args, *dev_S, **kw)
-    again = k1.scan_project(*dev_args, *dev_S, **kw)
+    got = k1.scan_project(*dev_args, *dev_S)
+    again = k1.scan_project(*dev_args, *dev_S)
     torch.cuda.synchronize()
     assert k1.entry_launches[entry] == before + 2
     sc = max(float(x.abs().max()) for x in ref)
@@ -726,17 +703,15 @@ def test_f64_kernels_match_plain_on_card(cuda_device, nside, lmax, F2):
     before = (k1.launches, k1.project_launches)
     names = ("cora_scan_contract_f64", "cora_scan_project_f64")
     before_f64 = [k1.entry_launches.get(n, 0) for n in names]
-    he, ho = k1.scan_contract(*args, *A, band_rows=op.band_rows, scale=k1.SCALE_F64)
-    a0, a1 = k1.scan_project(*args, *S, band_rows=op.band_rows, scale=k1.SCALE_F64)
+    he, ho = k1.scan_contract(*args, *A)
+    a0, a1 = k1.scan_project(*args, *S)
     torch.cuda.synchronize()
     assert (k1.launches, k1.project_launches) == (before[0] + 1, before[1] + 1)
     assert [k1.entry_launches.get(n, 0) for n in names] == [b + 1 for b in before_f64]
     assert he.dtype == torch.float64
     for got, ref in zip((he, ho, a0, a1),
-                        k1.scan_contract_plain(*args, *A, band_rows=op.band_rows,
-                                               scale=k1.SCALE_F64)
-                        + k1.scan_project_plain(*args, *S, band_rows=op.band_rows,
-                                                scale=k1.SCALE_F64)):
+                        k1.scan_contract_plain(*args, *A)
+                        + k1.scan_project_plain(*args, *S)):
         assert float((got - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
 
 
@@ -745,16 +720,15 @@ def test_f64_kernels_match_plain_on_card(cuda_device, nside, lmax, F2):
 @pytest.mark.parametrize("nside,lmax,lc,ke", [(8, 23, 6, 2), (16, 40, 8, 2)])
 def test_f32_kernel_plane_tiles_on_card(cuda_device, nside, lmax, lc, ke, F2):
     """K1 in float32 against its plain version at every plane tile (F2 = 2,
-    6, 20, 32, 64): a re-seed cadence of 12 rows, which neither divides the
-    32-row step nor lands on it, and odd L with R = 32, M = 41 off the
-    block tiles; ≤ 1e-4·max, the bound of the kernel's other checks."""
+    6, 20, 32, 64): padded rows ending inside a 32-row step (l_chunk 6),
+    and odd L with R = 32, M = 41 off the block tiles; ≤ 1e-4·max, the
+    bound of the kernel's other checks."""
     op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke, device="cpu")
     args, A, _ = _planes_for(op, op.tables(False), F2, 9 + F2, False)
-    kw = dict(band_rows=op.band_rows)
-    ref = k1.scan_contract_plain(*args, *A, **kw)
+    ref = k1.scan_contract_plain(*args, *A)
     before = k1.entry_launches.get("cora_scan_contract", 0)
     got = k1.scan_contract(*[a.to(cuda_device) for a in args],
-                           *[a.to(cuda_device) for a in A], **kw)
+                           *[a.to(cuda_device) for a in A])
     torch.cuda.synchronize()
     assert k1.entry_launches["cora_scan_contract"] == before + 1
     sc = max(float(x.abs().max()) for x in ref)

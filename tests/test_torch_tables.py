@@ -1,10 +1,13 @@
 """The port's SHT tables against the JAX operator's.
 
-Recurrence rows, scaled seeds, checkpoints and ring tables must equal
-``cora_tpu``'s ``SHT.tables(False)`` (f32, ≤ 1e-6 relative; the pixel
-index tables exactly); the derived kernel layout must equal the JAX kernel's padded
-tables (``SHT._fused_scan_tables``) on their common extent; and tables
-loaded from numpy through ``convert`` must reproduce the port's own.
+The port's float32 operator carries its recurrence in float64: its
+recurrence rows and scaled seeds must equal ``cora_tpu``'s float64
+``SHT.tables(True)`` (S=512, β=256) and its ring tables the float32
+``SHT.tables(False)`` (≤ 1e-6 relative; the pixel index tables exactly);
+the derived kernel layout must be the JAX kernel's padded layout
+(``SHT._fused_scan_tables``) on their common extent, in float64 and with no
+checkpoint rows; and tables loaded from numpy through ``convert`` must
+reproduce the port's own.
 """
 
 import numpy as np
@@ -28,11 +31,17 @@ def _pair(nside, lmax, lc, ke):
     return jop, top
 
 
+_RECURRENCE_KEYS = ("rec_a", "rec_b", "lam_mm", "lam_k0", "z_half")
+
+
 @pytest.mark.parametrize("nside,lmax,lc,ke", CONFIGS)
 def test_base_tables_match_jax(nside, lmax, lc, ke):
     jop, top = _pair(nside, lmax, lc, ke)
     jt = {k: np.asarray(v) for k, v in jop.tables(False).items()}
+    jt.update({k: np.asarray(v) for k, v in jop.tables(True).items()
+               if k in _RECURRENCE_KEYS})
     tt = top.tables(False)
+    assert "lam_ck" not in tt
     for key in convert.SHT_TABLE_KEYS:
         a, b = jt[key], tt[key].numpy()
         assert a.shape == b.shape and a.dtype == b.dtype, key
@@ -47,41 +56,53 @@ def test_geometry_matches_jax(nside, lmax, lc, ke):
                                                   jop.nfft2)
     assert top.nq_max == jop._bl_C.shape[-1]
     assert jop._ns_symmetric
-    np.testing.assert_array_equal(top._ck_host, jop._ck_host)
     # pixel gather index tables, exactly
     np.testing.assert_array_equal(top._r_of_pix, jop._r_of_pix)
     np.testing.assert_array_equal(top._j_of_pix, jop._j_of_pix)
 
 
 def test_kernel_layout_matches_jax_fused_tables():
-    """psl_* (the kernel's inputs) equal the Pallas kernel's padded tables
-    where both are defined (the port pads to whole ℓ-chunks, not to 128)."""
+    """psl_* (the kernel's inputs) have the Pallas kernel's padded layout
+    where both are defined (the port pads to whole ℓ-chunks, not to 128),
+    in float64: the float32 Pallas tables equal the port's rounded to
+    float32 (recurrence rows, cos θ; the scale counts exactly), the seeds
+    are the port's float64 seeds m-leading, and no checkpoint rows go to
+    the kernel."""
     nside, lmax, lc, ke = 64, 191, 64, 2
     jop, top = _pair(nside, lmax, lc, ke)
     seeds, k0 = top._scaled_seeds()
-    jp = jop._fused_scan_tables(seeds, k0)
+    with np.errstate(over="ignore"):  # float32 cannot hold the S=512 seeds
+        jp = jop._fused_scan_tables(seeds, k0)
     tt = top.tables(False)
     L, nh = lmax + 1, 2 * nside
-    assert top.band_rows == 128 * max(1, (lc * ke) // 128)
+    assert tt["psl_rec_a"].shape == (-(-L // lc) * lc, L)
     for key, rows, cols in (("psl_rec_a", L, L), ("psl_rec_b", L, L),
-                            ("psl_seed", L, nh), ("psl_k0", L, nh)):
-        np.testing.assert_array_equal(tt[key].numpy()[:rows, :cols],
+                            ("psl_k0", L, nh)):
+        assert tt[key].dtype == torch.float64
+        np.testing.assert_array_equal(tt[key].numpy()[:rows, :cols].astype(np.float32),
                                       jp[key][:rows, :cols])
-    np.testing.assert_array_equal(tt["psl_z"].numpy(), jp["psl_z"][:nh])
-    ck_t = tt["psl_ck"].numpy()
-    np.testing.assert_array_equal(ck_t, jp["psl_ck"][: ck_t.shape[0], :, :L, :nh])
+    np.testing.assert_array_equal(tt["psl_z"].numpy().astype(np.float32),
+                                  jp["psl_z"][:nh])
+    np.testing.assert_array_equal(tt["psl_seed"].numpy(), seeds.T)
+    assert "psl_ck" not in tt and jp["psl_ck"].shape[0] > 1
 
 
 @pytest.mark.parametrize("nside,lmax,lc,ke", CONFIGS)
 def test_tables_from_numpy_reproduce_own(nside, lmax, lc, ke):
+    """The reference's float64 tables, carried across, give the port's
+    float32 operator its own tables; its float32 tables (scaled for a
+    float32 carry) are refused."""
     jop, top = _pair(nside, lmax, lc, ke)
     own = {k: v.clone() for k, v in top.tables(False).items()}
-    d = {k: np.asarray(v) for k, v in jop.tables(False).items()}
+    d = {k: np.asarray(v) for k, v in jop.tables(True).items()}
     loaded = top.load_tables(convert.sht_tables_from_numpy(d, "cpu"))
     assert top.tables(False) is loaded
     for key in ("psl_rec_a", "psl_rec_b", "psl_seed", "psl_k0", "psl_z",
-                "psl_ck", "eq_phase", "bl_Bf_cap"):
+                "eq_phase", "bl_Bf_cap"):
         assert torch.equal(own[key], loaded[key]), key
+    with pytest.raises(ValueError, match="tables\\(True\\)"):
+        convert.sht_tables_from_numpy(
+            {k: np.asarray(v) for k, v in jop.tables(False).items()}, "cpu")
 
 
 def test_roots_from_numpy():
