@@ -11,7 +11,7 @@ no stage synchronises, and stages nest (``lambda_build`` holds
 
 1. device   — CUDA must be available; prints the card's name and power limit
               (nvidia-smi) and pins true f32 (TF32 off).
-2. build    — builds the five CUDA sources (with the shared headers
+2. build    — builds the six CUDA sources (with the shared headers
               csrc/*.cuh: tile building blocks, the scan recurrence of K1
               and K2, the adjoint loops of K2 and K3) with nvcc (one process
               per source, started together), prints the build time and
@@ -59,6 +59,16 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               from two calls; the sweep count; CUDA-event times against its
               bound, its plain version and the torch.linalg.eigh root
               (library_ms); no launch for float32 or n > 256.
+3f.         — K6 (correlated_draw, the correlated draw of an ℓ-chunk into
+              the parity-packed planes) at one 16-channel chunk of each
+              cell's shape (nside 512: nz 256, 24 ℓ-chunks; nside 2048: nz
+              64, 96 ℓ-chunks; F2 = 32; and f64 at the first), ξ and roots
+              fed to both: against its plain version within the sum-order
+              bound 2·nz·eps·Σ|R||ξh| elementwise, one launch per ℓ-chunk,
+              the same bits twice; CUDA-event times against its bytes bound
+              (ξ read once, planes written once), the plain version (the
+              ×h pass, einsum and parity copies the port ran before K6) and
+              the einsum alone (library_ms).
 4. parity   — in each Legendre mode, the same operator kind on cuda
               (kernels) and on cpu (plain versions; in cached mode a
               device-built Λ on both): mkfullsky at nside=64, nz=8 with the
@@ -261,7 +271,7 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               generator) at nside 128 × 16 channels (400–500 MHz).  The
               child must import the copy and its _build/ (no kernel
               rebuilt), read ps_z1.5.npz and corr_z1.5.npz from the copy's
-              data/, launch K4 f32 and K5 (and no other kernel) as often
+              data/, launch K4 f32, K5 and K6 f32 (and no other kernel) as often
               as the same call in this process, and give its maps bit for
               bit.
               The data directory, the child's times and the card are
@@ -329,7 +339,7 @@ def device_phase():
 
 
 KERNELS = ("scan_legendre", "scan_project", "wigner_apply", "legendre_contract",
-           "jacobi_eigh")
+           "jacobi_eigh", "correlated_draw")
 K3_SRC = "cora_tpu_torch/csrc/wigner_apply.cu"
 K3_REPLACES = "cora_tpu/ops/pallas_scan_legendre.py:615"
 K4_SRC = "cora_tpu_torch/csrc/legendre_contract.cu"
@@ -337,6 +347,8 @@ K4_REPLACES = "cora_tpu/ops/pallas_legendre.py:81"
 K5_SRC = "cora_tpu_torch/csrc/jacobi_eigh.cu"
 K5_REPLACES = ("none: the JAX package's roots are XLA's eigh (cora_tpu/util/linalg.py "
                "batch_matrix_root, from cora_tpu/signal/clfast.py _roots_from_cla_jit)")
+K6_SRC = "cora_tpu_torch/csrc/correlated_draw.cu"
+K6_REPLACES = "none: the JAX package's draw is XLA's einsum (cora_tpu/healpix/sht.py _draw_blocks)"
 
 # one H100 SXM (NVIDIA's data sheet, 700 W): 3.35 TB/s of device memory;
 # float32 67 TFLOP/s outside the tensor cores (no f32-exact tensor-core
@@ -1078,6 +1090,114 @@ def jacobi_phase(dev, reports):
     torch.cuda.empty_cache()
 
 
+DRAW_SHAPES = (  # (cell, nside, L, nz, ckpt_every): one 16-channel chunk each
+    ("n512", 512, 1536, 256, 1),
+    ("n2048", 2048, 6144, 64, 16),
+)
+
+
+def _draw_inputs(dev, L, nz, g, seed, dtype, lc=64, nzc=16):
+    """One frequency chunk's draw at a cell's shape: the operator's fields
+    the draw reads, ξ of each ℓ-chunk over its band m-width (as
+    ``sht._draw`` draws it), and roots [L, nz, nz] column-major, as K5
+    returns them."""
+    import types
+
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+
+    op = types.SimpleNamespace(lmax=L - 1, l_chunk=lc, ckpt_every=g, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nchunk = -(-L // lc)
+    xis = []
+    for c in range(nchunk):
+        c_lo = c - c % g
+        mw = sht._band_mw(L, lc, c_lo, min(g, nchunk - c_lo))
+        xis.append(torch.randn((lc, nz, 2, mw), generator=gen, device=dev, dtype=dtype))
+    roots = torch.randn((L, nz, nz), generator=gen, device=dev, dtype=dtype) / nz**0.5
+    roots = roots.transpose(1, 2).contiguous().transpose(1, 2)
+    return op, xis, roots
+
+
+def _draw_run(fn, op, xis, roots, A, nzc=16, z_lo=0):
+    """The draw of one frequency chunk into the cached mode's planes ``A``
+    by ``fn`` (``correlated_draw`` or its plain version), one call per
+    ℓ-chunk, as ``sht._draw`` makes them."""
+    L, lc = op.lmax + 1, op.l_chunk
+    ne = (L + 1) // 2
+    for c, xi in enumerate(xis):
+        j0 = c * lc // 2
+        fn(xi, roots, c * lc, z_lo, nzc, A, j0, A, ne + j0, min(lc, L - c * lc))
+
+
+def draw_phase(dev, reports):
+    """K6 (correlated_draw) at the cells' chunk shapes: one 16-channel chunk
+    (F2 = 32) at nside 512 (24 launches) and nside 2048 (96 launches),
+    against its plain version (the ×h pass, einsum and parity copies) within
+    the sum-order bound 2·nz·eps·Σ|R||ξh| elementwise, the same bits from
+    two runs, CUDA-event times against the bytes bound, the plain version's
+    and the einsum alone (library_ms); f64 at the nside-512 shape."""
+    import torch
+
+    from cora_tpu_torch.ops import draw as k6
+    from cora_tpu_torch.ops.scan_legendre import planes_minor
+
+    card = _card()
+    phase("3f correlated draw (K6 correlated_draw) vs plain at the cells' chunk shapes")
+    for (cell, nside, L, nz, g), dtype in [(s, torch.float32) for s in DRAW_SHAPES] + [
+            (DRAW_SHAPES[0], torch.float64)]:
+        name = "correlated_draw" + ("_f64" if dtype == torch.float64 else "")
+        op, xis, roots = _draw_inputs(dev, L, nz, g, 7 + nside, dtype)
+        A = planes_minor(32, L, L, dtype, dev).zero_()
+        Ap = planes_minor(32, L, L, dtype, dev).zero_()
+        n0 = k6.launches
+        _draw_run(k6.correlated_draw, op, xis, roots, A)
+        torch.cuda.synchronize(dev)
+        nl = k6.launches - n0
+        _draw_run(k6.correlated_draw_plain, op, xis, roots, Ap)
+        # the sum-order bound, laid out as the planes: Σ|R||ξh| per output
+        Ab = planes_minor(32, L, L, dtype, dev).zero_()
+        _draw_run(k6.correlated_draw_plain, op, [x.abs() for x in xis], roots.abs(), Ab)
+        tol = 2 * nz * torch.finfo(dtype).eps * Ab
+        gap = float(((A - Ap).abs() - tol).max())
+        rel = float((A - Ap).abs().max() / Ap.abs().max())
+        del Ab, tol
+        again = planes_minor(32, L, L, dtype, dev).zero_()
+        _draw_run(k6.correlated_draw, op, xis, roots, again)
+        same = torch.equal(A, again)
+        del again
+        ms = _cuda_time_ms(lambda: _draw_run(k6.correlated_draw, op, xis, roots, A), 7)
+        plain_ms = _cuda_time_ms(
+            lambda: _draw_run(k6.correlated_draw_plain, op, xis, roots, Ap), 3)
+        xh = [x * k6.xi_scale(dtype) for x in xis]
+        rows = [roots[c * 64:(c + 1) * 64, :16] for c in range(len(xis))]
+        library_ms = _cuda_time_ms(
+            lambda: [torch.einsum("lzy,lypm->zplm", r, x) for r, x in zip(rows, xh)], 3)
+        del xh, rows, Ap
+        isz = A.element_size()
+        fs = A.stride(2)
+        nbytes = sum(x.numel() * isz + x.shape[0] * x.shape[3] * fs * isz
+                     + x.shape[0] * 16 * nz * isz for x in xis)
+        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        print(f"   {name} {cell} chunk (nz {nz}, F2 32, {len(xis)} ℓ-chunks, "
+              f"{nbytes / 1e9:.3f} GB): K6 {ms:.3f} ms ({nl} launches), plain "
+              f"{plain_ms:.3f} ms, einsum alone {library_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms (bytes): {100 * bound_ms / ms:.1f}% of its bound; "
+              f"max|Δ| vs plain {rel:.2e}·max, over the sum-order bound by {gap:.2e}; "
+              f"same bits twice: {same} ({card})")
+        check(nl == len(xis) and gap <= 0 and same,
+              f"{name} {cell}: one launch per ℓ-chunk, within the sum-order bound of "
+              "the plain version, the same bits twice")
+        reports.setdefault(name, dict(name=name, route="cuda", source=K6_SRC,
+                                      replaces=K6_REPLACES, shapes={}))
+        reports[name]["shapes"][cell] = dict(
+            nz=nz, F2=32, launches=nl, gb=nbytes / 1e9, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes", rel=rel)
+        del A, xis, roots
+        torch.cuda.empty_cache()
+
+
 def _eigh_root(C):
     """The root as torch.linalg.eigh computes it (the yardstick)."""
     import torch
@@ -1224,6 +1344,7 @@ def _triangle(rng, shape, lmin=2):
 
 
 def _reset_counts():
+    from cora_tpu_torch.ops import draw as k6
     from cora_tpu_torch.ops import jacobi_eigh as k5
     from cora_tpu_torch.ops import legendre as k4
     from cora_tpu_torch.ops import scan_legendre as k
@@ -1237,12 +1358,16 @@ def _reset_counts():
     k4.entry_launches.clear()
     k5.launches = 0
     k5.matrices = 0
+    k6.launches = 0
+    k6.entry_launches.clear()
 
 
 def _counts():
     """Launches per C entry point since the last :func:`_reset_counts`, by
     report name (``scan_contract``, ``scan_contract_f64``, …,
-    ``legendre_contract``, ``legendre_contract_f64``, ``jacobi_eigh``)."""
+    ``legendre_contract``, ``legendre_contract_f64``, ``jacobi_eigh``,
+    ``correlated_draw``, ``correlated_draw_f64``)."""
+    from cora_tpu_torch.ops import draw as k6
     from cora_tpu_torch.ops import jacobi_eigh as k5
     from cora_tpu_torch.ops import legendre as k4
     from cora_tpu_torch.ops import scan_legendre as k
@@ -1255,6 +1380,8 @@ def _counts():
     n["legendre_contract"] = k4.entry_launches.get("cora_legendre_contract_f32", 0)
     n["legendre_contract_f64"] = k4.entry_launches.get("cora_legendre_contract_f64", 0)
     n["jacobi_eigh"] = k5.launches
+    n["correlated_draw"] = k6.entry_launches.get("cora_correlated_draw_f32", 0)
+    n["correlated_draw_f64"] = k6.entry_launches.get("cora_correlated_draw_f64", 0)
     return n
 
 
@@ -1331,6 +1458,12 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
           "main path launched the f32 legendre_contract kernel (K4) only, and no K1")
     print(f"   jacobi_eigh (K5) launches {n['jacobi_eigh']}")
     check(n["jacobi_eigh"] == 1, "one K5 launch for getsky's covariance_roots")
+    nl = -(-3 * cfg["nside"] // 64)  # ℓ-chunks of the draw
+    print(f"   correlated_draw (K6) launches {n['correlated_draw']} ({nl} ℓ-chunks)")
+    check(n["correlated_draw"] > 0 and n["correlated_draw"] % nl == 0
+          and n["correlated_draw_f64"] == 0,
+          "the draw launched the f32 K6 once per ℓ-chunk of each frequency chunk")
+    reports["correlated_draw"]["launches"] = n["correlated_draw"]
     npix = 12 * cfg["nside"] ** 2
     check(tuple(sky.shape) == (cfg["nfreq"], npix), f"sky shape {tuple(sky.shape)}")
     check(bool(torch.isfinite(sky).all()), "every pixel finite")
@@ -3403,15 +3536,16 @@ def _f64_channels(op, roots, key, n):
     import torch
 
     from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.ops.draw import XI_HALF
     from cora_tpu_torch.parallel import mesh as pm
 
     L, lc, g = op.lmax + 1, op.l_chunk, op.ckpt_every
     nchunk = -(-L // lc)
     xi = pm._xi_source(op, roots, key, None)
     alm = torch.zeros((n, L, L), dtype=torch.complex128, device=op.device)
-    half = float(np.float32(sht._XI_HALF))
+    half = float(np.float32(XI_HALF))
     for c in range(nchunk):
-        c_lo = c - c % g  # the draw's m-width is its band's (sht._draw_blocks)
+        c_lo = c - c % g  # the draw's m-width is its band's (sht._draw)
         mw = sht._band_mw(L, lc, c_lo, min(g, nchunk - c_lo))
         x = xi(c, lc, mw, op.device)[:L - c * lc].double() * half  # [lc, nz, 2, mw]
         r = roots[c * lc:(c + 1) * lc, :n].to(torch.complex128)
@@ -3667,9 +3801,11 @@ def f64_sky_phase(dev, reports, roots, cfg=FLAGSHIP):
         try:
             # cached: the default operator, its f64 Λ built on the card
             c64, n = main_run("cached", None)
-            check(n["legendre_contract_f64"] > 0
-                  and all(v == 0 for e, v in n.items() if e != "legendre_contract_f64"),
-                  "cached: the f64 K4 launched, and no f32 kernel and no K1")
+            check(n["legendre_contract_f64"] > 0 and n["correlated_draw_f64"] > 0
+                  and all(v == 0 for e, v in n.items()
+                          if e not in ("legendre_contract_f64", "correlated_draw_f64")),
+                  "cached: the f64 K4 and the f64 K6 (the draw) launched, and no f32 "
+                  "kernel and no K1")
             ratio = c64.square().mean(dim=1).cpu().numpy() / expect
             print(f"   cached: map variance / Σ(2ℓ+1)C_ℓ/4π: min {ratio.min():.4f} "
                   f"max {ratio.max():.4f}")
@@ -3688,9 +3824,11 @@ def f64_sky_phase(dev, reports, roots, cfg=FLAGSHIP):
             op_s = sht.get_sht(nside, L - 1, legendre_mode="scan", device=dev)
             print(f"   scan operator {time.perf_counter() - t0:.3f} s")
             s64, n = main_run("scan", op_s)
-            check(n["scan_contract_f64"] > 0
-                  and all(v == 0 for e, v in n.items() if e != "scan_contract_f64"),
-                  "scan: the f64 K1 launched, and no f32 kernel and no K4")
+            check(n["scan_contract_f64"] > 0 and n["correlated_draw_f64"] > 0
+                  and all(v == 0 for e, v in n.items()
+                          if e not in ("scan_contract_f64", "correlated_draw_f64")),
+                  "scan: the f64 K1 and the f64 K6 (the draw) launched, and no f32 "
+                  "kernel and no K4")
             err = float((s64 - c64).abs().max() / c64.abs().max())
             print(f"   scan vs cached f64 cube: max|Δ|/max = {err:.3e}, RMS(Δ)/RMS = "
                   f"{_rms_rel(s64, c64):.3e}")
@@ -3817,9 +3955,11 @@ def standalone_phase(dev, cfg=STANDALONE, seed=STANDALONE_SEED):
     print(f"   in-tree getsky {t_here:.3f} s; launches "
           f"{', '.join(f'{e} {v}' for e, v in n_here.items() if v) or 'none'} ({card})")
     check(n_here["legendre_contract"] > 0 and n_here["jacobi_eigh"] == 1
+          and n_here["correlated_draw"] > 0
           and all(v == 0 for e, v in n_here.items()
-                  if e not in ("legendre_contract", "jacobi_eigh")),
-          "in-tree: the f32 K4 launched, K5 once (the roots), and no other kernel")
+                  if e not in ("legendre_contract", "jacobi_eigh", "correlated_draw")),
+          "in-tree: the f32 K4 launched, K5 once (the roots), the f32 K6 (the draw), "
+          "and no other kernel")
     with tempfile.TemporaryDirectory() as tmp:
         copy = os.path.realpath(tmp)
         pkg = os.path.join(copy, "cora_tpu_torch")
@@ -3878,6 +4018,7 @@ def main():
     wigner_phase(dev, reports)
     legendre_phase(dev, reports)
     jacobi_phase(dev, reports)
+    draw_phase(dev, reports)
     parity_phase(dev)
     sky, cl_diag, roots = main_phase(dev, reports)
     analysis_phase(dev, reports, sky, cl_diag)
@@ -3900,7 +4041,8 @@ def main():
     names = ("scan_contract", "scan_contract_f64", "scan_project",
              "scan_project_f64", "wigner_contract", "wigner_contract_f64",
              "wigner_project", "wigner_project_f64", "legendre_contract",
-             "legendre_contract_f64", "jacobi_eigh")
+             "legendre_contract_f64", "jacobi_eigh", "correlated_draw",
+             "correlated_draw_f64")
     print(json.dumps({"kernels": [reports[n] for n in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,9 @@ rows, each rounded once to the table's precision) or by the host f64
 recurrence (``"host"``, cast to ``cache_dtype``, cached on disk), at the
 first ``tables()``.  Synthesis contracts them with kernel K4
 (:func:`cora_tpu_torch.ops.legendre.legendre_contract`), the adjoint with
-one ``torch.bmm`` per chunk; the correlated draw parity-packs each
-frequency chunk's a_lm planes and runs K4 once.
+one ``torch.bmm`` per chunk; the correlated draw writes each frequency
+chunk's parity-packed a_lm planes with kernel K6, one launch per ℓ-chunk
+(:func:`cora_tpu_torch.ops.draw.correlated_draw`), and runs K4 once.
 
 **Scan mode** (``"scan"``; the default on the CPU and above nside=512): the
 Λ-free configuration whose Legendre stages are the fused recurrence
@@ -64,14 +65,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.draw import correlated_draw
 from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
                             legendre_contract, legendre_project, release)
 from ..ops.scan_legendre import (SCALE, _lambda_blocks, planes_minor,
                                  scan_contract, scan_project)
 from ..util.profiling import build, stage
 from . import pixel
-
-_XI_HALF = 0.70710678  # 1/√2 per re/im plane, as the JAX f32 draw
 
 
 def _next_fft_size(n):
@@ -141,7 +141,7 @@ class SHT:
         ℓ rows per draw chunk (and per parity in a Λ chunk).
     ckpt_every : int
         ℓ-chunks per band of the correlated draw: each band draws its
-        white noise over the band's m-width (:func:`_draw_blocks`).  It
+        white noise over the band's m-width (:func:`_draw`).  It
         once also set the re-seed cadence of a float32 recurrence; the
         recurrence is now carried in float64 from its seeds, re-seeded by
         no rows.
@@ -944,14 +944,19 @@ def xi_from_seeds(seeds, nz, dtype=torch.float32):
 
     ``seeds[c]`` seeds a generator for ℓ-chunk ``c`` (the counterpart of the
     JAX ``fold_in(key, c)``), so every frequency chunk of a cube sees the
-    same realisation without holding the whole ξ array.  Each chunk draws
-    [l_chunk, nz, 2, mw] over its band's m-width only (the triangle), in
-    ``dtype``: one seed gives another realisation in float64 than in
-    float32, as a JAX key does.  A ``draw_dtype`` (bfloat16, the
+    same realisation without holding the whole ξ array (one generator per
+    device, re-seeded: ``manual_seed`` restarts its stream, so the bits are
+    a new generator's).  Each chunk draws [l_chunk, nz, 2, mw] over its
+    band's m-width only (the triangle), in ``dtype``: one seed gives
+    another realisation in float64 than in float32, as a JAX key does.  A ``draw_dtype`` (bfloat16, the
     reference's ``xi_dtype``) draws at that precision and widens.
     """
+    gens = {}  # one generator per device, re-seeded per ℓ-chunk
+
     def chunk(c, lc, mw, device, draw_dtype=None):
-        g = torch.Generator(device=device)
+        g = gens.get(device)
+        if g is None:
+            g = gens[device] = torch.Generator(device=device)
         g.manual_seed(int(seeds[c]))
         x = torch.randn((lc, nz, 2, mw), generator=g, device=device,
                         dtype=draw_dtype or dtype)
@@ -968,23 +973,18 @@ def _fused_scan_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
     xi_chunk : white-noise source (:func:`xi_from_array` /
         :func:`xi_from_seeds`).
 
-    Per ℓ-chunk c: ξ [l_chunk, nz, 2, mw] at 1/√2 per plane, contracted
-    with the chunk's roots rows ``einsum("lzy,lypm->zplm")`` into planes
-    frequency-major with re/im minor (F2 = 2·nz_chunk), split by ℓ parity
-    into the kernel's even/odd a_lm planes.
+    The draw (:func:`_draw`) writes each ℓ-chunk c's even and odd rows at
+    row c·l_chunk/2 of the kernel's even/odd a_lm planes (F2 = 2·nz_chunk,
+    frequency-major with re/im minor), padded rows past lmax included.
     """
     L = op.lmax + 1
-    lc = op.l_chunk
     Lk = t["psl_rec_a"].shape[0]
     fdt = _scan_dtype(t)
     F2 = 2 * nz_chunk
     dev = op.device
     A0, A1 = (planes_minor(F2, Lk // 2, L, fdt, dev).zero_() for _ in range(2))
     with stage("draw", dev):
-        for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk, fdt):
-            j0 = c * (lc // 2)
-            A0[:, j0:j0 + lc // 2, :mw] = blk[:, 0::2]
-            A1[:, j0:j0 + lc // 2, :mw] = blk[:, 1::2]
+        _draw(op, roots, xi_chunk, z_lo, nz_chunk, A0, A1, 0, False)
 
     with stage("legendre", dev):
         He, Ho = _contract(op, t, A0, A1)
@@ -998,53 +998,49 @@ def _join_freq(H, nz_chunk):
     return torch.complex(Hf[:, 0], Hf[:, 1])
 
 
-def _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk, fdt):
-    """The correlated draw of one frequency chunk in ``fdt``, per
-    consecutive ℓ-chunk: yields (c, mw, planes [F2, l_chunk, mw]) with
-    F2 = 2·nz_chunk planes frequency-major, re/im minor.  ξ [l_chunk, nz,
-    2, mw] at 1/√2 per plane (the JAX f32 draw's constant in float32, the
-    exact one in float64) is drawn over the chunk's band m-width (the same
-    in both modes, so one generator state gives one cube) and contracted
-    with the chunk's roots rows, ``einsum("lzy,lypm->zplm")``."""
+def _draw(op, roots, xi_chunk, z_lo, nz_chunk, out0, out1, odd0, clip):
+    """The correlated draw of frequencies [z_lo, z_lo+nz_chunk) into
+    parity-packed a_lm planes [F2, rows, ≥L] in their dtype, one
+    :func:`cora_tpu_torch.ops.draw.correlated_draw` (K6 on CUDA) per
+    consecutive ℓ-chunk c: ℓ = c·l_chunk + i goes to row c·l_chunk/2 + i/2
+    of ``out0`` (i even) or ``odd0`` + c·l_chunk/2 + i/2 of ``out1`` (i
+    odd); the last chunk's rows past lmax too unless ``clip`` (zero where
+    ``roots`` ends).  ξ [l_chunk, nz, 2, mw] at 1/√2 per plane (the JAX
+    f32 draw's constant in float32, the exact one in float64) is drawn over
+    the chunk's band m-width (the same in both modes, so one generator
+    state gives one cube) and contracted with the chunk's roots rows."""
     L = op.lmax + 1
     lc = op.l_chunk
     g = op.ckpt_every
     nchunk = -(-L // lc)
-    F2 = 2 * nz_chunk
-    half = _XI_HALF if fdt == torch.float32 else 0.5 ** 0.5
-    if roots.shape[0] < nchunk * lc:
-        roots = torch.nn.functional.pad(
-            roots, (0, 0, 0, 0, 0, nchunk * lc - roots.shape[0]))
+    fdt = out0.dtype
+    if roots.dtype != fdt:
+        roots, z_lo = roots[:, z_lo:z_lo + nz_chunk].to(fdt), 0
     for b in range(-(-nchunk // g)):
         c_lo = b * g
         nc = min(g, nchunk - c_lo)
         mw = _band_mw(L, lc, c_lo, nc)
         for c in range(c_lo, c_lo + nc):
-            xi = xi_chunk(c, lc, mw, op.device).to(fdt) * half
-            rblk = roots[c * lc:(c + 1) * lc, z_lo:z_lo + nz_chunk].to(fdt)
-            yield c, mw, torch.einsum("lzy,lypm->zplm", rblk, xi).reshape(F2, lc, mw)
+            xi = xi_chunk(c, lc, mw, op.device).to(fdt)
+            j0 = c * lc // 2
+            correlated_draw(xi, roots, c * lc, z_lo, nz_chunk, out0, j0, out1,
+                            odd0 + j0, min(lc, L - c * lc) if clip else lc)
 
 
 def _cached_correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
     """Cached-mode twin of :func:`_fused_scan_GeGo` (the reference's
-    ``_correlated_GeGo``): the same draw (:func:`_draw_blocks`) written into
+    ``_correlated_GeGo``): the same draw (:func:`_draw`) written into
     parity-packed a_lm planes [F2, L, L] — a parity chunk gathers rows p::2
     of two consecutive ℓ-chunks — and one K4 launch into the per-parity
     accumulators, in the precision of the Λ of ``t``."""
     L = op.lmax + 1
-    lc = op.l_chunk
     ne = (L + 1) // 2
     F2 = 2 * nz_chunk
     dev = op.device
     fdt = t["lam"].dtype
     A = planes_minor(F2, L, L, fdt, dev).zero_()
     with stage("draw", dev):
-        for c, mw, blk in _draw_blocks(op, roots, xi_chunk, z_lo, nz_chunk, fdt):
-            n = min(lc, L - c * lc)
-            j0 = c * lc // 2
-            ev, od = blk[:, 0:n:2], blk[:, 1:n:2]
-            A[:, j0:j0 + ev.shape[1], :mw] = ev
-            A[:, ne + j0:ne + j0 + od.shape[1], :mw] = od
+        _draw(op, roots, xi_chunk, z_lo, nz_chunk, A, A, ne, True)
 
     H0 = torch.zeros((F2, op.nhalf, L), dtype=fdt, device=dev)
     H1 = torch.zeros_like(H0)
