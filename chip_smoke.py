@@ -278,8 +278,12 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               printed.  A failing child ends the script.
 
 The disk caches are off (``CORA_TPU_TORCH_CACHE=""``) outside phases 5b,
-15 and 17 (a temporary directory each): nothing survives a call.  Launch counts are read per C entry point (``entry_launches`` of each
-wrapper module), so the f32 and f64 launches are counted apart.
+15 and 17 (a temporary directory each): nothing survives a call.  Launch
+counts are read per C entry point (the one ``ops._build.launches``
+Counter), so the f32 and f64 launches are counted apart.  The bounds are
+the benchmark's (``benchmark/harness/roofline.py``,
+``benchmark/metrics/k4_roofline.py``, ``k5_roofline.py``), imported after
+the device phase.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -350,43 +354,43 @@ K5_REPLACES = ("none: the JAX package's roots are XLA's eigh (cora_tpu/util/lina
 K6_SRC = "cora_tpu_torch/csrc/correlated_draw.cu"
 K6_REPLACES = "none: the JAX package's draw is XLA's einsum (cora_tpu/healpix/sht.py _draw_blocks)"
 
-# one H100 SXM (NVIDIA's data sheet, 700 W): 3.35 TB/s of device memory;
-# float32 67 TFLOP/s outside the tensor cores (no f32-exact tensor-core
-# path); float64 67 TFLOP/s on the tensor cores (DMMA, IEEE f64 products)
-# and 34 TFLOP/s outside them
-HBM_BYTES_S = 3.35e12
-F32_FLOP_S = 67e12
-F64_MMA_FLOP_S = 67e12
-F64_FLOP_S = 34e12
+def _bench(name):
+    """The benchmark's module ``name`` (``harness.roofline``,
+    ``metrics.k4_roofline``, …) from ``benchmark/`` beside this script: the
+    least times the kernels are held to, from NVIDIA's published H100
+    figures (``benchmark/harness/peaks.json``)."""
+    import importlib
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark")
+    if bench not in sys.path:
+        sys.path.append(bench)
+    return importlib.import_module(name)
 
 
 def _bound(products, other, nbytes, itemsize):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rates of their type.  ``products`` are the
-    flops of the contraction (a matrix product), ``other`` those of the
-    recurrence that generates its rows.  In f32 both run on the same
-    units; in f64 the products can run on the tensor cores beside the
-    recurrence on the FP64 units, so the operations take at least the
-    longer of the two."""
-    t_b = nbytes / HBM_BYTES_S * 1e3
-    if itemsize == 4:
-        t_o = (products + other) / F32_FLOP_S * 1e3
-    else:
-        t_o = max(products / F64_MMA_FLOP_S, other / F64_FLOP_S) * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    """(bound_ms, bound_by): the benchmark's least time of work with
+    ``products`` flops of the contraction (a matrix product) and ``other``
+    flops of the recurrence that generates its rows, moving ``nbytes``
+    (``harness.roofline.bound_s``), and whether the bytes or the operations
+    set it."""
+    rf = _bench("harness.roofline")
+    t_b = nbytes / rf.peaks()["hbm_bytes_s"]
+    t = rf.bound_s(products, other, nbytes, itemsize)
+    return t * 1e3, "bytes" if t == t_b else "operations"
 
 
 def _k5_bound(L, n):
     """(bound_ms, bound_by, peak_ms) of L symmetric eigen-decompositions
-    and roots of n × n, from shapes alone whatever solves them: the larger
-    of the bytes (read C, write R: 2·L·n²·8) and the operations (LAPACK's
-    count less the tridiagonal solver: 4/3·n³ a matrix on the FP64 units,
-    then 2·n³ on the tensor cores).  ``peak_ms`` is the operations at the
-    card's float64 peak (all on the tensor cores), the least time at all."""
-    t_b = 2.0 * L * n * n * 8 / HBM_BYTES_S * 1e3
-    t_o = (4.0 / 3.0 * L * n**3 / F64_FLOP_S + 2.0 * L * n**3 / F64_MMA_FLOP_S) * 1e3
-    peak_ms = max(t_b, (4.0 / 3.0 + 2.0) * L * n**3 / F64_MMA_FLOP_S * 1e3)
-    return ((t_b, "bytes") if t_b >= t_o else (t_o, "operations")) + (peak_ms,)
+    and roots of n × n, from shapes alone whatever solves them: the
+    benchmark's least time (``metrics.k5_roofline.least_s``: the larger of
+    the bytes, read C and write R, and LAPACK's operations less the
+    tridiagonal solver).  ``peak_ms`` is the operations at the card's
+    float64 peak (all on the tensor cores), the least time at all."""
+    p = _bench("harness.roofline").peaks()
+    t_b = 2.0 * L * n * n * 8 / p["hbm_bytes_s"]
+    t = _bench("metrics.k5_roofline").least_s(L, n)
+    peak_ms = max(t_b, (4.0 / 3.0 + 2.0) * L * n**3 / p["f64_mma_flop_s"]) * 1e3
+    return t * 1e3, "bytes" if t == t_b else "operations", peak_ms
 
 
 def _nbytes(*xs):
@@ -441,7 +445,7 @@ def _kernel_inputs(op, F2, seed, t=None):
 
     t = op.tables(False) if t is None else t
     Lk, M = t["psl_rec_a"].shape
-    dt = sht._scan_dtype(t)
+    dt = sht._real_dtype(t)
     L = op.lmax + 1
     g = torch.Generator(device=op.device).manual_seed(seed)
     planes = torch.randn((F2, Lk, M), generator=g, device=op.device, dtype=dt)
@@ -840,29 +844,15 @@ def _k4_library(lam, desc, A, R):
     return tuple(h.permute(1, 2, 0) for h in H)
 
 
-def _k4_triangle(desc, LA):
-    """The (ℓ, m ≤ ℓ) entries of one ring's Λ that the chunks hold: each
-    parity-packed row (evens then odds) counts its ℓ + 1 orders, not the
-    chunk's zero padding for m > ℓ."""
-    ne = (LA + 1) // 2
-    tri = 0
-    for _, nrows, mw, row0, _ in desc.tolist():
-        for r in range(row0, row0 + nrows):
-            ell = 2 * r if r < ne else 2 * (r - ne) + 1
-            tri += min(ell + 1, mw)
-    return tri
-
-
-def _k4_work(lam, desc, A, R):
-    """((products, other) flops, bytes) of one K4 call, counted on the
-    (ℓ, m ≤ ℓ) triangle the contraction needs: one FMA per such Λ entry
-    and plane, all of it a product; those Λ and plane entries read once,
-    H0 and H1 written once.  The chunks' padding is left out
-    (:func:`_k4_stored_bytes` counts it)."""
-    F2, LA, M = A.shape
-    tri = _k4_triangle(desc, LA)
-    return ((2.0 * F2 * tri * R, 0.0),
-            (tri * R + F2 * tri + 2 * F2 * R * M) * A.element_size())
+def _k4_work(A, R):
+    """((products, other) flops, bytes) of one K4 call on the planes ``A``
+    [F2, L, L] and ``R`` rings, counted by the benchmark
+    (``metrics.k4_roofline.work``) on the (ℓ, m ≤ ℓ) triangle the
+    contraction needs: one FMA per such Λ entry and plane, those Λ and
+    plane entries read once, H0 and H1 written once.  The chunks' padding
+    is left out (:func:`_k4_stored_bytes` counts it)."""
+    F2, L, _ = A.shape
+    return _bench("metrics.k4_roofline").work(L, R, F2, A.element_size())
 
 
 def _k4_stored_bytes(lam, A, R):
@@ -918,7 +908,7 @@ def legendre_phase(dev, reports):
                     lambda: _k4_run(k4.legendre_contract_plain, lam.double(), desc,
                                     A.double(), R), tol=1e-5)
             lib_ms = _cuda_time_ms(lambda: _k4_library(lam, desc, A, R), 3)
-            flops, nbytes = _k4_work(lam, desc, A, R)
+            flops, nbytes = _k4_work(A, R)
             print(f"   {name} nside={nside} L={lmax + 1} F2={F2}: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, per-chunk bmm {lib_ms:.3f} ms (CUDA "
                   f"events, median); {nbytes / 1e9:.3f} GB needed (m ≤ ℓ), "
@@ -1140,6 +1130,7 @@ def draw_phase(dev, reports):
     and the einsum alone (library_ms); f64 at the nside-512 shape."""
     import torch
 
+    from cora_tpu_torch.ops import _build
     from cora_tpu_torch.ops import draw as k6
     from cora_tpu_torch.ops.scan_legendre import planes_minor
 
@@ -1151,10 +1142,11 @@ def draw_phase(dev, reports):
         op, xis, roots = _draw_inputs(dev, L, nz, g, 7 + nside, dtype)
         A = planes_minor(32, L, L, dtype, dev).zero_()
         Ap = planes_minor(32, L, L, dtype, dev).zero_()
-        n0 = k6.launches
+        entry = "cora_correlated_draw_" + ("f64" if dtype == torch.float64 else "f32")
+        n0 = _build.launches[entry]
         _draw_run(k6.correlated_draw, op, xis, roots, A)
         torch.cuda.synchronize(dev)
-        nl = k6.launches - n0
+        nl = _build.launches[entry] - n0
         _draw_run(k6.correlated_draw_plain, op, xis, roots, Ap)
         # the sum-order bound, laid out as the planes: Σ|R||ξh| per output
         Ab = planes_minor(32, L, L, dtype, dev).zero_()
@@ -1179,7 +1171,7 @@ def draw_phase(dev, reports):
         fs = A.stride(2)
         nbytes = sum(x.numel() * isz + x.shape[0] * x.shape[3] * fs * isz
                      + x.shape[0] * 16 * nz * isz for x in xis)
-        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        bound_ms = nbytes / _bench("harness.roofline").peaks()["hbm_bytes_s"] * 1e3
         print(f"   {name} {cell} chunk (nz {nz}, F2 32, {len(xis)} ℓ-chunks, "
               f"{nbytes / 1e9:.3f} GB): K6 {ms:.3f} ms ({nl} launches), plain "
               f"{plain_ms:.3f} ms, einsum alone {library_ms:.3f} ms, bound "
@@ -1215,11 +1207,11 @@ def _nside1_check(dev):
     import torch
 
     from cora_tpu_torch.healpix import sht, spin
-    from cora_tpu_torch.ops import legendre as k4
+    from cora_tpu_torch.ops import _build
 
     rng = np.random.default_rng(1)
     E, B = (torch.from_numpy(_triangle(rng, (2, 3, 3))) for _ in range(2))
-    before = k4.launches
+    before = _build.launches["cora_legendre_contract_f32"]
     got = [sht.SHT(1, 2, device=dev, legendre_mode="cached").synthesis(E.to(dev))]
     got += spin.SpinSHT(1, 2, 2, device=dev, legendre_mode="cached").synthesis(
         E.to(dev), B.to(dev))
@@ -1227,9 +1219,10 @@ def _nside1_check(dev):
     ref += spin.SpinSHT(1, 2, 2, device="cpu", legendre_mode="cached").synthesis(E, B)
     gap = max(float((g.cpu() - r).abs().max()) / float(r.abs().max())
               for g, r in zip(got, ref))
-    print(f"   cached mode at nside=1 (f32, R=2): {k4.launches - before} K4 launches, "
+    nl = _build.launches["cora_legendre_contract_f32"] - before
+    print(f"   cached mode at nside=1 (f32, R=2): {nl} K4 launches, "
           f"max|Δ|/max vs the plain version {gap:.3e}")
-    check(k4.launches - before >= 3 and gap <= 1e-5,
+    check(nl >= 3 and gap <= 1e-5,
           "nside=1 cached synthesis (scalar, spin) launches K4 and matches plain ≤ 1e-5·max")
 
 
@@ -1344,22 +1337,19 @@ def _triangle(rng, shape, lmin=2):
 
 
 def _reset_counts():
-    from cora_tpu_torch.ops import draw as k6
-    from cora_tpu_torch.ops import jacobi_eigh as k5
-    from cora_tpu_torch.ops import legendre as k4
-    from cora_tpu_torch.ops import scan_legendre as k
-    from cora_tpu_torch.ops import wigner as k3
+    from cora_tpu_torch.ops import _build
 
-    for mod in (k, k3):
-        mod.launches = 0
-        mod.project_launches = 0
-        mod.entry_launches.clear()
-    k4.launches = 0
-    k4.entry_launches.clear()
-    k5.launches = 0
-    k5.matrices = 0
-    k6.launches = 0
-    k6.entry_launches.clear()
+    _build.launches.clear()
+
+
+# the report names of the C entry points whose names are not "cora_" + name
+_ENTRIES = {"legendre_contract": "cora_legendre_contract_f32",
+            "jacobi_eigh": "cora_jacobi_eigh_f64",
+            "correlated_draw": "cora_correlated_draw_f32"}
+_REPORT_NAMES = ("scan_contract", "scan_contract_f64", "scan_project", "scan_project_f64",
+                 "wigner_contract", "wigner_contract_f64", "wigner_project",
+                 "wigner_project_f64", "legendre_contract", "legendre_contract_f64",
+                 "jacobi_eigh", "correlated_draw", "correlated_draw_f64")
 
 
 def _counts():
@@ -1367,22 +1357,10 @@ def _counts():
     report name (``scan_contract``, ``scan_contract_f64``, …,
     ``legendre_contract``, ``legendre_contract_f64``, ``jacobi_eigh``,
     ``correlated_draw``, ``correlated_draw_f64``)."""
-    from cora_tpu_torch.ops import draw as k6
-    from cora_tpu_torch.ops import jacobi_eigh as k5
-    from cora_tpu_torch.ops import legendre as k4
-    from cora_tpu_torch.ops import scan_legendre as k
-    from cora_tpu_torch.ops import wigner as k3
+    from cora_tpu_torch.ops import _build
 
-    n = {name: mod.entry_launches.get("cora_" + name, 0)
-         for mod, base in ((k, ("scan_contract", "scan_project")),
-                           (k3, ("wigner_contract", "wigner_project")))
-         for b in base for name in (b, b + "_f64")}
-    n["legendre_contract"] = k4.entry_launches.get("cora_legendre_contract_f32", 0)
-    n["legendre_contract_f64"] = k4.entry_launches.get("cora_legendre_contract_f64", 0)
-    n["jacobi_eigh"] = k5.launches
-    n["correlated_draw"] = k6.entry_launches.get("cora_correlated_draw_f32", 0)
-    n["correlated_draw_f64"] = k6.entry_launches.get("cora_correlated_draw_f64", 0)
-    return n
+    return {name: _build.launches[_ENTRIES.get(name, "cora_" + name)]
+            for name in _REPORT_NAMES}
 
 
 def _clear_operators():
@@ -2167,7 +2145,7 @@ def _k4_at_path_shapes(dev, shapes):
                 lambda: _k4_run(k4.legendre_contract_plain, lam.double(), desc,
                                 A.double(), R), reps=(3, 1), tol=1e-5)
         lib_ms = _cuda_time_ms(lambda: _k4_library(lam, desc, A, R), 3)
-        flops, nbytes = _k4_work(lam, desc, A, R)
+        flops, nbytes = _k4_work(A, R)
         bound_ms, bound_by = _bound(*flops, nbytes, A.element_size())
         print(f"   {name} nside={nside}: {calls} launches on the path; kernel "
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, per-chunk bmm {lib_ms:.3f} ms "
@@ -4038,12 +4016,7 @@ def main():
     f64_sky_phase(dev, reports, roots)
     standalone_phase(dev)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
-    names = ("scan_contract", "scan_contract_f64", "scan_project",
-             "scan_project_f64", "wigner_contract", "wigner_contract_f64",
-             "wigner_project", "wigner_project_f64", "legendre_contract",
-             "legendre_contract_f64", "jacobi_eigh", "correlated_draw",
-             "correlated_draw_f64")
-    print(json.dumps({"kernels": [reports[n] for n in names]}))
+    print(json.dumps({"kernels": [reports[n] for n in _REPORT_NAMES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

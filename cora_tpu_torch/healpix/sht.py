@@ -15,6 +15,12 @@ one ``torch.bmm`` per chunk; the correlated draw writes each frequency
 chunk's parity-packed a_lm planes with kernel K6, one launch per ℓ-chunk
 (:func:`cora_tpu_torch.ops.draw.correlated_draw`), and runs K4 once.
 
+Both modes run one Legendre stage — :func:`fused_GeGo` (alm → even/odd
+ring spectra), its adjoint :func:`project_GeGo` and :func:`correlated_GeGo`
+(correlated draw → a_lm planes → kernel) — on one layout of the a_lm
+planes, parity-packed with the odd ℓ from row ``SHT.odd0``; only the launch
+that contracts or projects them follows the operator's mode.
+
 **Scan mode** (``"scan"``; the default on the CPU and above nside=512): the
 Λ-free configuration whose Legendre stages are the fused recurrence
 kernels, K1 for synthesis and K2 for its adjoint (analysis):
@@ -25,9 +31,9 @@ kernels, K1 for synthesis and K2 for its adjoint (analysis):
   both precisions, from the seeds alone), and the ring geometry
   (equatorial phases and twiddles, polar-cap chirp tables at the foldless
   FFT size ``nfft2``).
-* **Legendre stage**: :func:`fused_GeGo` (alm → even/odd ring spectra) and
-  :func:`_fused_scan_GeGo` (correlated draw → a_lm planes → kernel), both
-  through :func:`cora_tpu_torch.ops.scan_legendre.scan_contract`.
+* **Legendre stage**: K1
+  (:func:`cora_tpu_torch.ops.scan_legendre.scan_contract`) on the two
+  parity halves of the a_lm planes.
 * **Ring stage** on ``torch.fft``: :func:`rings_to_grid_parity` runs the
   equatorial band as one Hermitian-packed inverse DFT at W/2 and the dense
   polar caps as a Bluestein convolution, both on the half-size even/odd
@@ -36,7 +42,7 @@ kernels, K1 for synthesis and K2 for its adjoint (analysis):
   gather; :meth:`SHT.map_to_grid`, its inverse, as one device scatter.
 * **Analysis**: :func:`grid_to_rings_parity` (the adjoint ring stage: N/S
   fold of the grid, forward DFT at W on the equatorial band,
-  conjugate-chirp Bluestein on the caps) and :func:`fused_project` (even/odd
+  conjugate-chirp Bluestein on the caps) and :func:`project_GeGo` (even/odd
   spectra → alm through
   :func:`cora_tpu_torch.ops.scan_legendre.scan_project`), refined by Jacobi
   steps or conjugate gradients; ``map2alm``, ``anafast`` and the smoothing
@@ -183,6 +189,12 @@ class SHT:
         if lambda_build not in ("host", "device"):
             raise ValueError(f"unknown lambda_build {lambda_build!r}")
         self.legendre_mode = legendre_mode
+        # rows of the parity-packed a_lm planes (even ℓ from row 0, odd ℓ
+        # from row odd0): K4's L rows, or K1/K2's two halves of whole ℓ-chunks
+        L = self.lmax + 1
+        Lk = -(-L // self.l_chunk) * self.l_chunk
+        self.plane_rows, self.odd0 = ((L, (L + 1) // 2) if legendre_mode == "cached"
+                                      else (Lk, Lk // 2))
         self.lambda_build = lambda_build
         self.cache_dtype = np.dtype(cache_dtype)
         self.lambda_cache = lambda_cache
@@ -543,12 +555,12 @@ class SHT:
     def _legendre_contract(self, alm):
         alm = torch.as_tensor(alm, device=self.device)
         t = self.tables(alm.dtype == torch.complex128)
-        return _unfold_rows(self, *_GeGo(self, t, alm))
+        return _unfold_rows(self, *fused_GeGo(self, t, alm))
 
     def _legendre_project(self, G):
         G = torch.as_tensor(G, device=self.device)
         t = self.tables(G.dtype == torch.complex128)
-        return _project(self, t, *_fold_rows(self, G))
+        return project_GeGo(self, t, *_fold_rows(self, G))
 
 
 def default_legendre_mode(device_type: str, nside: int) -> str:
@@ -790,110 +802,109 @@ def _kernel_tables(t):
             t["psl_z"])
 
 
-def _scan_dtype(t):
-    """The real dtype of the transforms of scan tables ``t``: their ring
-    tables' precision (the recurrence's tables are float64 for both)."""
+def _real_dtype(t):
+    """The real dtype of the transforms of tables ``t``: their ring tables'
+    precision (a cached Λ has it too; the scan recurrence's tables are
+    float64 for both)."""
     return torch.float64 if t["eq_twid"].dtype == torch.complex128 else torch.float32
 
 
-def _contract(op, t, A0, A1):
-    return scan_contract(*_kernel_tables(t), A0, A1)
+def _alm_planes(op, F2, dtype):
+    """Empty parity-packed a_lm planes [F2, rows, L] in planes-minor storage
+    (:func:`~cora_tpu_torch.ops.scan_legendre.planes_minor`): even ℓ from
+    row 0, odd ℓ from row ``op.odd0``, ``op.plane_rows`` rows
+    (:class:`SHT`)."""
+    return planes_minor(F2, op.plane_rows, op.lmax + 1, dtype, op.device)
+
+
+def _contraction(op, t, A):
+    """The Legendre launch of the operator's mode on the planes ``A``
+    (:func:`_alm_planes`), as a call that returns the per-ℓ-parity
+    accumulators (H0, H1) [F2, nh, L].  Cached mode: K4 into zeroed
+    accumulators, allocated here, so that their fill stays outside the
+    caller's stage.  Scan mode: K1 on the row views of the two parities,
+    which keep the planes-minor strides."""
+    if op.legendre_mode == "cached":
+        H0 = A.new_zeros((A.shape[0], op.nhalf, A.shape[2]))
+        H1 = torch.zeros_like(H0)
+        return lambda: legendre_contract(t["lam"], t["lam_desc"], A, H0, H1)
+    return lambda: scan_contract(*_kernel_tables(t), A[:, :op.odd0], A[:, op.odd0:])
+
+
+def _project(op, t, src0, src1):
+    """The adjoint of :func:`_contraction`: the even-ℓ and odd-ℓ a_lm rows
+    (A0, A1) [F2, ≥ rows of the parity, L] from their sources [F2, nh, L],
+    by one ``torch.bmm`` per Λ chunk (cached mode) or K2 (scan mode)."""
+    if op.legendre_mode == "cached":
+        ap = legendre_project(t["lam"], t["lam_desc"], src0, src1, LA=op.lmax + 1)
+        return ap[:, :op.odd0], ap[:, op.odd0:]
+    return scan_project(*_kernel_tables(t), src0, src1)
 
 
 def fused_GeGo(op, t, alm):
-    """Even/odd ring spectra (Ge, Go) [..., nh, L] from a batched alm.
+    """Even/odd ring spectra (Ge, Go) [..., nh, L] from a batched alm, in the
+    operator's mode (``cora_tpu.ops.pallas_scan_legendre.fused_GeGo``, the
+    reference's ``_legendre_contract_cached``).
 
-    The batch is flattened into the kernel's plane axis as
-    ``[all real; all imag]`` (F2 = 2B, real planes first), matching
-    ``cora_tpu.ops.pallas_scan_legendre.fused_GeGo``.
+    The batch is flattened into the kernel's plane axis with re/im minor
+    (F2 = 2B, as the draw writes its planes), the rows parity-packed
+    (:func:`_alm_planes`, rows past lmax zero).
     """
     L = op.lmax + 1
-    Lk = t["psl_rec_a"].shape[0]
+    ne, no = (L + 1) // 2, L // 2
     batch = tuple(alm.shape[:-2])
-    planes = _planes(alm, _scan_dtype(t))
-    planes = torch.nn.functional.pad(planes, (0, 0, 0, Lk - L))
-    A = [planes_minor(planes.shape[0], Lk // 2, L, planes.dtype, planes.device)
-         .copy_(planes[:, p::2]) for p in (0, 1)]
-    He, Ho = _contract(op, t, *A)
-    return _route(_join(He, batch), _join(Ho, batch), L)
+    a = _planes(alm, _real_dtype(t))
+    A = _alm_planes(op, a.shape[0], a.dtype)
+    A[:, :ne] = a[:, 0::2]
+    A[:, ne:op.odd0].zero_()
+    A[:, op.odd0:op.odd0 + no] = a[:, 1::2]
+    A[:, op.odd0 + no:].zero_()
+    H0, H1 = _contraction(op, t, A)()
+    return _spectra(op, H0, H1, batch)
 
 
-def fused_project(op, t, Ge, Go):
+def project_GeGo(op, t, Ge, Go):
     """alm [..., L, L] (complex) from even/odd ring spectra (Ge, Go)
     [..., nh, L] — the adjoint of :func:`fused_GeGo`, the counterpart of
-    ``cora_tpu``'s ``_fused_scan_project``.
+    ``cora_tpu``'s ``_fused_scan_project`` and ``_legendre_project_cached``.
 
     Even-ℓ rows see Ge on even m and Go on odd m, odd-ℓ rows the
-    complement (:func:`_route`); the batch is flattened into the kernel's
-    plane axis as ``[all real; all imag]``.
+    complement (:func:`_route`, written planes-minor, as K2 reads them);
+    the batch is flattened into the plane axis with re/im minor, and the
+    even and odd ℓ rows are interleaved back.
     """
     L = op.lmax + 1
-    rdt = _scan_dtype(t)
+    rdt = _real_dtype(t)
     batch = tuple(Ge.shape[:-2])
     Pe, Po = _planes(Ge, rdt), _planes(Go, rdt)
-    # the sources planes-minor, as K2 reads them
     src0, src1 = _route(Pe, Po, L, out=[planes_minor(*Pe.shape, rdt, Pe.device)
                                         for _ in range(2)])
-    A0, A1 = scan_project(*_kernel_tables(t), src0, src1)
-    # interleave the even/odd ℓ rows, trim the padded rows
-    alm = torch.stack([A0, A1], dim=2).reshape(A0.shape[0], -1, L)[:, :L]
+    A0, A1 = _project(op, t, src0, src1)
+    alm = A0.new_empty((A0.shape[0], L, L))
+    alm[:, 0::2] = A0[:, :(L + 1) // 2]
+    alm[:, 1::2] = A1[:, :L // 2]
     return _join(alm, batch)
 
 
 def _planes(x, dt):
-    """Complex [..., n, L] → real planes [2B, n, L] ([all re; all im])."""
-    x = x.reshape((-1,) + tuple(x.shape[-2:]))
-    return torch.cat([x.real, x.imag], dim=0).to(dt)
+    """Complex [..., n, L] → real planes [2B, n, L], re/im minor (plane 2b
+    the real part of batch element b, 2b + 1 its imaginary part)."""
+    x = torch.view_as_real(x.reshape((-1,) + tuple(x.shape[-2:])))
+    return x.permute(0, 3, 1, 2).reshape((-1,) + tuple(x.shape[1:3])).to(dt)
 
 
 def _join(H, batch):
-    """Real planes [2B, n, L] → complex [*batch, n, L]."""
-    B = H.shape[0] // 2
-    return torch.complex(H[:B], H[B:]).reshape(batch + tuple(H.shape[1:]))
+    """Real planes [2B, n, L], re/im minor → complex [*batch, n, L]."""
+    Hb = H.reshape((-1, 2) + tuple(H.shape[1:]))
+    return torch.complex(Hb[:, 0], Hb[:, 1]).reshape(batch + tuple(H.shape[1:]))
 
 
-def cached_GeGo(op, t, alm):
-    """Even/odd ring spectra (Ge, Go) [..., nh, L] from a batched alm in the
-    cached mode (the reference's ``_legendre_contract_cached``): the planes'
-    rows parity-packed (evens then odds) and contracted by K4 with the Λ
-    chunks into the per-ℓ-parity accumulators, then routed by m parity."""
-    L = op.lmax + 1
-    batch = tuple(alm.shape[:-2])
-    a = _planes(alm, t["lam"].dtype)
-    ne = (L + 1) // 2
-    A = planes_minor(a.shape[0], L, L, a.dtype, a.device)
-    A[:, :ne] = a[:, 0::2]
-    A[:, ne:] = a[:, 1::2]
-    H0 = a.new_zeros((a.shape[0], op.nhalf, L))
-    H1 = torch.zeros_like(H0)
-    legendre_contract(t["lam"], t["lam_desc"], A, H0, H1)
-    return _route(_join(H0, batch), _join(H1, batch), L)
-
-
-def cached_project(op, t, Ge, Go):
-    """alm [..., L, L] from even/odd ring spectra, the adjoint of
-    :func:`cached_GeGo` (the reference's ``_legendre_project_cached``): even-ℓ
-    rows project the m-parity mix ``src0`` of (Ge, Go), odd-ℓ rows ``src1``
-    (:func:`_route`), one ``torch.bmm`` per Λ chunk; rows interleaved back."""
-    L = op.lmax + 1
-    ne = (L + 1) // 2
-    batch = tuple(Ge.shape[:-2])
-    dt = t["lam"].dtype
-    src0, src1 = _route(_planes(Ge, dt), _planes(Go, dt), L)
-    ap = legendre_project(t["lam"], t["lam_desc"], src0, src1, LA=L)
-    a = torch.empty_like(ap)
-    a[:, 0::2] = ap[:, :ne]
-    a[:, 1::2] = ap[:, ne:]
-    return _join(a, batch)
-
-
-def _GeGo(op, t, alm):
-    """(Ge, Go) through the operator's mode: cached tables carry ``lam``."""
-    return (cached_GeGo if "lam" in t else fused_GeGo)(op, t, alm)
-
-
-def _project(op, t, Ge, Go):
-    return (cached_project if "lam" in t else fused_project)(op, t, Ge, Go)
+def _spectra(op, H0, H1, batch):
+    """The Legendre stage's exit: even/odd ring spectra (Ge, Go)
+    [*batch, nh, L] from the per-ℓ-parity accumulators [F2, nh, L] (planes
+    re/im minor), joined to complex and routed by m parity
+    (:func:`_route`)."""
+    return _route(_join(H0, batch), _join(H1, batch), op.lmax + 1)
 
 
 def _fold_rows(op, x):
@@ -965,55 +976,46 @@ def xi_from_seeds(seeds, nz, dtype=torch.float32):
     return chunk
 
 
-def _fused_scan_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
-    """Correlated draw + fused scan contraction for one frequency chunk, in
-    the precision of the tables ``t`` (K1 f32 or f64).
+def correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
+    """Correlated draw + Legendre stage for one frequency chunk, in the
+    operator's mode and the precision of the tables ``t`` (K1 or K4, f32 or
+    f64; the reference's ``_fused_scan_GeGo`` and ``_correlated_GeGo``).
 
     roots : [≥L, nz_out, nz] covariance roots (consecutive ℓ).
     xi_chunk : white-noise source (:func:`xi_from_array` /
         :func:`xi_from_seeds`).
 
-    The draw (:func:`_draw`) writes each ℓ-chunk c's even and odd rows at
-    row c·l_chunk/2 of the kernel's even/odd a_lm planes (F2 = 2·nz_chunk,
-    frequency-major with re/im minor), padded rows past lmax included.
+    The draw (:func:`_draw`) writes the parity-packed a_lm planes
+    (:func:`_alm_planes`; F2 = 2·nz_chunk, frequency-major with re/im
+    minor), zeroed first, so the rows past lmax stay zero.
     """
-    L = op.lmax + 1
-    Lk = t["psl_rec_a"].shape[0]
-    fdt = _scan_dtype(t)
-    F2 = 2 * nz_chunk
     dev = op.device
-    A0, A1 = (planes_minor(F2, Lk // 2, L, fdt, dev).zero_() for _ in range(2))
+    A = _alm_planes(op, 2 * nz_chunk, _real_dtype(t)).zero_()
     with stage("draw", dev):
-        _draw(op, roots, xi_chunk, z_lo, nz_chunk, A0, A1, 0, False)
+        _draw(op, roots, xi_chunk, z_lo, nz_chunk, A, op.odd0)
 
+    launch = _contraction(op, t, A)
     with stage("legendre", dev):
-        He, Ho = _contract(op, t, A0, A1)
-    return _route(_join_freq(He, nz_chunk), _join_freq(Ho, nz_chunk), L)
+        H0, H1 = launch()
+    return _spectra(op, H0, H1, (nz_chunk,))
 
 
-def _join_freq(H, nz_chunk):
-    """[F2, nh, L] planes, frequency-major with re/im minor → complex
-    [nz_chunk, nh, L]."""
-    Hf = H.reshape((nz_chunk, 2) + tuple(H.shape[1:]))
-    return torch.complex(Hf[:, 0], Hf[:, 1])
-
-
-def _draw(op, roots, xi_chunk, z_lo, nz_chunk, out0, out1, odd0, clip):
-    """The correlated draw of frequencies [z_lo, z_lo+nz_chunk) into
-    parity-packed a_lm planes [F2, rows, ≥L] in their dtype, one
+def _draw(op, roots, xi_chunk, z_lo, nz_chunk, A, odd0):
+    """The correlated draw of frequencies [z_lo, z_lo+nz_chunk) into the
+    parity-packed a_lm planes ``A`` [F2, rows, ≥L] in their dtype, one
     :func:`cora_tpu_torch.ops.draw.correlated_draw` (K6 on CUDA) per
-    consecutive ℓ-chunk c: ℓ = c·l_chunk + i goes to row c·l_chunk/2 + i/2
-    of ``out0`` (i even) or ``odd0`` + c·l_chunk/2 + i/2 of ``out1`` (i
-    odd); the last chunk's rows past lmax too unless ``clip`` (zero where
-    ``roots`` ends).  ξ [l_chunk, nz, 2, mw] at 1/√2 per plane (the JAX
-    f32 draw's constant in float32, the exact one in float64) is drawn over
-    the chunk's band m-width (the same in both modes, so one generator
-    state gives one cube) and contracted with the chunk's roots rows."""
+    consecutive ℓ-chunk c: ℓ = c·l_chunk + i ≤ lmax goes to row
+    c·l_chunk/2 + i/2 (i even) or ``odd0`` + c·l_chunk/2 + i/2 (i odd); no
+    row past lmax is written.  ξ [l_chunk, nz, 2, mw] at 1/√2 per plane
+    (the JAX f32 draw's constant in float32, the exact one in float64) is
+    drawn over the chunk's band m-width (the same in both modes, so one
+    generator state gives one cube) and contracted with the chunk's roots
+    rows."""
     L = op.lmax + 1
     lc = op.l_chunk
     g = op.ckpt_every
     nchunk = -(-L // lc)
-    fdt = out0.dtype
+    fdt = A.dtype
     if roots.dtype != fdt:
         roots, z_lo = roots[:, z_lo:z_lo + nz_chunk].to(fdt), 0
     for b in range(-(-nchunk // g)):
@@ -1023,38 +1025,15 @@ def _draw(op, roots, xi_chunk, z_lo, nz_chunk, out0, out1, odd0, clip):
         for c in range(c_lo, c_lo + nc):
             xi = xi_chunk(c, lc, mw, op.device).to(fdt)
             j0 = c * lc // 2
-            correlated_draw(xi, roots, c * lc, z_lo, nz_chunk, out0, j0, out1,
-                            odd0 + j0, min(lc, L - c * lc) if clip else lc)
-
-
-def _cached_correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
-    """Cached-mode twin of :func:`_fused_scan_GeGo` (the reference's
-    ``_correlated_GeGo``): the same draw (:func:`_draw`) written into
-    parity-packed a_lm planes [F2, L, L] — a parity chunk gathers rows p::2
-    of two consecutive ℓ-chunks — and one K4 launch into the per-parity
-    accumulators, in the precision of the Λ of ``t``."""
-    L = op.lmax + 1
-    ne = (L + 1) // 2
-    F2 = 2 * nz_chunk
-    dev = op.device
-    fdt = t["lam"].dtype
-    A = planes_minor(F2, L, L, fdt, dev).zero_()
-    with stage("draw", dev):
-        _draw(op, roots, xi_chunk, z_lo, nz_chunk, A, A, ne, True)
-
-    H0 = torch.zeros((F2, op.nhalf, L), dtype=fdt, device=dev)
-    H1 = torch.zeros_like(H0)
-    with stage("legendre", dev):
-        legendre_contract(t["lam"], t["lam_desc"], A, H0, H1)
-    return _route(_join_freq(H0, nz_chunk), _join_freq(H1, nz_chunk), L)
+            correlated_draw(xi, roots, c * lc, z_lo, nz_chunk, A, j0, A,
+                            odd0 + j0, min(lc, L - c * lc))
 
 
 def synthesis_grid_correlated(op, t, roots, xi_chunk, z_lo, nz_chunk):
     """Correlated draw + synthesis of frequencies [z_lo, z_lo+nz_chunk)
     onto the ring grid [nz_chunk, nring, nq_max], in the operator's mode and
     the precision of the tables ``t`` (``op.tables(double)``)."""
-    fn = _cached_correlated_GeGo if "lam" in t else _fused_scan_GeGo
-    Ge, Go = fn(op, t, roots, xi_chunk, z_lo, nz_chunk)
+    Ge, Go = correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk)
     with stage("ring", op.device):
         return rings_to_grid_parity(op, t, Ge, Go)
 
@@ -1087,10 +1066,9 @@ def synthesis_scan_correlated(op, t, roots, xi_chunk, nz_leg, nz_ring, consume, 
         raise ValueError(f"xi_dtype must be float32 or bfloat16, not {xi_dtype}")
     if xi_dtype != torch.float32:
         xi_chunk = partial(xi_chunk, draw_dtype=xi_dtype)
-    fn = _cached_correlated_GeGo if "lam" in t else _fused_scan_GeGo
     carry = init
     for z0 in range(0, nz_out, nz_leg):
-        Ge, Go = fn(op, t, roots, xi_chunk, z0, nz_leg)
+        Ge, Go = correlated_GeGo(op, t, roots, xi_chunk, z0, nz_leg)
         for j in range(0, nz_leg, nz_ring):
             with stage("ring", op.device):
                 g = rings_to_grid_parity(op, t, Ge[j:j + nz_ring], Go[j:j + nz_ring])
@@ -1299,7 +1277,7 @@ def grid_to_rings_complex(op, t, fgrid):
 
 def _synthesis_grid(op, t, alm):
     with stage("legendre", op.device):
-        Ge, Go = _GeGo(op, t, alm)
+        Ge, Go = fused_GeGo(op, t, alm)
     with stage("ring", op.device):
         return rings_to_grid_parity(op, t, Ge, Go)
 
@@ -1310,7 +1288,7 @@ def _analysis_once_grid(op, t, fgrid):
         Ge, Go = grid_to_rings_parity(op, t, fgrid)
         w = 4.0 * np.pi / op.npix
     with stage("projection", op.device):
-        return _project(op, t, Ge * w, Go * w)
+        return project_GeGo(op, t, Ge * w, Go * w)
 
 
 def _analysis_grid(op, t, fgrid, iter):

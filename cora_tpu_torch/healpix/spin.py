@@ -317,7 +317,7 @@ class SpinSHT:
         [B, nh, L] (complex), both batches in one K3 launch (scan mode) or
         one K4 launch (cached mode)."""
         B = alm_a.shape[0]
-        cached = "sp" in t
+        cached = self.legendre_mode == "cached"
         x = _real_planes(torch.cat([alm_a, alm_b]),
                          (t["sp"][sp] if cached else t[sp])[0].dtype)
         if cached:
@@ -335,7 +335,7 @@ class SpinSHT:
         or one ``torch.bmm`` per Λ chunk (cached mode)."""
         B = G_a.shape[0]
         G = torch.cat([G_a, G_b])
-        if "sp" in t:
+        if self.legendre_mode == "cached":
             lam, desc = t["sp"][sp]
             x = torch.cat([G.real, G.imag]).to(lam.dtype)
             a = legendre_project(lam, desc, x, LA=self.lmax + 1)

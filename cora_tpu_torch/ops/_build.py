@@ -11,10 +11,17 @@ name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source is rebuilt and a current one is reused;
 :func:`build` compiles several sources at once.  Nothing is compiled or
 imported at module import time: the CPU-only tests import every module.
+
+:func:`kernel` binds a C entry point: every entry takes its arguments, then
+the CUDA device index and stream, and returns a CUDA error code.
+:data:`launches` counts the launches of every entry point by its C name
+(``cora_scan_contract``, ``cora_legendre_contract_f32``,
+``cora_jacobi_eigh_f64``, …), so each precision is counted apart.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -30,7 +37,9 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared",
                            "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict = {}  # C entry point → its declared ctypes function
 build_log: dict[str, dict] = {}
+launches: collections.Counter = collections.Counter()
 
 
 def nvcc_path() -> str:
@@ -90,3 +99,32 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(_lib_path(name))
     return lib
+
+
+def kernel(lib: str, entry: str, argtypes):
+    """The C entry point ``entry`` of ``csrc/<lib>.cu`` as a call
+    ``launch(device, *args)``.
+
+    The entry is declared once (``argtypes``, then the device index and
+    the stream that every entry point takes last; an int return) and
+    cached.  The call passes ``args``, the index of ``device`` and its
+    current stream, raises ``RuntimeError`` naming the entry on a non-zero
+    return (a CUDA error code), and adds 1 to ``launches[entry]``.
+    """
+    fn = _ENTRIES.get(entry)
+    if fn is None:
+        fn = getattr(load(lib), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*argtypes, ctypes.c_int, ctypes.c_void_p]
+        _ENTRIES[entry] = fn
+
+    def launch(device, *args):
+        import torch
+
+        err = fn(*args, int(device.index),
+                 torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+        launches[entry] += 1
+
+    return launch

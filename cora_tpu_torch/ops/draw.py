@@ -17,9 +17,8 @@ Roots rows past the end of ``R`` read as zero.
 :func:`correlated_draw` launches the kernel (``csrc/correlated_draw.cu``,
 float and double) for CUDA tensors and takes :func:`correlated_draw_plain`
 (the ×h pass, ``einsum("lzy,lypm->zplm")`` and the two parity copies) only
-for CPU tensors.  ``launches`` counts K6 launches in either precision,
-``entry_launches`` per C entry point (``cora_correlated_draw_f32``,
-``cora_correlated_draw_f64``).
+for CPU tensors.  ``_build.launches`` counts the launches per C entry point
+(``cora_correlated_draw_f32``, ``cora_correlated_draw_f64``).
 
 Bound on an H100: ξ's bytes.  One 16-channel chunk at nside 512 reads 2.62
 GB of ξ over its 24 ℓ-chunks and writes 0.17 GB of planes, 0.83 ms at 3.35
@@ -37,34 +36,22 @@ import ctypes
 
 import torch
 
+from . import _build
 from .scan_legendre import vector_width
 
 XI_HALF = 0.70710678  # 1/√2 per re/im plane, as the JAX f32 draw
 
-launches = 0
-entry_launches = {}
-
-_FNS = {}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (xi, its 3 strides, roots, its 3 strides, nvalid, out0, out1, row0_even,
+# row0_odd, n, nz, nz_chunk, mw, pitch, fs, h)
+_ARGTYPES = ([_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _I, _P, _P] + [_I] * 6
+             + [_LL, _I, ctypes.c_double])
 
 
 def xi_scale(dtype):
     """The scale h of ξ per re/im plane: the JAX f32 draw's constant in
     float32, the exact 1/√2 in float64."""
     return XI_HALF if dtype == torch.float32 else 0.5 ** 0.5
-
-
-def _kernel_fn(fn_name):
-    fn = _FNS.get(fn_name)
-    if fn is None:
-        from . import _build
-
-        fn = getattr(_build.load("correlated_draw"), fn_name)
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.restype = I
-        fn.argtypes = ([P, LL, LL, LL, P, LL, LL, LL, I, P, P] + [I] * 6
-                       + [LL, I, ctypes.c_double, I, P])
-        _FNS[fn_name] = fn
-    return fn
 
 
 def _check_args(xi, roots, l0, z_lo, nz_chunk, out0, row0_even, out1, row0_odd, n):
@@ -110,7 +97,6 @@ def correlated_draw(xi, roots, l0, z_lo, nz_chunk, out0, row0_even, out1, row0_o
     if devs == {torch.device("cpu")}:
         return correlated_draw_plain(xi, roots, l0, z_lo, nz_chunk, out0, row0_even,
                                      out1, row0_odd, n)
-    global launches
     dev = out0.device
     if dev.type != "cuda" or len(devs) != 1:
         raise ValueError(f"correlated_draw: tensors on {sorted(map(str, devs))}; "
@@ -137,15 +123,10 @@ def correlated_draw(xi, roots, l0, z_lo, nz_chunk, out0, row0_even, out1, row0_o
     rows = roots[l0:l0 + nvalid, z_lo:z_lo + nz_chunk] if nvalid else roots
     entry = ("cora_correlated_draw_f64" if dt == torch.float64
              else "cora_correlated_draw_f32")
-    err = _kernel_fn(entry)(
-        xi.data_ptr(), *xi.stride()[:3], rows.data_ptr(), *rows.stride(),
+    _build.kernel("correlated_draw", entry, _ARGTYPES)(
+        dev, xi.data_ptr(), *xi.stride()[:3], rows.data_ptr(), *rows.stride(),
         nvalid, out0.data_ptr(), out1.data_ptr(), int(row0_even), int(row0_odd),
-        int(n), int(nz), int(nz_chunk), int(mw), M * fs, fs, xi_scale(dt),
-        int(dev.index), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"correlated_draw kernel launch failed: CUDA error {err}")
-    launches += 1
-    entry_launches[entry] = entry_launches.get(entry, 0) + 1
+        int(n), int(nz), int(nz_chunk), int(mw), M * fs, fs, xi_scale(dt))
     return out0, out1
 
 

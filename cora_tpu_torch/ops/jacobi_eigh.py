@@ -28,10 +28,11 @@ or raise.  :func:`routes_to_kernel` is the rule by which
 :func:`cora_tpu_torch.util.linalg.batch_matrix_root` chooses K5 over
 ``torch.linalg.eigh``: float32 or float64 on CUDA with 1 ≤ n ≤ 256
 (float32 is solved in float64; beyond 256, A and V of one matrix would not
-fit the design's tiles).  ``launches`` counts launches, ``matrices`` the matrices
-they diagonalised; ``last_sweeps`` is a device tensor with the largest sweep
-count of the last launch (read by the tests and ``chip_smoke.py``; the one
-synchronising read per call is the convergence check).
+fit the design's tiles).  ``_build.launches["cora_jacobi_eigh_f64"]`` counts
+launches, ``matrices`` the matrices they diagonalised; ``last_sweeps`` is a
+device tensor with the largest sweep count of the last launch (read by the
+tests and ``chip_smoke.py``; the one synchronising read per call is the
+convergence check).
 """
 
 from __future__ import annotations
@@ -40,16 +41,18 @@ import ctypes
 
 import torch
 
+from . import _build
+
 MAX_N = 256
 MAX_SWEEPS = 40
 BLOCK = 16  # columns of a block; a pair's subproblem is 2·BLOCK wide
 EPS = torch.finfo(torch.float64).eps
+# (A, V, evals, L, npad, n, threshold, tol, max_sweeps, root_mode, sweeps)
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
-launches = 0
 matrices = 0
 last_sweeps = None
-
-_FN = None
 
 
 def routes_to_kernel(device, dtype, n) -> bool:
@@ -66,19 +69,6 @@ def padded_size(n) -> int:
     return max(pw, -(-int(n) // pw) * pw)
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from . import _build
-
-        fn = _build.load("jacobi_eigh").cora_jacobi_eigh_f64
-        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.restype = I
-        fn.argtypes = [P, P, P, I, I, I, D, D, I, I, P, I, P]
-        _FN = fn
-    return _FN
-
-
 def _check(mats):
     if mats.dim() < 2 or mats.shape[-1] != mats.shape[-2]:
         raise ValueError(f"jacobi_eigh: square matrices [..., n, n] expected, "
@@ -92,7 +82,7 @@ def _check(mats):
 def _launch(mats, root_mode, threshold):
     """K5 on a batch [..., n, n]: (R or V [..., n, n], eigenvalues
     [..., n] or None)."""
-    global launches, matrices, last_sweeps
+    global matrices, last_sweeps
     dev = mats.device
     if dev.type != "cuda":
         raise ValueError(f"jacobi_eigh: unsupported device {dev}")
@@ -110,14 +100,11 @@ def _launch(mats, root_mode, threshold):
     evals = None if root_mode else mats.new_empty((L, n))
     sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
     if L:
-        err = _kernel_fn()(
-            A.data_ptr(), V.data_ptr(), None if evals is None else evals.data_ptr(),
-            L, npad, n, float(threshold), float(n) * EPS, MAX_SWEEPS,
-            int(root_mode), sweeps.data_ptr(), int(dev.index),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"jacobi_eigh kernel launch failed: CUDA error {err}")
-        launches += 1
+        _build.kernel("jacobi_eigh", "cora_jacobi_eigh_f64", _ARGTYPES)(
+            dev, A.data_ptr(), V.data_ptr(),
+            None if evals is None else evals.data_ptr(), L, npad, n,
+            float(threshold), float(n) * EPS, MAX_SWEEPS, int(root_mode),
+            sweeps.data_ptr())
         matrices += L
     last_sweeps = sweeps
     del V

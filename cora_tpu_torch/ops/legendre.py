@@ -15,9 +15,8 @@ target accumulator:
 
 :func:`legendre_contract` launches the kernel (``csrc/legendre_contract.cu``,
 float and double) for CUDA tensors and takes :func:`legendre_contract_plain`
-only for CPU tensors.  ``launches`` counts K4 launches in either precision,
-``entry_launches`` per C entry point (``cora_legendre_contract_f32``,
-``cora_legendre_contract_f64``).
+only for CPU tensors.  ``_build.launches`` counts the launches per C entry
+point (``cora_legendre_contract_f32``, ``cora_legendre_contract_f64``).
 
 Bound on an H100 at the flagship call (nside=512, L=1536, 32 planes): Λ is
 5.23 GB of the 5.94 GB the call moves, 1.77 ms at 3.35 TB/s, against 1.25 ms
@@ -52,12 +51,11 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from . import _build
 from .scan_legendre import kernel_planes, vector_width
 
-launches = 0
-entry_launches = {}
-
-_FNS = {}
+# (lam, desc, nchunk, A, H0, H1, F2, M, R, fs)
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
 _DESC_DEV = {}  # device copies of descriptors, keyed by content and device
 
 # Λ tables held by live operators, least recently used first:
@@ -135,19 +133,6 @@ def _desc_rows(desc):
     return [tuple(int(v) for v in row) for row in np.asarray(desc).reshape(-1, 5)]
 
 
-def _kernel_fn(fn_name):
-    fn = _FNS.get(fn_name)
-    if fn is None:
-        from . import _build
-
-        fn = getattr(_build.load("legendre_contract"), fn_name)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.restype = I
-        fn.argtypes = [P, P, I, P, P, P, I, I, I, I, I, P]
-        _FNS[fn_name] = fn
-    return fn
-
-
 def _check_args(lam, desc, A, H0, H1):
     """Shapes, dtypes and chunk bounds of one contraction (host checks)."""
     dt = A.dtype
@@ -195,7 +180,6 @@ def legendre_contract(lam, desc, A, H0, H1=None):
     rows, F2, LA, M, R = _check_args(lam, desc, A, H0, H1)
     if A.device.type == "cpu":
         return legendre_contract_plain(lam, desc, A, H0, H1)
-    global launches
     dev = A.device
     if dev.type != "cuda":
         raise ValueError(f"legendre_contract: unsupported device {dev}")
@@ -222,15 +206,9 @@ def legendre_contract(lam, desc, A, H0, H1=None):
     d = _device_desc(rows, dev)
     entry = ("cora_legendre_contract_f64" if A.dtype == torch.float64
              else "cora_legendre_contract_f32")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel_fn(entry)(
-        lam.data_ptr(), d.data_ptr(), len(rows), A.data_ptr(), H0.data_ptr(),
-        None if H1 is None else H1.data_ptr(), int(F2), int(M), int(R),
-        int(fs), int(dev.index), stream)
-    if err != 0:
-        raise RuntimeError(f"legendre_contract kernel launch failed: CUDA error {err}")
-    launches += 1
-    entry_launches[entry] = entry_launches.get(entry, 0) + 1
+    _build.kernel("legendre_contract", entry, _ARGTYPES)(
+        dev, lam.data_ptr(), d.data_ptr(), len(rows), A.data_ptr(), H0.data_ptr(),
+        None if H1 is None else H1.data_ptr(), int(F2), int(M), int(R), int(fs))
     return H0, H1
 
 

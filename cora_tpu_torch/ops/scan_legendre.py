@@ -40,11 +40,9 @@ recurrence is carried in float64 from float64 tables scaled with S=512,
 why: near the poles at nside 2048 a float32 carry ends 17.9% off, 4.1%
 even when re-seeded every 1024 ℓ).  The float32 kernels round each emitted
 λ once to float32 for their products.  The planes' dtype picks the entry
-point.  ``launches`` counts K1 launches,
-``project_launches`` K2 launches, in either precision; ``entry_launches``
-counts them per C entry point (``cora_scan_contract``,
-``cora_scan_contract_f64``, ``cora_scan_project``,
-``cora_scan_project_f64``), so each precision's launches are read apart.
+point; ``_build.launches`` counts the launches per C entry point
+(``cora_scan_contract``, ``cora_scan_contract_f64``, ``cora_scan_project``,
+``cora_scan_project_f64``).
 """
 
 from __future__ import annotations
@@ -53,35 +51,19 @@ import ctypes
 
 import torch
 
+from . import _build
+
 # (S, β) of the scaled recurrence, in both precisions (cora_tpu's float64
 # _lam_scale_params): the seed tables are pre-scaled for exactly these and
 # the CUDA kernels hard-code them; the entries still scaled (never emitted)
 # have |λ| < 2^-256
 SCALE = (512.0, 256.0)
 
-launches = 0
-project_launches = 0
-entry_launches = {}
-
 _PLAIN_L_BLOCK = 64  # ℓ rows per einsum in the plain versions
 _DTYPES = (torch.float32, torch.float64)
-_FNS = {}
-
-
-def _kernel_fn(lib_name, fn_name):
-    """A kernel's C entry point, with its signature declared.  The entry
-    points take (5 table pointers, in0, in1, out0, out1, L, M, R, F2, fs,
-    device, stream), fs the planes' vector stride (:func:`kernel_planes`)."""
-    fn = _FNS.get(fn_name)
-    if fn is None:
-        from . import _build
-
-        fn = getattr(_build.load(lib_name), fn_name)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.restype = I
-        fn.argtypes = [P] * 9 + [I] * 6 + [P]
-        _FNS[fn_name] = fn
-    return fn
+# both kernels' entry points: (5 table pointers, in0, in1, out0, out1, L, M,
+# R, F2, fs), fs the planes' vector stride (:func:`kernel_planes`)
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
 
 
 def vector_width(dtype):
@@ -139,16 +121,13 @@ def scan_contract(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1):
     tabs = (rec_a, rec_b, seed_T, k0_T, z)
     if alm0.device.type == "cpu":
         return scan_contract_plain(*tabs, alm0, alm1)
-    global launches
     L, M = rec_a.shape
     F2 = alm0.shape[0]
     # the largest grid of either precision: 32-ring tiles, 4 m values a
     # block, a plane tile of 8 and two ℓ parities (csrc/scan_legendre.cu)
-    out = _launch("scan_contract", "scan_legendre", tabs, alm0, alm1,
-                  (F2, L // 2, M), (F2, z.shape[0], M),
-                  (-(-z.shape[0] // 32), -(-M // 4), 2 * -(-F2 // 8)))
-    launches += 1
-    return out
+    return _launch("scan_contract", "scan_legendre", tabs, alm0, alm1,
+                   (F2, L // 2, M), (F2, z.shape[0], M),
+                   (-(-z.shape[0] // 32), -(-M // 4), 2 * -(-F2 // 8)))
 
 
 def scan_project(rec_a, rec_b, seed_T, k0_T, z, src0, src1):
@@ -164,13 +143,10 @@ def scan_project(rec_a, rec_b, seed_T, k0_T, z, src0, src1):
     tabs = (rec_a, rec_b, seed_T, k0_T, z)
     if src0.device.type == "cpu":
         return scan_project_plain(*tabs, src0, src1)
-    global project_launches
     L, M = rec_a.shape
-    out = _launch("scan_project", "scan_project", tabs, src0, src1,
-                  (src0.shape[0], z.shape[0], M), (src0.shape[0], L // 2, M),
-                  (8, -(-M // 2), -(-src0.shape[0] // 8)), minor_out=True)
-    project_launches += 1
-    return out
+    return _launch("scan_project", "scan_project", tabs, src0, src1,
+                   (src0.shape[0], z.shape[0], M), (src0.shape[0], L // 2, M),
+                   (8, -(-M // 2), -(-src0.shape[0] // 8)), minor_out=True)
 
 
 def _check(name, x, shape, dev, contiguous=True):
@@ -229,15 +205,11 @@ def _launch(fn_name, lib_name, tabs, in0, in1, in_shape, out_shape, grid,
     else:
         out0, out1 = (torch.empty(out_shape, dtype=dt, device=dev)
                       for _ in range(2))
-    stream = torch.cuda.current_stream(dev).cuda_stream
     entry = "cora_" + fn_name + ("_f64" if dt == torch.float64 else "")
-    err = _kernel_fn(lib_name, entry)(
-        *(x.data_ptr() for x in tabs), in0.data_ptr(), in1.data_ptr(),
+    _build.kernel(lib_name, entry, _ARGTYPES)(
+        dev, *(x.data_ptr() for x in tabs), in0.data_ptr(), in1.data_ptr(),
         out0.data_ptr(), out1.data_ptr(), int(L), int(M), int(R),
-        int(in0.shape[0]), int(fs), int(dev.index), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
-    entry_launches[entry] = entry_launches.get(entry, 0) + 1
+        int(in0.shape[0]), int(fs))
     return out0, out1
 
 

@@ -20,9 +20,8 @@ storage (:func:`cora_tpu_torch.ops.scan_legendre.kernel_planes`, the layout
 holds all planes of its tile, so the recurrence runs once per (ℓ, ring, m)
 (the synthesis has K1's design, the adjoint K2's: ``csrc/project_tiles.cuh``;
 the design notes and times are in the CUDA source and ``PERF.md``).  The
-adjoint returns a planes-minor view.  ``launches`` counts synthesis
-launches, ``project_launches`` adjoint launches, in either precision;
-``entry_launches`` counts them per C entry point (``cora_wigner_contract``,
+adjoint returns a planes-minor view.  ``_build.launches`` counts the
+launches per C entry point (``cora_wigner_contract``,
 ``cora_wigner_contract_f64``, ``cora_wigner_project``,
 ``cora_wigner_project_f64``).
 """
@@ -34,31 +33,14 @@ import math
 
 import torch
 
+from . import _build
 from .scan_legendre import kernel_planes, planes_minor
-
-launches = 0
-project_launches = 0
-entry_launches = {}
 
 _PLAIN_L_BLOCK = 64  # ℓ rows per einsum in the plain versions
 _DTYPES = (torch.float32, torch.float64)
-_FNS = {}
-
-
-def _kernel_fn(fn_name):
-    """A C entry point of the kernel library, with its signature declared:
-    (coefs, seed_T, l0, z, x, out, L, M, R, F2, fs, device, stream), fs the
-    planes' vector stride (``kernel_planes``)."""
-    fn = _FNS.get(fn_name)
-    if fn is None:
-        from . import _build
-
-        fn = getattr(_build.load("wigner_apply"), fn_name)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.restype = I
-        fn.argtypes = [P] * 6 + [I] * 6 + [P]
-        _FNS[fn_name] = fn
-    return fn
+# the entry points: (coefs, seed_T, l0, z, x, out, L, M, R, F2, fs), fs the
+# planes' vector stride (``kernel_planes``)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 
 
 def wigner_contract(coefs, seed_T, l0, z, x):
@@ -69,16 +51,13 @@ def wigner_contract(coefs, seed_T, l0, z, x):
     """
     if x.device.type == "cpu":
         return wigner_contract_plain(coefs, seed_T, l0, z, x)
-    global launches
     _, L, M = coefs.shape
     R, F2 = z.shape[0], x.shape[0]
     # the largest grid of either precision: 64-ring tiles, 4 m values a
     # block, a plane tile of 8 (csrc/wigner_apply.cu)
-    out = _launch("cora_wigner_contract", (coefs, seed_T, l0, z), x,
-                  (F2, L, M), (F2, R, M),
-                  (-(-R // 64), -(-M // 4), -(-F2 // 8)))
-    launches += 1
-    return out
+    return _launch("cora_wigner_contract", (coefs, seed_T, l0, z), x,
+                   (F2, L, M), (F2, R, M),
+                   (-(-R // 64), -(-M // 4), -(-F2 // 8)))
 
 
 def wigner_project(coefs, seed_T, l0, z, x):
@@ -89,14 +68,11 @@ def wigner_project(coefs, seed_T, l0, z, x):
     written."""
     if x.device.type == "cpu":
         return wigner_project_plain(coefs, seed_T, l0, z, x)
-    global project_launches
     _, L, M = coefs.shape
     R, F2 = z.shape[0], x.shape[0]
-    out = _launch("cora_wigner_project", (coefs, seed_T, l0, z), x,
-                  (F2, R, M), (F2, L, M), (8, -(-M // 2), -(-F2 // 8)),
-                  minor_out=True)
-    project_launches += 1
-    return out
+    return _launch("cora_wigner_project", (coefs, seed_T, l0, z), x,
+                   (F2, R, M), (F2, L, M), (8, -(-M // 2), -(-F2 // 8)),
+                   minor_out=True)
 
 
 def _launch(fn_name, tabs, x, in_shape, out_shape, grid, minor_out=False):
@@ -135,14 +111,10 @@ def _launch(fn_name, tabs, x, in_shape, out_shape, grid, minor_out=False):
 
     out = (planes_minor(*out_shape, dt, dev) if minor_out
            else torch.empty(out_shape, dtype=dt, device=dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
     entry = fn_name + ("_f64" if dt == torch.float64 else "")
-    err = _kernel_fn(entry)(
-        *(t.data_ptr() for t in tabs), x.data_ptr(), out.data_ptr(), int(L),
-        int(M), int(R), int(x.shape[0]), int(fs), int(dev.index), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
-    entry_launches[entry] = entry_launches.get(entry, 0) + 1
+    _build.kernel("wigner_apply", entry, _ARGTYPES)(
+        dev, *(t.data_ptr() for t in tabs), x.data_ptr(), out.data_ptr(), int(L),
+        int(M), int(R), int(x.shape[0]), int(fs))
     return out
 
 

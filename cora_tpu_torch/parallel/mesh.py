@@ -368,7 +368,7 @@ def band_legendre_step(op, t_band, rows, xi_chunk, i, fchunk):
     complex64."""
     from ..healpix import sht
 
-    return sht._fused_scan_GeGo(op, t_band, rows, xi_chunk, i * fchunk, fchunk)
+    return sht.correlated_GeGo(op, t_band, rows, xi_chunk, i * fchunk, fchunk)
 
 
 def band_ring_step(op, tables, Ge, Go, b, fsub):

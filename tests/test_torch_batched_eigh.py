@@ -20,6 +20,7 @@ from cora_tpu_torch.ops import jacobi_eigh as je
 from cora_tpu_torch.signal import clfast as tclf
 from cora_tpu_torch.signal import corr21cm as tc21
 from cora_tpu_torch.util import linalg as tlin
+from cora_tpu_torch.ops import _build
 
 torch.set_num_threads(1)
 
@@ -218,10 +219,10 @@ def test_cpu_batch_matrix_root_is_unchanged(n):
     """On the CPU batch_matrix_root still runs the library's eigh and
     returns exactly its root, launching nothing."""
     C = _graded(n, seed=n)
-    before = je.launches
+    before = _build.launches["cora_jacobi_eigh_f64"]
     assert torch.equal(tlin.batch_matrix_root(C), _library_root(C))
     assert torch.equal(tlin.batch_matrix_root(C, 1e-3), _library_root(C, 1e-3))
-    assert je.launches == before
+    assert _build.launches["cora_jacobi_eigh_f64"] == before
 
 
 def test_cpu_covariance_roots_is_unchanged(engine_grid):
@@ -249,11 +250,11 @@ def test_wrapper_refuses_bad_inputs():
 def test_cpu_batch_matrix_root_float32_is_unchanged():
     """A float32 CPU batch keeps the library's float32 eigh."""
     C = _graded(48, seed=3).float()
-    before = je.launches
+    before = _build.launches["cora_jacobi_eigh_f64"]
     got = tlin.batch_matrix_root(C)
     assert got.dtype == torch.float32
     assert torch.equal(got, _library_root(C))
-    assert je.launches == before
+    assert _build.launches["cora_jacobi_eigh_f64"] == before
 
 
 # --- on the card ----------------------------------------------------------
@@ -270,10 +271,10 @@ def cuda_device():
 @pytest.mark.parametrize("n", SIZES)
 def test_kernel_matches_plain_on_gpu(cuda_device, n):
     C = _graded(n, seed=n, B=2)
-    before = (je.launches, je.matrices)
+    before = (_build.launches["cora_jacobi_eigh_f64"], je.matrices)
     w, V = je.eigh(C.to(cuda_device))
     torch.cuda.synchronize()
-    assert (je.launches, je.matrices) == (before[0] + 1, before[1] + 2)
+    assert (_build.launches["cora_jacobi_eigh_f64"], je.matrices) == (before[0] + 1, before[1] + 2)
     _check_eigh(C, w.cpu(), V.cpu())
     assert int(je.last_sweeps) <= je.MAX_SWEEPS
     R = je.matrix_root(C.to(cuda_device))
@@ -295,11 +296,11 @@ def test_batch_matrix_root_routes_on_gpu(cuda_device):
     """float64 and float32 up to 256 launch K5 (float32 solved in float64
     and returned in float32); n > 256 launches nothing."""
     C = _graded(40, seed=4).to(cuda_device)
-    n0 = je.launches
+    n0 = _build.launches["cora_jacobi_eigh_f64"]
     R = tlin.batch_matrix_root(C)
-    assert je.launches == n0 + 1
+    assert _build.launches["cora_jacobi_eigh_f64"] == n0 + 1
     R32 = tlin.batch_matrix_root(C.float())
-    assert je.launches == n0 + 2 and R32.dtype == torch.float32
+    assert _build.launches["cora_jacobi_eigh_f64"] == n0 + 2 and R32.dtype == torch.float32
     assert torch.equal(R32, tlin.batch_matrix_root(C.float().double()).float())
     tlin.batch_matrix_root(torch.eye(257, dtype=torch.float64, device=cuda_device)[None])
-    assert je.launches == n0 + 3
+    assert _build.launches["cora_jacobi_eigh_f64"] == n0 + 3

@@ -20,6 +20,7 @@ import torch
 from cora_tpu_torch.healpix import sht as tsht
 from cora_tpu_torch.ops import draw
 from cora_tpu_torch.ops.scan_legendre import planes_minor
+from cora_tpu_torch.ops import _build
 
 torch.set_num_threads(1)
 
@@ -89,17 +90,14 @@ def _old_scan(op, roots, xi_chunk, z_lo, nz_chunk, fdt, Lk):
 
 
 def _new(layout, op, roots, xi_chunk, z_lo, nz_chunk, fdt, Lk=None):
-    """The planes as ``_cached_correlated_GeGo`` / ``_fused_scan_GeGo``
-    allocate and fill them now."""
+    """The planes as ``correlated_GeGo`` allocates and fills them now: one
+    buffer of L rows with the odd ℓ from (L+1)/2 (cached), or of Lk rows
+    with the odd ℓ from Lk/2, whose two halves K1 takes (scan)."""
     L = op.lmax + 1
-    F2 = 2 * nz_chunk
-    if layout == "cached":
-        A = planes_minor(F2, L, L, fdt, op.device).zero_()
-        tsht._draw(op, roots, xi_chunk, z_lo, nz_chunk, A, A, (L + 1) // 2, True)
-        return (A,)
-    A0, A1 = (planes_minor(F2, Lk // 2, L, fdt, op.device).zero_() for _ in range(2))
-    tsht._draw(op, roots, xi_chunk, z_lo, nz_chunk, A0, A1, 0, False)
-    return A0, A1
+    rows, odd0 = (L, (L + 1) // 2) if layout == "cached" else (Lk, Lk // 2)
+    A = planes_minor(2 * nz_chunk, rows, L, fdt, op.device).zero_()
+    tsht._draw(op, roots, xi_chunk, z_lo, nz_chunk, A, odd0)
+    return (A,) if layout == "cached" else (A[:, :odd0], A[:, odd0:])
 
 
 @pytest.mark.parametrize("roots_layout", ["row", "col"])
@@ -294,16 +292,16 @@ def test_launch_counts_on_gpu(cuda_device, mode):
     op = tsht.SHT(nside, lmax, l_chunk=16, device=cuda_device, legendre_mode=mode,
                   lambda_build="device" if mode == "cached" else "host")
     roots = _roots(lmax + 1, torch.float32, "col")[:, :nz, :nz].contiguous()
-    before = dict(draw.entry_launches), draw.launches
+    before = _build.launches.copy()
     gen = torch.Generator(device=cuda_device).manual_seed(9)
     maps = [m for _, m in skysim.mkfullsky_streamed(None, nside, device=cuda_device,
                                                     roots=roots, generator=gen,
                                                     fchunk=fchunk, op=op)]
     torch.cuda.synchronize()
     nchunk = -(-(lmax + 1) // 16)
-    assert draw.launches - before[1] == nchunk * (nz // fchunk)
-    assert (draw.entry_launches.get("cora_correlated_draw_f32", 0)
-            - before[0].get("cora_correlated_draw_f32", 0)) == nchunk * (nz // fchunk)
+    new = _build.launches - before
+    assert (new["cora_correlated_draw_f32"], new["cora_correlated_draw_f64"]) == (
+        nchunk * (nz // fchunk), 0)
     assert all(bool(torch.isfinite(m).all()) for m in maps)
 
 

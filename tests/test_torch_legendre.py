@@ -26,6 +26,7 @@ from cora_tpu_torch import convert
 from cora_tpu_torch.device import resolve_device
 from cora_tpu_torch.healpix import sht as tsht
 from cora_tpu_torch.ops import legendre as k4
+from cora_tpu_torch.ops import _build
 
 torch.set_num_threads(1)
 
@@ -267,11 +268,11 @@ def test_kernel_sum_order_matches_plain(dtype, bound):
 
 def test_wrapper_cpu_runs_plain_without_launch():
     lam, desc, A = _random_chunks(np.random.default_rng(6), dtype=torch.float32)
-    before = (k4.launches, dict(k4.entry_launches))
+    before = _build.launches.copy()
     H = [torch.zeros(3, 5, 11) for _ in range(4)]
     k4.legendre_contract(lam, desc, A, H[0], H[1])
     k4.legendre_contract_plain(lam, desc, A, H[2], H[3])
-    assert (k4.launches, k4.entry_launches) == before
+    assert _build.launches == before
     assert torch.equal(H[0], H[2]) and torch.equal(H[1], H[3])
 
 
@@ -355,10 +356,10 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype, bound, F2, layout):
     H = [torch.zeros(F2, R, M, dtype=dtype, device=cuda_device) for _ in range(4)]
     entry = ("cora_legendre_contract_f64" if dtype == torch.float64
              else "cora_legendre_contract_f32")
-    before = k4.entry_launches.get(entry, 0)
+    before = _build.launches[entry]
     k4.legendre_contract(lam, desc, A, H[0], H[1] if two else None)
     torch.cuda.synchronize()
-    assert k4.entry_launches[entry] == before + 1
+    assert _build.launches[entry] == before + 1
     k4.legendre_contract_plain(lam, desc, A, H[2], H[3] if two else None)
     for got, ref in ((H[0], H[2]), (H[1], H[3])):
         assert float((got - ref).abs().max()) <= bound * max(float(ref.abs().max()), 1e-30)
@@ -379,10 +380,10 @@ def test_kernel_pads_rings_off_the_vectors_on_gpu(cuda_device, layout):
     H = [torch.from_numpy(rng.standard_normal((F2, R, M))).float().to(cuda_device)
          for _ in range(2)]
     ref = [h.clone() for h in H]
-    before = k4.entry_launches.get("cora_legendre_contract_f32", 0)
+    before = _build.launches["cora_legendre_contract_f32"]
     k4.legendre_contract(lam, desc, A, H[0], H[1] if two else None)
     torch.cuda.synchronize()
-    assert k4.entry_launches["cora_legendre_contract_f32"] == before + 1
+    assert _build.launches["cora_legendre_contract_f32"] == before + 1
     k4.legendre_contract_plain(lam, desc, A, ref[0], ref[1] if two else None)
     for got, want in zip(H, ref):
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -399,18 +400,18 @@ def test_cached_nside1_synthesis_on_gpu(cuda_device):
     alm = torch.from_numpy(_random_alm(rng, 2).astype(np.complex64))
     ops = {d: tsht.SHT(1, 2, device=d, legendre_mode="cached")
            for d in ("cpu", cuda_device)}
-    before = k4.launches
+    before = _build.launches["cora_legendre_contract_f32"]
     got = ops[cuda_device].synthesis(alm.to(cuda_device)).cpu()
-    assert k4.launches > before
+    assert _build.launches["cora_legendre_contract_f32"] > before
     ref = ops["cpu"].synthesis(alm)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     sops = {d: tspin.SpinSHT(1, 2, 2, device=d, legendre_mode="cached")
             for d in ("cpu", cuda_device)}
     blm = torch.from_numpy(_random_alm(rng, 2).astype(np.complex64))
-    before = k4.launches
+    before = _build.launches["cora_legendre_contract_f32"]
     got = [x.cpu() for x in sops[cuda_device].synthesis(alm.to(cuda_device),
                                                         blm.to(cuda_device))]
-    assert k4.launches > before
+    assert _build.launches["cora_legendre_contract_f32"] > before
     for g, r in zip(got, sops["cpu"].synthesis(alm, blm)):
         assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
@@ -422,8 +423,8 @@ def test_cached_synthesis_on_gpu_matches_cpu(cuda_device):
     alm = torch.from_numpy(_random_alm(np.random.default_rng(9), 47).astype(np.complex64))
     maps = [_port_cached(16, 47, 8).synthesis(alm).numpy()]
     op = tsht.SHT(16, 47, l_chunk=8, device=cuda_device, legendre_mode="cached")
-    before = k4.launches
+    before = _build.launches["cora_legendre_contract_f32"]
     maps.append(op.synthesis(alm.to(cuda_device)).cpu().numpy())
-    assert k4.launches == before + 1
+    assert _build.launches["cora_legendre_contract_f32"] == before + 1
     rms = np.sqrt(np.mean((maps[1] - maps[0]) ** 2) / np.mean(maps[0] ** 2))
     assert rms <= 1e-6

@@ -6,10 +6,13 @@ tensors only, the CUDA kernel (or an error) for anything else.
 """
 
 import ast
+import collections
+import ctypes
 import os
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -153,10 +156,10 @@ def _tiny_inputs(device, F2=3, L=8, M=6, R=5):
 
 def test_wrapper_cpu_runs_plain_without_launch():
     args = _tiny_inputs("cpu")
-    before = k1.launches
+    before = _build.launches.copy()
     he, ho = k1.scan_contract(*args)
     he_p, ho_p = k1.scan_contract_plain(*args)
-    assert k1.launches == before
+    assert _build.launches == before
     assert torch.equal(he, he_p) and torch.equal(ho, ho_p)
     assert he.shape == (3, 5, 6)
 
@@ -176,10 +179,10 @@ def _tiny_project_inputs(device, F2=3, L=8, M=6, R=5):
 
 def test_project_wrapper_cpu_runs_plain_without_launch():
     args = _tiny_project_inputs("cpu")
-    before = (k1.launches, k1.project_launches)
+    before = _build.launches.copy()
     a0, a1 = k1.scan_project(*args)
     p0, p1 = k1.scan_project_plain(*args)
-    assert (k1.launches, k1.project_launches) == before
+    assert _build.launches == before
     assert torch.equal(a0, p0) and torch.equal(a1, p1)
     assert a0.shape == (3, 4, 6)
 
@@ -222,9 +225,9 @@ def test_wigner_wrapper_cpu_runs_plain_without_launch(adjoint):
     args = _tiny_wigner_inputs("cpu", adjoint=adjoint)
     fn, plain = ((k3.wigner_project, k3.wigner_project_plain) if adjoint
                  else (k3.wigner_contract, k3.wigner_contract_plain))
-    before = (k3.launches, k3.project_launches)
+    before = _build.launches.copy()
     out = fn(*args)
-    assert (k3.launches, k3.project_launches) == before
+    assert _build.launches == before
     assert torch.equal(out, plain(*args))
     assert out.shape == ((3, 9, 7) if adjoint else (3, 5, 7))
 
@@ -234,6 +237,51 @@ def test_wigner_wrapper_other_device_raises(adjoint):
     fn = k3.wigner_project if adjoint else k3.wigner_contract
     with pytest.raises(ValueError, match="unsupported device"):
         fn(*_tiny_wigner_inputs("meta", adjoint=adjoint))
+
+
+def test_kernel_binder_counts_launches_and_names_failures(monkeypatch):
+    """A bound entry point (a Python stand-in put into the binder's cache,
+    so no library is loaded) gets its arguments, then the device index and
+    the device's current stream; a launch is counted under the entry's C
+    name, and a non-zero return raises RuntimeError naming the entry,
+    uncounted."""
+    calls = []
+
+    def stand_in(*args):
+        calls.append(args)
+        return args[0]  # its first argument plays the CUDA error code
+
+    monkeypatch.setitem(_build._ENTRIES, "cora_stand_in", stand_in)
+    monkeypatch.setattr(_build, "launches", collections.Counter())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=1234))
+    launch = _build.kernel("no_such_library", "cora_stand_in", [ctypes.c_int])
+    launch(torch.device("cuda", 3), 0)
+    assert calls == [(0, 3, 1234)]
+    assert dict(_build.launches) == {"cora_stand_in": 1}
+    with pytest.raises(RuntimeError, match="cora_stand_in.*CUDA error 700"):
+        launch(torch.device("cuda", 3), 700)
+    assert dict(_build.launches) == {"cora_stand_in": 1}
+
+
+def test_kernel_binder_declares_an_entry_once(monkeypatch):
+    """The binder loads a library and declares an entry point's signature
+    (its own arguments, then the device index and the stream; an int
+    return) at the first bind only."""
+    loads = []
+
+    def entry(*args):
+        return 0
+
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    monkeypatch.setattr(_build, "load", lambda lib: loads.append(lib)
+                        or types.SimpleNamespace(cora_entry=entry))
+    for _ in range(2):
+        _build.kernel("lib_a", "cora_entry", [ctypes.c_void_p, ctypes.c_double])
+    assert loads == ["lib_a"]
+    assert entry.argtypes == [ctypes.c_void_p, ctypes.c_double, ctypes.c_int,
+                              ctypes.c_void_p]
+    assert entry.restype is ctypes.c_int
 
 
 def test_build_targets_hopper_into_ignored_dir():
@@ -289,10 +337,10 @@ def test_project_wrapper_cuda_rejects_bad_inputs(cuda_device):
 @pytest.mark.cuda
 def test_project_kernel_matches_plain_on_gpu(cuda_device):
     args = _tiny_project_inputs(cuda_device, F2=20, L=40, M=37, R=300)
-    before = k1.project_launches
+    before = _build.launches["cora_scan_project"]
     a0, a1 = k1.scan_project(*args)
     torch.cuda.synchronize()
-    assert k1.project_launches == before + 1
+    assert _build.launches["cora_scan_project"] == before + 1
     p0, p1 = k1.scan_project_plain(*args)
     sc = float(p0.abs().max())
     assert float((a0 - p0).abs().max()) < 1e-4 * sc
@@ -302,10 +350,10 @@ def test_project_kernel_matches_plain_on_gpu(cuda_device):
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_gpu(cuda_device):
     args = _tiny_inputs(cuda_device, F2=20, L=40, M=37, R=70)
-    before = k1.launches
+    before = _build.launches["cora_scan_contract"]
     he, ho = k1.scan_contract(*args)
     torch.cuda.synchronize()
-    assert k1.launches == before + 1
+    assert _build.launches["cora_scan_contract"] == before + 1
     he_p, ho_p = k1.scan_contract_plain(*args)
     sc = float(he_p.abs().max())
     assert float((he - he_p).abs().max()) < 1e-4 * sc

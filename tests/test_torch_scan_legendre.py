@@ -26,6 +26,7 @@ from cora_tpu.healpix import sht as jsht
 from cora_tpu_torch import convert
 from cora_tpu_torch.healpix import sht as tsht
 from cora_tpu_torch.ops import scan_legendre as k1
+from cora_tpu_torch.ops import _build
 
 torch.set_num_threads(1)
 
@@ -82,7 +83,7 @@ def _xi_blk(roots_p, xi):
 
 
 def test_correlated_path_matches_jax_xla():
-    """The float32 correlated draw + contraction (_fused_scan_GeGo) vs the
+    """The float32 correlated draw + contraction (correlated_GeGo) vs the
     JAX XLA scan path in float64 with the same white noise and roots
     (nside=64, lmax=191, l_chunk=128, nz=4): ≤ 1e-4·max, the scan drift
     class of test_pallas.py."""
@@ -103,9 +104,9 @@ def test_correlated_path_matches_jax_xla():
 
     top = tsht.SHT(nside, lmax, l_chunk=128, ckpt_every=1,
                    device="cpu")
-    Ge, Go = tsht._fused_scan_GeGo(top, top.tables(False),
-                                   convert.roots_from_numpy(roots, "cpu"),
-                                   tsht.xi_from_array(xi), 0, nz)
+    Ge, Go = tsht.correlated_GeGo(top, top.tables(False),
+                                  convert.roots_from_numpy(roots, "cpu"),
+                                  tsht.xi_from_array(xi), 0, nz)
     assert Ge.dtype == torch.complex64
     sc = np.abs(Ge_r).max()
     assert np.abs(Ge.numpy() - Ge_r).max() <= 1e-4 * sc
@@ -369,7 +370,7 @@ def test_project_plain_matches_jax_xla(double, tol):
     t = top.load_tables(convert.sht_tables_from_numpy(
         {k: np.asarray(v) for k, v in jt.items()}, "cpu"), double)
     assert "psl_ck" not in t and t["psl_rec_a"].dtype == torch.float64
-    got = tsht.fused_project(top, t, *tsht._fold_rows(top, torch.from_numpy(G)))
+    got = tsht.project_GeGo(top, t, *tsht._fold_rows(top, torch.from_numpy(G)))
     assert got.dtype == (torch.complex128 if double else torch.complex64)
     assert np.abs(got.numpy() - ref).max() <= tol * np.abs(ref).max()
 
@@ -556,13 +557,15 @@ def test_project_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2, k
     assert np.abs(a1_e - a1_p.numpy()).max() <= 2e-6 * sc
 
 
-def test_fused_project_builds_planes_minor_sources(monkeypatch):
-    """fused_project hands K2 its sources planes-minor ([R, M, fs] storage,
-    built in the pass that mixes Ge and Go by m parity), and the plain
-    version gives the same values on them as on contiguous ones."""
+@pytest.mark.parametrize("mode", ["scan", "cached"])
+def test_fused_project_builds_planes_minor_sources(monkeypatch, mode):
+    """project_GeGo hands its projection (K2, or the per-chunk bmm) the
+    sources planes-minor ([R, M, fs] storage, built in the pass that mixes
+    Ge and Go by m parity), and the projection gives the same values on
+    them as on contiguous ones, the even and odd ℓ rows interleaved back."""
     nside, lmax = 8, 23
     L = lmax + 1
-    op = tsht.SHT(nside, lmax, l_chunk=8, device="cpu")
+    op = tsht.SHT(nside, lmax, l_chunk=8, device="cpu", legendre_mode=mode)
     t = op.tables(False)
     rng = np.random.default_rng(12)
     shape = (3, op.nhalf, L)
@@ -570,13 +573,15 @@ def test_fused_project_builds_planes_minor_sources(monkeypatch):
                                 + 1j * rng.standard_normal(shape)).astype(np.complex64))
               for _ in range(2))
     seen = []
+    name, at = ("scan_project", 5) if mode == "scan" else ("legendre_project", 2)
+    real = getattr(tsht, name)
 
     def spy(*args, **kw):
-        seen.append(args[5:7])
-        return k1.scan_project(*args, **kw)
+        seen.append(args[at:at + 2])
+        return real(*args, **kw)
 
-    monkeypatch.setattr(tsht, "scan_project", spy)
-    got = tsht.fused_project(op, t, Ge, Go)
+    monkeypatch.setattr(tsht, name, spy)
+    got = tsht.project_GeGo(op, t, Ge, Go)
     (s0, s1), = seen
     F2, R = 6, op.nhalf
     assert s0.shape == (F2, R, L) and s0.stride() == (1, L * 8, 8) == s1.stride()
@@ -585,8 +590,14 @@ def test_fused_project_builds_planes_minor_sources(monkeypatch):
     c0, c1 = tsht._route(tsht._planes(Ge, torch.float32),
                          tsht._planes(Go, torch.float32), L)
     assert c0.is_contiguous() and torch.equal(c0, s0) and torch.equal(c1, s1)
-    A0, A1 = k1.scan_project_plain(*tsht._kernel_tables(t), c0, c1)
-    ref = tsht._join(torch.stack([A0, A1], dim=2).reshape(F2, -1, L)[:, :L], (3,))
+    if mode == "scan":
+        A0, A1 = k1.scan_project_plain(*tsht._kernel_tables(t), c0, c1)
+        a = torch.stack([A0, A1], dim=2).reshape(F2, -1, L)[:, :L]
+    else:
+        ap = real(t["lam"], t["lam_desc"], c0, c1, LA=L)
+        a = torch.empty_like(ap)
+        a[:, 0::2], a[:, 1::2] = ap[:, :(L + 1) // 2], ap[:, (L + 1) // 2:]
+    ref = tsht._join(a, (3,))
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
 
@@ -628,13 +639,13 @@ def test_project_kernel_matches_plain_on_card(cuda_device, nside, lmax, lc, ke):
     shape = (5, op.nhalf, lmax + 1)
     Ge, Go = (torch.from_numpy(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
               .to(torch.complex64) for _ in range(2))
-    before = k1.project_launches
-    alm = tsht.fused_project(op, op.tables(False), Ge.to(cuda_device), Go.to(cuda_device))
+    before = _build.launches["cora_scan_project"]
+    alm = tsht.project_GeGo(op, op.tables(False), Ge.to(cuda_device), Go.to(cuda_device))
     torch.cuda.synchronize()
-    assert k1.project_launches == before + 1
+    assert _build.launches["cora_scan_project"] == before + 1
     op_c = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                     device="cpu")
-    alm_c = tsht.fused_project(op_c, op_c.tables(False), Ge, Go)
+    alm_c = tsht.project_GeGo(op_c, op_c.tables(False), Ge, Go)
     sc = float(alm_c.abs().max())
     assert float((alm.cpu() - alm_c).abs().max()) <= 1e-4 * sc
 
@@ -659,13 +670,13 @@ def test_project_kernel_tiles_on_card(cuda_device, nside, lmax, lc, ke, F2, doub
     args, _, S = _planes_for(op, op.tables(double), F2, 7 + F2, double)
     ref = k1.scan_project_plain(*args, *S)
     entry = "cora_scan_project" + ("_f64" if double else "")
-    before = k1.entry_launches.get(entry, 0)
+    before = _build.launches[entry]
     dev_args = [a.to(cuda_device) for a in args]
     dev_S = [x.to(cuda_device) for x in S]
     got = k1.scan_project(*dev_args, *dev_S)
     again = k1.scan_project(*dev_args, *dev_S)
     torch.cuda.synchronize()
-    assert k1.entry_launches[entry] == before + 2
+    assert _build.launches[entry] == before + 2
     sc = max(float(x.abs().max()) for x in ref)
     for g, g2, r in zip(got, again, ref):
         assert g.shape == r.shape and g.stride(0) == 1  # planes-minor
@@ -700,14 +711,12 @@ def test_f64_kernels_match_plain_on_card(cuda_device, nside, lmax, F2):
     args = [a.to(cuda_device) for a in args]
     A = [a.to(cuda_device) for a in A]
     S = [s.to(cuda_device) for s in S]
-    before = (k1.launches, k1.project_launches)
-    names = ("cora_scan_contract_f64", "cora_scan_project_f64")
-    before_f64 = [k1.entry_launches.get(n, 0) for n in names]
+    before = _build.launches.copy()
     he, ho = k1.scan_contract(*args, *A)
     a0, a1 = k1.scan_project(*args, *S)
     torch.cuda.synchronize()
-    assert (k1.launches, k1.project_launches) == (before[0] + 1, before[1] + 1)
-    assert [k1.entry_launches.get(n, 0) for n in names] == [b + 1 for b in before_f64]
+    assert dict(_build.launches - before) == {"cora_scan_contract_f64": 1,
+                                              "cora_scan_project_f64": 1}
     assert he.dtype == torch.float64
     for got, ref in zip((he, ho, a0, a1),
                         k1.scan_contract_plain(*args, *A)
@@ -726,11 +735,11 @@ def test_f32_kernel_plane_tiles_on_card(cuda_device, nside, lmax, lc, ke, F2):
     op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke, device="cpu")
     args, A, _ = _planes_for(op, op.tables(False), F2, 9 + F2, False)
     ref = k1.scan_contract_plain(*args, *A)
-    before = k1.entry_launches.get("cora_scan_contract", 0)
+    before = _build.launches["cora_scan_contract"]
     got = k1.scan_contract(*[a.to(cuda_device) for a in args],
                            *[a.to(cuda_device) for a in A])
     torch.cuda.synchronize()
-    assert k1.entry_launches["cora_scan_contract"] == before + 1
+    assert _build.launches["cora_scan_contract"] == before + 1
     sc = max(float(x.abs().max()) for x in ref)
     for g, r in zip(got, ref):
         assert float((g.cpu() - r).abs().max()) <= 1e-4 * sc

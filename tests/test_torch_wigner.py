@@ -25,6 +25,7 @@ from cora_tpu_torch import convert
 from cora_tpu_torch.healpix import pixel
 from cora_tpu_torch.healpix import spin as tspin
 from cora_tpu_torch.ops import wigner as k3
+from cora_tpu_torch.ops import _build
 from test_torch_scan_legendre import (_sum4, replay_project,
                                       replay_project_small)
 
@@ -361,13 +362,11 @@ def test_kernel_matches_plain_on_card(cuda_device, nside, lmax, F2, double):
     names = [n + ("_f64" if double else "")
              for n in ("cora_wigner_contract", "cora_wigner_project")]
     for sp in (2, -2):
-        before = (k3.launches, k3.project_launches)
-        before_entry = [k3.entry_launches.get(n, 0) for n in names]
+        before = _build.launches.copy()
         g = k3.wigner_contract(*t[sp], x)
         a = k3.wigner_project(*t[sp], G)
         torch.cuda.synchronize()
-        assert (k3.launches, k3.project_launches) == (before[0] + 1, before[1] + 1)
-        assert [k3.entry_launches.get(n, 0) for n in names] == [b + 1 for b in before_entry]
+        assert dict(_build.launches - before) == {n: 1 for n in names}
         g_p = k3.wigner_contract_plain(*t[sp], x)
         a_p = k3.wigner_project_plain(*t[sp], G)
         assert float((g - g_p).abs().max()) <= tol * float(g_p.abs().max())
