@@ -69,6 +69,16 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               (ξ read once, planes written once), the plain version (the
               ×h pass, einsum and parity copies the port ran before K6) and
               the einsum alone (library_ms).
+3g.         — the ring stage (ring_pack, cuFFT, ring_bluestein_mul,
+              ring_unpack; csrc/ring_synth.cu) at one 16-channel chunk of
+              nside 512 (lmax 1535) and nside 2048 (lmax 6143), f32 and f64,
+              on random accumulators: against the torch chain it replaced
+              (rings_to_grid_parity of _spectra) within 2e-6·max (f32) and
+              1e-12·max (f64), one launch of each kernel a call, the same
+              bits twice; CUDA-event times beside the chain's (8 channels
+              for f64 at nside 2048) and two bytes bounds (planes + grid;
+              and with the cuFFT buffers).  Phase 5 checks one launch of
+              each per frequency chunk of getsky.
 4. parity   — in each Legendre mode, the same operator kind on cuda
               (kernels) and on cpu (plain versions; in cached mode a
               device-built Λ on both): mkfullsky at nside=64, nz=8 with the
@@ -136,9 +146,10 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               cached Λ in float64) and K3 synthesis entry points and none of
               the f32 ones; time and peak device memory.
 11. polarised analysis — sphtrans_sky (float64) of 4 channels of that
-              cube, counters reset just before: the f64 K4, K3 and K3
-              adjoint launched and no f32 kernel; each channel's EE and BB
-              within 5σ of its model C_ℓ in bins of 64 over ℓ ∈ [64, 1023];
+              cube, counters reset just before: the f64 K4, K3, K3
+              adjoint and ring kernels launched and no f32 kernel; each
+              channel's EE and BB within 5σ of its model C_ℓ in bins of
+              64 over ℓ ∈ [64, 1023];
               then the T analysis in scan mode (the f64 K1 and K2 only),
               within 1e-10·max of the cached one.
 12. foregrounds — makesky foreground --nside 256 --freq 500 400 64 --pol
@@ -249,10 +260,11 @@ no stage synchronises, and stages nest (``lambda_build`` holds
 17. f64 sky  — skysim.mkfullsky(None, 512, roots=phase 5's roots,
               device="cuda", dtype=torch.complex128, xi=) over 256 channels,
               the launch counters reset just before each run and read just
-              after: the default (cached) operator — the f64 K4 only, maps
+              after: the default (cached) operator — the f64 K4, K6 and
+              ring kernels only, maps
               [256, 3145728] float64, finite, each channel's variance within
-              5% of Σ(2ℓ+1)C_ℓ/4π — and legendre_mode="scan" — the f64 K1
-              only, within 1e-10·max of the cached cube; stage times, totals
+              5% of Σ(2ℓ+1)C_ℓ/4π — and legendre_mode="scan" — the f64 K1,
+              K6 and ring kernels only, within 1e-10·max of the cached cube; stage times, totals
               and peak memory of both.  The f32 operator's tables are
               released before the f64 ones are built.  One float64 ξ on the
               card feeds the f32 default call of each mode too: the f32
@@ -271,9 +283,9 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               generator) at nside 128 × 16 channels (400–500 MHz).  The
               child must import the copy and its _build/ (no kernel
               rebuilt), read ps_z1.5.npz and corr_z1.5.npz from the copy's
-              data/, launch K4 f32, K5 and K6 f32 (and no other kernel) as often
-              as the same call in this process, and give its maps bit for
-              bit.
+              data/, launch K4 f32, K5, K6 f32 and the f32 ring kernels
+              (and no other kernel) as often as the same call in this
+              process, and give its maps bit for bit.
               The data directory, the child's times and the card are
               printed.  A failing child ends the script.
 
@@ -343,7 +355,7 @@ def device_phase():
 
 
 KERNELS = ("scan_legendre", "scan_project", "wigner_apply", "legendre_contract",
-           "jacobi_eigh", "correlated_draw")
+           "jacobi_eigh", "correlated_draw", "ring_synth")
 K3_SRC = "cora_tpu_torch/csrc/wigner_apply.cu"
 K3_REPLACES = "cora_tpu/ops/pallas_scan_legendre.py:615"
 K4_SRC = "cora_tpu_torch/csrc/legendre_contract.cu"
@@ -353,6 +365,9 @@ K5_REPLACES = ("none: the JAX package's roots are XLA's eigh (cora_tpu/util/lina
                "batch_matrix_root, from cora_tpu/signal/clfast.py _roots_from_cla_jit)")
 K6_SRC = "cora_tpu_torch/csrc/correlated_draw.cu"
 K6_REPLACES = "none: the JAX package's draw is XLA's einsum (cora_tpu/healpix/sht.py _draw_blocks)"
+RING_SRC = "cora_tpu_torch/csrc/ring_synth.cu"
+RING_REPLACES = ("none: the JAX package's ring stage is XLA's fusion of _rings_to_grid_parity "
+                 "(cora_tpu/healpix/sht.py:1554)")
 
 def _bench(name):
     """The benchmark's module ``name`` (``harness.roofline``,
@@ -1190,6 +1205,97 @@ def draw_phase(dev, reports):
         torch.cuda.empty_cache()
 
 
+RING_SHAPES = (("n512", 512), ("n2048", 2048))  # one 16-channel chunk each
+
+
+def _ring_bytes(op, B, itemsize):
+    """(least, with_fft) bytes of the ring stage of B channels: the planes
+    read and the grid written; and that plus the cuFFT buffers, each pass
+    reading and writing them once (the pack writes Z and X, the band's
+    inverse reads and writes Z, the caps' forward, product and inverse read
+    and write X, the unpack reads Z and X's first nq_cap columns)."""
+    L, nh, lo = op.lmax + 1, op.nhalf, op._eq_lo
+    W = 4 * op.nside
+    least = (2 * 2 * B * nh * L + B * op.nring * op.nq_max) * itemsize
+    z = B * (2 * (nh - lo) - 1) * W * itemsize  # complex, W/2 a ring
+    x = B * 2 * lo * op.nfft2 * 2 * itemsize
+    nq_cap = op._bl_C_cap.shape[-1]
+    return least, least + 4 * z + x * (6 + nq_cap / op.nfft2)
+
+
+def ring_phase(dev, reports):
+    """The ring stage on the card (``sht.ring_synthesis``: ring_pack, the
+    band's and the caps' cuFFT transforms, ring_bluestein_mul, ring_unpack)
+    at one 16-channel chunk of each cell's shape (nside 512, lmax 1535 and
+    nside 2048, lmax 6143), f32 and f64, on random accumulators: against
+    the torch chain it replaced (``rings_to_grid_parity`` of ``_spectra``,
+    the plain version) within 2e-6·max (f32) and 1e-12·max (f64), the same
+    bits from two runs, one launch of each kernel a call, CUDA-event times
+    beside the chain's and the bytes bounds of :func:`_ring_bytes`.  The
+    f64 chain at nside 2048 runs on 8 of the 16 channels (its buffers
+    would not fit the card at 16)."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht
+    from cora_tpu_torch.ops import _build
+
+    card = _card()
+    phase("3g ring stage (ring_pack, cuFFT, ring_bluestein_mul, ring_unpack) vs the torch chain")
+    peak_bw = _bench("harness.roofline").peaks()["hbm_bytes_s"]
+    report = reports.setdefault("ring_synth", dict(name="ring_synth", route="cuda",
+                                                   source=RING_SRC, replaces=RING_REPLACES,
+                                                   shapes={}))
+    for cell, nside in RING_SHAPES:
+        op = sht.SHT(nside, 3 * nside - 1, device=dev)
+        L = op.lmax + 1
+        for dtype in (torch.float32, torch.float64):
+            f64 = dtype == torch.float64
+            name = f"{cell}" + ("_f64" if f64 else "")
+            t = op.ring_tables(f64)
+            g = torch.Generator(device=dev).manual_seed(nside + f64)
+            H0, H1 = (torch.randn((32, op.nhalf, L), generator=g, device=dev, dtype=dtype)
+                      for _ in range(2))
+            entries = [f"cora_ring_{k}_{'f64' if f64 else 'f32'}"
+                       for k in ("pack", "bluestein_mul", "unpack")]
+            n0 = [_build.launches[e] for e in entries]
+            got = sht.ring_synthesis(op, t, H0, H1, (16,))
+            torch.cuda.synchronize(dev)
+            nl = [_build.launches[e] - n for e, n in zip(entries, n0)]
+            same = torch.equal(got, sht.ring_synthesis(op, t, H0, H1, (16,)))
+            ms = _cuda_time_ms(lambda: sht.ring_synthesis(op, t, H0, H1, (16,)), 7)
+            nb = 8 if f64 and nside == 2048 else 16
+            got = got[:nb]
+            chain = lambda: sht.rings_to_grid_parity(  # noqa: E731
+                op, t, *sht._spectra(op, H0[:2 * nb], H1[:2 * nb], (nb,)))
+            want = chain()
+            rel = float((got - want).abs().max() / want.abs().max())
+            del got, want
+            torch.cuda.empty_cache()
+            chain_ms = _cuda_time_ms(chain, 3)
+            torch.cuda.empty_cache()
+            least, with_fft = _ring_bytes(op, 16, H0.element_size())
+            b_ms, f_ms = least / peak_bw * 1e3, with_fft / peak_bw * 1e3
+            tol = 1e-12 if f64 else 2e-6
+            print(f"   ring stage {name}, 16 channels: kernels + cuFFT {ms:.3f} ms "
+                  f"(launches pack/mul/unpack {nl}), torch chain {chain_ms:.3f} ms"
+                  f"{' (8 channels)' if nb == 8 else ''}; bound {b_ms:.3f} ms "
+                  f"({least / 1e9:.3f} GB planes + grid: {100 * b_ms / ms:.1f}%), "
+                  f"{f_ms:.3f} ms with the cuFFT buffers ({with_fft / 1e9:.3f} GB: "
+                  f"{100 * f_ms / ms:.1f}%); max|Δ| vs the chain {rel:.2e}·max; same bits "
+                  f"twice: {same} ({card})")
+            check(nl == [1, 1, 1] and rel <= tol and same,
+                  f"ring stage {name}: one launch of each kernel, within {tol:g}·max of the "
+                  "torch chain, the same bits twice")
+            report["shapes"][name] = dict(
+                nside=nside, B=16, launches=nl, ms=ms, chain_ms=chain_ms, chain_channels=nb,
+                gb=least / 1e9, gb_fft=with_fft / 1e9, bound_ms=b_ms, bound_fft_ms=f_ms,
+                bound_by="bytes", rel=rel)
+            del H0, H1
+            torch.cuda.empty_cache()
+        del op
+        torch.cuda.empty_cache()
+
+
 def _eigh_root(C):
     """The root as torch.linalg.eigh computes it (the yardstick)."""
     import torch
@@ -1345,7 +1451,13 @@ def _reset_counts():
 # the report names of the C entry points whose names are not "cora_" + name
 _ENTRIES = {"legendre_contract": "cora_legendre_contract_f32",
             "jacobi_eigh": "cora_jacobi_eigh_f64",
-            "correlated_draw": "cora_correlated_draw_f32"}
+            "correlated_draw": "cora_correlated_draw_f32",
+            "ring_pack": "cora_ring_pack_f32",
+            "ring_bluestein_mul": "cora_ring_bluestein_mul_f32",
+            "ring_unpack": "cora_ring_unpack_f32"}
+_RING_NAMES = ("ring_pack", "ring_pack_f64", "ring_bluestein_mul", "ring_bluestein_mul_f64",
+               "ring_unpack", "ring_unpack_f64")
+_RING_F64 = ("ring_pack_f64", "ring_bluestein_mul_f64", "ring_unpack_f64")
 _REPORT_NAMES = ("scan_contract", "scan_contract_f64", "scan_project", "scan_project_f64",
                  "wigner_contract", "wigner_contract_f64", "wigner_project",
                  "wigner_project_f64", "legendre_contract", "legendre_contract_f64",
@@ -1360,7 +1472,7 @@ def _counts():
     from cora_tpu_torch.ops import _build
 
     return {name: _build.launches[_ENTRIES.get(name, "cora_" + name)]
-            for name in _REPORT_NAMES}
+            for name in _REPORT_NAMES + _RING_NAMES}
 
 
 def _clear_operators():
@@ -1442,6 +1554,13 @@ def main_phase(dev, reports, cfg=FLAGSHIP):
           and n["correlated_draw_f64"] == 0,
           "the draw launched the f32 K6 once per ℓ-chunk of each frequency chunk")
     reports["correlated_draw"]["launches"] = n["correlated_draw"]
+    nchunk = -(-cfg["nfreq"] // 16)
+    print(f"   ring stage launches: pack {n['ring_pack']}, Bluestein product "
+          f"{n['ring_bluestein_mul']}, unpack {n['ring_unpack']} ({nchunk} frequency chunks)")
+    check(n["ring_pack"] == n["ring_bluestein_mul"] == n["ring_unpack"] == nchunk
+          and not any(n[k] for k in _RING_NAMES if k.endswith("_f64")),
+          "the ring stage launched each f32 ring kernel once per frequency chunk")
+    reports["ring_synth"]["launches"] = n["ring_pack"]
     npix = 12 * cfg["nside"] ** 2
     check(tuple(sky.shape) == (cfg["nfreq"], npix), f"sky shape {tuple(sky.shape)}")
     check(bool(torch.isfinite(sky).all()), "every pixel finite")
@@ -2005,7 +2124,8 @@ def pol_analysis_phase(dev, reports, data, freqs, chans=(0, 21, 42, 63)):
           "alms complex128, finite")
     for name, n in launches.items():
         if name in ("legendre_contract_f64", "wigner_contract_f64",
-                    "wigner_project_f64"):
+                    "wigner_project_f64", "ring_pack_f64", "ring_bluestein_mul_f64",
+                    "ring_unpack_f64"):
             check(n > 0, f"the float64 path launched {name}")
         else:
             check(n == 0, f"the float64 path launched no {name}")
@@ -3780,10 +3900,12 @@ def f64_sky_phase(dev, reports, roots, cfg=FLAGSHIP):
             # cached: the default operator, its f64 Λ built on the card
             c64, n = main_run("cached", None)
             check(n["legendre_contract_f64"] > 0 and n["correlated_draw_f64"] > 0
+                  and all(n[e] > 0 for e in _RING_F64)
                   and all(v == 0 for e, v in n.items()
-                          if e not in ("legendre_contract_f64", "correlated_draw_f64")),
-                  "cached: the f64 K4 and the f64 K6 (the draw) launched, and no f32 "
-                  "kernel and no K1")
+                          if e not in ("legendre_contract_f64", "correlated_draw_f64")
+                          + _RING_F64),
+                  "cached: the f64 K4, the f64 K6 (the draw) and the f64 ring kernels "
+                  "launched, and no f32 kernel and no K1")
             ratio = c64.square().mean(dim=1).cpu().numpy() / expect
             print(f"   cached: map variance / Σ(2ℓ+1)C_ℓ/4π: min {ratio.min():.4f} "
                   f"max {ratio.max():.4f}")
@@ -3803,10 +3925,12 @@ def f64_sky_phase(dev, reports, roots, cfg=FLAGSHIP):
             print(f"   scan operator {time.perf_counter() - t0:.3f} s")
             s64, n = main_run("scan", op_s)
             check(n["scan_contract_f64"] > 0 and n["correlated_draw_f64"] > 0
+                  and all(n[e] > 0 for e in _RING_F64)
                   and all(v == 0 for e, v in n.items()
-                          if e not in ("scan_contract_f64", "correlated_draw_f64")),
-                  "scan: the f64 K1 and the f64 K6 (the draw) launched, and no f32 "
-                  "kernel and no K4")
+                          if e not in ("scan_contract_f64", "correlated_draw_f64")
+                          + _RING_F64),
+                  "scan: the f64 K1, the f64 K6 (the draw) and the f64 ring kernels "
+                  "launched, and no f32 kernel and no K4")
             err = float((s64 - c64).abs().max() / c64.abs().max())
             print(f"   scan vs cached f64 cube: max|Δ|/max = {err:.3e}, RMS(Δ)/RMS = "
                   f"{_rms_rel(s64, c64):.3e}")
@@ -3932,12 +4056,14 @@ def standalone_phase(dev, cfg=STANDALONE, seed=STANDALONE_SEED):
     n_here = _counts()
     print(f"   in-tree getsky {t_here:.3f} s; launches "
           f"{', '.join(f'{e} {v}' for e, v in n_here.items() if v) or 'none'} ({card})")
+    ring32 = ("ring_pack", "ring_bluestein_mul", "ring_unpack")
     check(n_here["legendre_contract"] > 0 and n_here["jacobi_eigh"] == 1
-          and n_here["correlated_draw"] > 0
+          and n_here["correlated_draw"] > 0 and all(n_here[e] > 0 for e in ring32)
           and all(v == 0 for e, v in n_here.items()
-                  if e not in ("legendre_contract", "jacobi_eigh", "correlated_draw")),
+                  if e not in ("legendre_contract", "jacobi_eigh", "correlated_draw")
+                  + ring32),
           "in-tree: the f32 K4 launched, K5 once (the roots), the f32 K6 (the draw), "
-          "and no other kernel")
+          "the f32 ring kernels, and no other kernel")
     with tempfile.TemporaryDirectory() as tmp:
         copy = os.path.realpath(tmp)
         pkg = os.path.join(copy, "cora_tpu_torch")
@@ -3997,6 +4123,7 @@ def main():
     legendre_phase(dev, reports)
     jacobi_phase(dev, reports)
     draw_phase(dev, reports)
+    ring_phase(dev, reports)
     parity_phase(dev)
     sky, cl_diag, roots = main_phase(dev, reports)
     analysis_phase(dev, reports, sky, cl_diag)
@@ -4016,7 +4143,7 @@ def main():
     f64_sky_phase(dev, reports, roots)
     standalone_phase(dev)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [reports[n] for n in _REPORT_NAMES]}))
+    print(json.dumps({"kernels": [reports[n] for n in _REPORT_NAMES + ("ring_synth",)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

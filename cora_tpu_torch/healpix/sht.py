@@ -15,11 +15,13 @@ one ``torch.bmm`` per chunk; the correlated draw writes each frequency
 chunk's parity-packed a_lm planes with kernel K6, one launch per ℓ-chunk
 (:func:`cora_tpu_torch.ops.draw.correlated_draw`), and runs K4 once.
 
-Both modes run one Legendre stage — :func:`fused_GeGo` (alm → even/odd
-ring spectra), its adjoint :func:`project_GeGo` and :func:`correlated_GeGo`
-(correlated draw → a_lm planes → kernel) — on one layout of the a_lm
-planes, parity-packed with the odd ℓ from row ``SHT.odd0``; only the launch
-that contracts or projects them follows the operator's mode.
+Both modes run one Legendre stage — :func:`fused_planes` (alm →
+per-ℓ-parity accumulators), its adjoint :func:`project_GeGo` and
+:func:`correlated_planes` (correlated draw → a_lm planes → kernel) — on one
+layout of the a_lm planes, parity-packed with the odd ℓ from row
+``SHT.odd0``; only the launch that contracts or projects them follows the
+operator's mode.  The synthesis takes the accumulators straight to the
+ring grid (:func:`ring_synthesis`).
 
 **Scan mode** (``"scan"``; the default on the CPU and above nside=512): the
 Λ-free configuration whose Legendre stages are the fused recurrence
@@ -34,10 +36,13 @@ kernels, K1 for synthesis and K2 for its adjoint (analysis):
 * **Legendre stage**: K1
   (:func:`cora_tpu_torch.ops.scan_legendre.scan_contract`) on the two
   parity halves of the a_lm planes.
-* **Ring stage** on ``torch.fft``: :func:`rings_to_grid_parity` runs the
-  equatorial band as one Hermitian-packed inverse DFT at W/2 and the dense
-  polar caps as a Bluestein convolution, both on the half-size even/odd
-  accumulators (the south follows by N/S parity).
+* **Ring stage**, :func:`ring_synthesis`: the equatorial band as one
+  Hermitian-packed inverse DFT at W/2 and the dense polar caps as a
+  Bluestein convolution, both on the half-size accumulators' N/S sums and
+  differences (the south follows by N/S parity).  On CUDA, hand-written
+  kernels (:mod:`cora_tpu_torch.ops.ring_synth`) pack the accumulators
+  into cuFFT's inputs, multiply the caps' spectra and unpack the grid; on
+  the CPU the torch chain :func:`rings_to_grid_parity` of :func:`_spectra`.
 * :meth:`SHT.grid_to_map`: ring grid → HEALPix RING pixels as one device
   gather; :meth:`SHT.map_to_grid`, its inverse, as one device scatter.
 * **Analysis**: :func:`grid_to_rings_parity` (the adjoint ring stage: N/S
@@ -74,6 +79,7 @@ from ..device import resolve_device
 from ..ops.draw import correlated_draw
 from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
                             legendre_contract, legendre_project, release)
+from ..ops.ring_synth import bluestein_mul, ring_pack, ring_unpack
 from ..ops.scan_legendre import (SCALE, _lambda_blocks, planes_minor,
                                  scan_contract, scan_project)
 from ..util.profiling import build, stage
@@ -841,10 +847,11 @@ def _project(op, t, src0, src1):
     return scan_project(*_kernel_tables(t), src0, src1)
 
 
-def fused_GeGo(op, t, alm):
-    """Even/odd ring spectra (Ge, Go) [..., nh, L] from a batched alm, in the
-    operator's mode (``cora_tpu.ops.pallas_scan_legendre.fused_GeGo``, the
-    reference's ``_legendre_contract_cached``).
+def fused_planes(op, t, alm):
+    """The Legendre stage of a batched alm [*batch, L, L] in the operator's
+    mode, in stage ``legendre``: the per-ℓ-parity accumulators (H0, H1)
+    [2B, nh, L] (planes re/im minor) that :func:`ring_synthesis` and
+    :func:`_spectra` take.
 
     The batch is flattened into the kernel's plane axis with re/im minor
     (F2 = 2B, as the draw writes its planes), the rows parity-packed
@@ -852,15 +859,22 @@ def fused_GeGo(op, t, alm):
     """
     L = op.lmax + 1
     ne, no = (L + 1) // 2, L // 2
-    batch = tuple(alm.shape[:-2])
-    a = _planes(alm, _real_dtype(t))
-    A = _alm_planes(op, a.shape[0], a.dtype)
-    A[:, :ne] = a[:, 0::2]
-    A[:, ne:op.odd0].zero_()
-    A[:, op.odd0:op.odd0 + no] = a[:, 1::2]
-    A[:, op.odd0 + no:].zero_()
-    H0, H1 = _contraction(op, t, A)()
-    return _spectra(op, H0, H1, batch)
+    with stage("legendre", op.device):
+        a = _planes(alm, _real_dtype(t))
+        A = _alm_planes(op, a.shape[0], a.dtype)
+        A[:, :ne] = a[:, 0::2]
+        A[:, ne:op.odd0].zero_()
+        A[:, op.odd0:op.odd0 + no] = a[:, 1::2]
+        A[:, op.odd0 + no:].zero_()
+        return _contraction(op, t, A)()
+
+
+def fused_GeGo(op, t, alm):
+    """Even/odd ring spectra (Ge, Go) [..., nh, L] from a batched alm, in the
+    operator's mode (``cora_tpu.ops.pallas_scan_legendre.fused_GeGo``, the
+    reference's ``_legendre_contract_cached``): :func:`fused_planes` through
+    the exit :func:`_spectra`."""
+    return _spectra(op, *fused_planes(op, t, alm), tuple(alm.shape[:-2]))
 
 
 def project_GeGo(op, t, Ge, Go):
@@ -900,10 +914,10 @@ def _join(H, batch):
 
 
 def _spectra(op, H0, H1, batch):
-    """The Legendre stage's exit: even/odd ring spectra (Ge, Go)
-    [*batch, nh, L] from the per-ℓ-parity accumulators [F2, nh, L] (planes
-    re/im minor), joined to complex and routed by m parity
-    (:func:`_route`)."""
+    """Even/odd ring spectra (Ge, Go) [*batch, nh, L] from the per-ℓ-parity
+    accumulators [F2, nh, L] (planes re/im minor), joined to complex and
+    routed by m parity (:func:`_route`): what the analysis hooks and the
+    plain ring stage (:func:`ring_synthesis` on the CPU) take."""
     return _route(_join(H0, batch), _join(H1, batch), op.lmax + 1)
 
 
@@ -976,10 +990,13 @@ def xi_from_seeds(seeds, nz, dtype=torch.float32):
     return chunk
 
 
-def correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
+def correlated_planes(op, t, roots, xi_chunk, z_lo, nz_chunk):
     """Correlated draw + Legendre stage for one frequency chunk, in the
     operator's mode and the precision of the tables ``t`` (K1 or K4, f32 or
-    f64; the reference's ``_fused_scan_GeGo`` and ``_correlated_GeGo``).
+    f64; the reference's ``_fused_scan_GeGo`` and ``_correlated_GeGo``):
+    the per-ℓ-parity accumulators (H0, H1) [2·nz_chunk, nh, L], planes
+    frequency-major with re/im minor, as :func:`ring_synthesis` takes them
+    (:func:`_spectra` gives the reference's (Ge, Go)).
 
     roots : [≥L, nz_out, nz] covariance roots (consecutive ℓ).
     xi_chunk : white-noise source (:func:`xi_from_array` /
@@ -996,8 +1013,7 @@ def correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk):
 
     launch = _contraction(op, t, A)
     with stage("legendre", dev):
-        H0, H1 = launch()
-    return _spectra(op, H0, H1, (nz_chunk,))
+        return launch()
 
 
 def _draw(op, roots, xi_chunk, z_lo, nz_chunk, A, odd0):
@@ -1033,9 +1049,8 @@ def synthesis_grid_correlated(op, t, roots, xi_chunk, z_lo, nz_chunk):
     """Correlated draw + synthesis of frequencies [z_lo, z_lo+nz_chunk)
     onto the ring grid [nz_chunk, nring, nq_max], in the operator's mode and
     the precision of the tables ``t`` (``op.tables(double)``)."""
-    Ge, Go = correlated_GeGo(op, t, roots, xi_chunk, z_lo, nz_chunk)
-    with stage("ring", op.device):
-        return rings_to_grid_parity(op, t, Ge, Go)
+    return ring_synthesis(op, t, *correlated_planes(op, t, roots, xi_chunk, z_lo,
+                                                    nz_chunk), (nz_chunk,))
 
 
 def synthesis_scan_correlated(op, t, roots, xi_chunk, nz_leg, nz_ring, consume, init,
@@ -1068,13 +1083,13 @@ def synthesis_scan_correlated(op, t, roots, xi_chunk, nz_leg, nz_ring, consume, 
         xi_chunk = partial(xi_chunk, draw_dtype=xi_dtype)
     carry = init
     for z0 in range(0, nz_out, nz_leg):
-        Ge, Go = correlated_GeGo(op, t, roots, xi_chunk, z0, nz_leg)
+        H0, H1 = correlated_planes(op, t, roots, xi_chunk, z0, nz_leg)
         for j in range(0, nz_leg, nz_ring):
-            with stage("ring", op.device):
-                g = rings_to_grid_parity(op, t, Ge[j:j + nz_ring], Go[j:j + nz_ring])
+            sl = slice(2 * j, 2 * (j + nz_ring))
+            g = ring_synthesis(op, t, H0[sl], H1[sl], (nz_ring,))
             carry = consume(g, z0 + j, carry)
             del g
-        del Ge, Go
+        del H0, H1
     return carry
 
 
@@ -1129,6 +1144,37 @@ def _cap_real_synth_parity(op, t, Ge, Go):
     fn_ = 2.0 * ((Se + So) * C_n).real - (Ge + Go)[..., :lo, 0:1].real * valid
     fs = 2.0 * ((Se - So) * C_n).real - (Ge - Go)[..., :lo, 0:1].real * valid
     return torch.cat([fn_, torch.flip(fs, dims=[-2])], dim=-2)
+
+
+def ring_synthesis(op, t, H0, H1, batch):
+    """The ring stage, in stage ``ring``: the dense ring grid
+    [*batch, nring, nq_max] from the per-ℓ-parity accumulators (H0, H1)
+    [2B, nh, L] of the Legendre stage (planes re/im minor; B = prod(batch)).
+
+    CUDA planes go through the kernels of
+    :mod:`cora_tpu_torch.ops.ring_synth` around cuFFT: the pack (the band's
+    Hermitian-packed spectra and the caps' Bluestein input, straight from
+    the planes), the band's inverse transform at W/2, the caps' forward
+    transform, Bluestein product and inverse transform at nfft2, and the
+    unpack into the grid.  The planes are released once packed, when the
+    caller holds no other reference to them (pass them as temporaries).
+    CPU planes run the plain version, :func:`rings_to_grid_parity` of
+    :func:`_spectra`; any other device raises.
+    """
+    with stage("ring", op.device):
+        if H0.device.type == "cpu" and H1.device.type == "cpu":
+            return rings_to_grid_parity(op, t, *_spectra(op, H0, H1, batch))
+        lo = op._eq_lo
+        Z, X = ring_pack(H0, H1, t["eq_phase"][:op.nhalf - lo], t["eq_twid"],
+                         t["bl_A_cap"][:lo], op.nfft2)
+        del H0, H1
+        Z = torch.fft.ifft(Z, dim=-1, norm="forward")
+        if X is not None:
+            X = torch.fft.fft(X, dim=-1)
+            bluestein_mul(X, t["bl_Bf_cap"][:lo])
+            X = torch.fft.ifft(X, dim=-1, norm="forward")
+        grid = ring_unpack(X, Z, t["bl_C_cap"][:lo], op.nring)
+        return grid.reshape(tuple(batch) + tuple(grid.shape[1:]))
 
 
 def rings_to_grid_parity(op, t, Ge, Go):
@@ -1276,10 +1322,7 @@ def grid_to_rings_complex(op, t, fgrid):
 
 
 def _synthesis_grid(op, t, alm):
-    with stage("legendre", op.device):
-        Ge, Go = fused_GeGo(op, t, alm)
-    with stage("ring", op.device):
-        return rings_to_grid_parity(op, t, Ge, Go)
+    return ring_synthesis(op, t, *fused_planes(op, t, alm), tuple(alm.shape[:-2]))
 
 
 def _analysis_once_grid(op, t, fgrid):

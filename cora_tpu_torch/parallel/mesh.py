@@ -29,7 +29,6 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..core.skysim import fold_in  # noqa: F401  (the sims' seeds)
-from ..util.profiling import stage
 from .distributed import check_backend
 
 
@@ -364,32 +363,31 @@ def band_legendre_step(op, t_band, rows, xi_chunk, i, fchunk):
     """The band Legendre step of a rank of :func:`synthesize_cube_sharded_2d`:
     the correlated draw of its chunk ``i`` (fed rows [i·fchunk, (i+1)·fchunk)
     of ``rows`` [L, nloc, nz]) and K1 on its ring slice ``t_band``
-    (:func:`ring_band_tables`).  Returns (Ge, Go) [fchunk, rings, L]
-    complex64."""
+    (:func:`ring_band_tables`).  Returns the per-ℓ-parity accumulators
+    (H0, H1) [2·fchunk, rings, L] (``sht.correlated_planes``)."""
     from ..healpix import sht
 
-    return sht.correlated_GeGo(op, t_band, rows, xi_chunk, i * fchunk, fchunk)
+    return sht.correlated_planes(op, t_band, rows, xi_chunk, i * fchunk, fchunk)
 
 
-def band_ring_step(op, tables, Ge, Go, b, fsub):
+def band_ring_step(op, tables, H0, H1, b, fsub):
     """The band ring step of rank ``b`` of a band group:
-    ``rings_to_grid_parity`` on frequencies [b·fsub, (b+1)·fsub) of the
-    gathered (Ge, Go) [fchunk, nh, L].  Returns [fsub, nring, nq_max]."""
+    ``sht.ring_synthesis`` on frequencies [b·fsub, (b+1)·fsub) of the
+    gathered accumulators (H0, H1) [2·fchunk, nh, L], planes [2b·fsub,
+    2(b+1)·fsub).  Returns [fsub, nring, nq_max]."""
     from ..healpix import sht
 
-    sl = slice(b * fsub, (b + 1) * fsub)
-    with stage("ring", op.device):
-        return sht.rings_to_grid_parity(op, tables, Ge[sl], Go[sl])
+    sl = slice(2 * b * fsub, 2 * (b + 1) * fsub)
+    return sht.ring_synthesis(op, tables, H0[sl], H1[sl], (fsub,))
 
 
 def _gather_rings(x, group, n):
-    """All-gather of this rank's ring slice [fchunk, rings, L] over the band
-    group, joined on the ring axis; complex tensors travel as their real
-    pairs (``view_as_real``), which gloo and NCCL both carry."""
-    xr = torch.view_as_real(x).contiguous()
-    parts = [torch.empty_like(xr) for _ in range(n)]
-    dist.all_gather(parts, xr, group=group)
-    return torch.view_as_complex(torch.cat(parts, dim=1))
+    """All-gather of this rank's ring slice of the planes [2·fchunk, rings,
+    L] over the band group, joined on the ring axis."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=1)
 
 
 def _run_2d(op, tables, roots, key, layout, fchunk=None, xi=None, ranks=None,
@@ -397,7 +395,7 @@ def _run_2d(op, tables, roots, key, layout, fchunk=None, xi=None, ranks=None,
     """The body of :func:`synthesize_cube_sharded_2d` for the ranks
     ``ranks`` = (frequency ranks, band ranks) of the (n_freq, n_band)
     ``layout``: per frequency rank and chunk, :func:`band_legendre_step` on
-    each band rank's ring slice, ``gather`` of their (Ge, Go) parts to all
+    each band rank's ring slice, ``gather`` of their (H0, H1) parts to all
     rings, and :func:`band_ring_step` of each band rank.  Returns the rows
     those ranks hold, in rank order: [n·nLb, nring, nq_max] for n ranks.
 
@@ -418,16 +416,16 @@ def _run_2d(op, tables, roots, key, layout, fchunk=None, xi=None, ranks=None,
         rows = roots[:, torch.from_numpy(fed[f * nloc:(f + 1) * nloc]).to(dev)]
         for i in range(nloc // fchunk):
             parts = [band_legendre_step(op, t, rows, xi_chunk, i, fchunk) for t in t_bands]
-            Ge, Go = (gather([p[k] for p in parts]) for k in (0, 1))
+            H0, H1 = (gather([p[k] for p in parts]) for k in (0, 1))
             del parts
             for v, b in enumerate(bs):
-                g = band_ring_step(op, tables, Ge, Go, b, fsub)
+                g = band_ring_step(op, tables, H0, H1, b, fsub)
                 if out is None:
                     out = g.new_empty((len(fs) * len(bs) * nLb,) + tuple(g.shape[1:]))
                 s = (u * len(bs) + v) * nLb + i * fsub
                 out[s:s + fsub] = g
                 del g
-            del Ge, Go
+            del H0, H1
     return out
 
 
@@ -440,7 +438,7 @@ def synthesize_cube_sharded_2d(op, tables, roots, key, mesh, fchunk=None, freq_a
     Each rank of frequency shard f and band b runs, per chunk i of
     ``fchunk`` local frequencies, :func:`band_legendre_step` (the draw and
     K1 on its 1/n_band of the northern rings, no communication), one
-    all-gather of (Ge, Go) over the band group (:func:`_gather_rings`), and
+    all-gather of the accumulators (H0, H1) over the band group (:func:`_gather_rings`), and
     :func:`band_ring_step` on its ``fchunk/n_band`` of the chunk's
     frequencies.  The draws are keyed as :func:`synthesize_cube_sharded`'s
     (or taken from ``xi``, an array in ``sht.xi_from_array`` layout, the

@@ -90,7 +90,7 @@ def _old_scan(op, roots, xi_chunk, z_lo, nz_chunk, fdt, Lk):
 
 
 def _new(layout, op, roots, xi_chunk, z_lo, nz_chunk, fdt, Lk=None):
-    """The planes as ``correlated_GeGo`` allocates and fills them now: one
+    """The planes as ``correlated_planes`` allocates and fills them now: one
     buffer of L rows with the odd ℓ from (L+1)/2 (cached), or of Lk rows
     with the odd ℓ from Lk/2, whose two halves K1 takes (scan)."""
     L = op.lmax + 1

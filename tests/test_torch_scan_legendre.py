@@ -83,7 +83,8 @@ def _xi_blk(roots_p, xi):
 
 
 def test_correlated_path_matches_jax_xla():
-    """The float32 correlated draw + contraction (correlated_GeGo) vs the
+    """The float32 correlated draw + contraction (correlated_planes, joined
+    and routed by _spectra) vs the
     JAX XLA scan path in float64 with the same white noise and roots
     (nside=64, lmax=191, l_chunk=128, nz=4): ≤ 1e-4·max, the scan drift
     class of test_pallas.py."""
@@ -104,9 +105,9 @@ def test_correlated_path_matches_jax_xla():
 
     top = tsht.SHT(nside, lmax, l_chunk=128, ckpt_every=1,
                    device="cpu")
-    Ge, Go = tsht.correlated_GeGo(top, top.tables(False),
-                                  convert.roots_from_numpy(roots, "cpu"),
-                                  tsht.xi_from_array(xi), 0, nz)
+    Ge, Go = tsht._spectra(top, *tsht.correlated_planes(
+        top, top.tables(False), convert.roots_from_numpy(roots, "cpu"),
+        tsht.xi_from_array(xi), 0, nz), (nz,))
     assert Ge.dtype == torch.complex64
     sc = np.abs(Ge_r).max()
     assert np.abs(Ge.numpy() - Ge_r).max() <= 1e-4 * sc
