@@ -9,7 +9,9 @@ checks it: the program's numbers, the lower readings.  For the first
 program's place one precision below the configuration's, TF32 products for
 the float32 synthesis and a float32 C_l grid with float32 roots for the
 float64 C_l engine, compared by the same numbers.  One JSON line per
-seed; the benchmark's own runs never run this.
+seed; the benchmark's own runs never run this.  A cell on N > 1 cards runs
+as the benchmark's runs do, one process a card (``harness/world.py``): every
+rank runs each unit, rank 0 gathers the checked chunk and reports.
 """
 
 import time
@@ -25,6 +27,7 @@ import torch  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+CHECK_TIMEOUT_S = 900
 
 
 def control_roots(cl_f32):
@@ -62,31 +65,42 @@ def main():
     args = p.parse_args()
 
     sys.path[:0] = [HERE, ROOT]
-    from harness import env, spec
+    from harness import env, spec, world
 
     env.prepare(HERE)
     from harness import check
     from harness.runner import Run
 
     cell = spec.Cell(args.workload)
-    run = Run(cell, args.seeds[0], 0, 0, args.device, T_START)
-    run.setup()
-    print(json.dumps({"setup_s": time.perf_counter() - T_START}), flush=True)
-    for i, seed in enumerate(args.seeds):
-        run.sample(seed)
-        t0 = time.perf_counter()
-        unit = run.run_unit(0, [])
-        unit["roots"] = run.entry.keep_roots(run.state, last=True)
-        t1 = time.perf_counter()
-        line = {"seed": seed, "unit_s": t1 - t0,
-                "program": check.compare(run.cfg, [unit], lambda u: u["roots"],
-                                         run.ells, run.device)}
-        line["check_s"] = time.perf_counter() - t1
-        if i < args.control:
-            line["control"] = control_numbers(run, unit)
-        print(json.dumps(line), flush=True)
-        if run.device.type == "cuda":
-            torch.cuda.empty_cache()
+    # rank 0 checks each seed while the other ranks wait in the next unit
+    w = world.join(cell.chips, args.device, timeout_s=CHECK_TIMEOUT_S)
+    with w:
+        run = Run(cell, args.seeds[0], 0, 0, w.device, T_START, w)
+        run.setup()
+        if w.lead:
+            print(json.dumps({"setup_s": time.perf_counter() - T_START}), flush=True)
+        for i, seed in enumerate(args.seeds):
+            run.sample(seed)
+            t0 = time.perf_counter()
+            rec = run.run_unit(0, [])
+            mine = [] if rec is None else [
+                (0, dict(rec, roots=run.entry.keep_roots(run.state, last=True)))]
+            units = w.collect(mine)
+            t1 = time.perf_counter()
+            if w.lead:
+                unit = units[0]
+                line = {"seed": seed, "unit_s": t1 - t0,
+                        "program": check.compare(run.cfg, [unit], lambda u: u["roots"],
+                                                 run.ells, run.device)}
+                line["check_s"] = time.perf_counter() - t1
+                if i < args.control:
+                    line["control"] = control_numbers(run, unit)
+                print(json.dumps(line), flush=True)
+            if run.device.type == "cuda":
+                torch.cuda.empty_cache()
+        w.leave()
+    if not w.ok:
+        sys.exit("control: a rank of the world failed")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,12 @@
-"""One run of one cell: set-up, the measured window, the check, the metrics."""
+"""One run of one cell: set-up, the measured window, the check, the metrics.
+
+In a world of several processes (:mod:`harness.world`) every rank runs
+this, its own card: the same units in lockstep, each rank's own rows of
+every unit; rank 0 alone profiles, checks and reports."""
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 import types
@@ -13,13 +18,9 @@ from reference.rings import ring_pixels, sample_rings
 
 from . import check, config, stats
 from .trace import profiled
+from .world import Solo, _sync
 
 GIB = 1024.0**3
-
-
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def power_limit_w():
@@ -36,12 +37,14 @@ def power_limit_w():
 class Run:
     """A run of ``cell`` (:class:`harness.spec.Cell`) from ``seed`` for
     ``seconds``, traced or not, on ``device``; ``t_start`` is the process's
-    start on the ``time.perf_counter`` clock."""
+    start on the ``time.perf_counter`` clock; ``world``: the run's processes
+    (:mod:`harness.world`), by default this one alone."""
 
-    def __init__(self, cell, seed, seconds, trace, device, t_start):
+    def __init__(self, cell, seed, seconds, trace, device, t_start, world=None):
         self.cell = cell
         self.seconds = float(seconds)
         self.trace = bool(trace)
+        self.world = world or Solo(device)
         self.device = torch.device(device)
         self.t_start = t_start
         self.cfg = config.resolve(cell.config)
@@ -102,18 +105,20 @@ class Run:
         return rec
 
     def _window(self, seconds, chunk_ms):
-        """Whole units until ``seconds`` have passed; (maps, start, end)."""
+        """Whole units until ``seconds`` have passed on rank 0's clock; this
+        rank's (maps, start, end).  A rank keeps the record of a unit only
+        where it holds the checked chunk."""
         maps0 = self.maps
-        t0 = time.perf_counter()
+        t0 = self.world.meet(time.perf_counter())
         while True:
             k = self.units
             self.last = self.run_unit(k, chunk_ms)
-            if k in self.keep:
+            if k in self.keep and self.last is not None:
                 self.kept[k] = dict(self.last, roots=self.entry.keep_roots(self.state))
             self.units += 1
             t1 = time.perf_counter()
-            if t1 - t0 >= seconds:
-                return self.maps - maps0, t0, t1
+            if not self.world.go_on(t1 - t0 < seconds):
+                return self.maps - maps0, t0, self.world.meet(t1)
 
     # --- the run --------------------------------------------------------
 
@@ -127,8 +132,10 @@ class Run:
         self.maps = 0
 
     def execute(self):
+        """The run; its result on rank 0, None on the other ranks."""
+        world = self.world
         self.setup()
-        setup_s = time.perf_counter() - self.t_start
+        setup_s = world.meet(time.perf_counter()) - self.t_start
 
         chunk_ms = []
         layer = {}
@@ -136,29 +143,38 @@ class Run:
             from cora_tpu_torch.util import profiling
 
             holder = {}
-            with profiled(holder):
+            with profiled(holder) if world.lead else contextlib.nullcontext():
                 maps_a, a0, a1 = self._window(self.seconds / 2, chunk_ms)
-            profiling.enable(True)
+            profiling.enable(world.lead)
             maps_b, b0, b1 = self._window(self.seconds / 2, chunk_ms)
             stage_times = dict(profiling.stage_times)
             profiling.enable(False)
-            layer = dict(trace=holder["trace"], maps_traced=maps_a, maps_staged=maps_b,
-                         stage_times=stage_times)
+            maps_a, maps_b = world.total(maps_a), world.total(maps_b)
+            layer = dict(trace=holder.get("trace"), maps_traced=maps_a, maps_staged=maps_b,
+                         stage_times=stage_times, chips=self.cell.chips)
             maps, w0, w1 = maps_a + maps_b, a0, b1
         else:
             maps, w0, w1 = self._window(self.seconds, chunk_ms)
+            maps = world.total(maps)
         _sync(self.device)
         cuda = self.device.type == "cuda"
-        peak = torch.cuda.max_memory_allocated(self.device) if cuda else 0
+        peak = world.highest(torch.cuda.max_memory_allocated(self.device) if cuda else 0)
         attempted = maps
 
-        self.last["roots"] = self.entry.keep_roots(self.state, last=True)
+        if self.last is not None:
+            self.last["roots"] = self.entry.keep_roots(self.state, last=True)
         self.entry.release(self.state)
         self.state = None
         if cuda:
             torch.cuda.empty_cache()
-        checked = [self.kept[k] for k in sorted(self.kept) if k < self.units - 1]
-        checked.append(self.last)
+        # this rank's checked units: the kept ones but the last, and the last
+        mine = [(k, self.kept[k]) for k in sorted(self.kept) if k < self.units - 1]
+        if self.last is not None:
+            mine.append((self.units - 1, self.last))
+        checked = world.collect(mine)
+        world.leave()
+        if not world.lead:
+            return None
         numbers = check.compare(self.cfg, checked, lambda u: u["roots"], self.ells,
                                 self.device)
         correct, rows = check.judge(numbers, self.cell.limits)

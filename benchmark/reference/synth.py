@@ -102,7 +102,8 @@ def synth_rings(roots, seed, z_lo, nz_chunk, nside, lmax, rings, draw, device,
     F = torch.zeros((L, nz_chunk, R), dtype=cdt, device=device)  # [m, z, r]
     lam = legendre_blocks(lmax, g["cos"], g["sin"], lc, device)
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
-    for c, xi in noise_chunks(seed, nz, lmax, lc, int(draw["band_chunks"]), device):
+    for c, xi in noise_chunks(seed, nz, lmax, lc, int(draw["band_chunks"]), device,
+                              draw.get("seed_generator")):
         l0, lam_blk = next(lam)
         nl = lam_blk.shape[0]
         mw = xi.shape[-1]

@@ -19,23 +19,25 @@ def bench_json():
         return json.load(f)
 
 
-@pytest.fixture
-def tiny_cell(tmp_path, monkeypatch):
-    """``make(workload, nside, nz)``: the cell with its nside, lmax and
-    channel count cut down (widths of the draw and the check as configured),
-    its caches in the test's directory."""
-    monkeypatch.setenv("CORA_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+def cut_cell(workload, nside=8, nz=32):
+    """The cell with its nside, lmax and channel count cut down (widths of
+    the draw and the check as configured)."""
     from harness import spec
 
-    def make(workload, nside=8, nz=32):
-        cell = spec.Cell(workload, bench_json())
-        cfg = dict(cell.config, nside=nside, lmax=3 * nside - 1)
-        if cfg.get("channel_range"):
-            cfg["channel_range"] = [0, nz]
-        else:
-            cfg["freq"] = [cfg["freq"][0], cfg["freq"][1], nz]
-        cell.config = cfg
-        cell.traffic = dict(cell.traffic, check=dict(cell.traffic["check"], rings=6, ells=8))
-        return cell
+    cell = spec.Cell(workload, bench_json())
+    cfg = dict(cell.config, nside=nside, lmax=3 * nside - 1)
+    if cfg.get("channel_range"):
+        cfg["channel_range"] = [0, nz]
+    else:
+        cfg["freq"] = [cfg["freq"][0], cfg["freq"][1], nz]
+    cell.config = cfg
+    cell.traffic = dict(cell.traffic, check=dict(cell.traffic["check"], rings=6, ells=8))
+    return cell
 
-    return make
+
+@pytest.fixture
+def tiny_cell(tmp_path, monkeypatch):
+    """``make(workload, nside, nz)``: :func:`cut_cell`, its caches in the
+    test's directory."""
+    monkeypatch.setenv("CORA_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    return cut_cell

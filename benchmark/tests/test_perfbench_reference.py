@@ -69,3 +69,20 @@ def test_cl_against_the_program_host_path():
     ref = cl21cm.cl_grid(ells, freqs, 25.0).numpy()
     gap = np.abs(prog[ells] - ref).max(axis=(1, 2)) / np.abs(ref).max(axis=(1, 2))
     assert gap.max() < 1e-8
+
+
+def test_host_keyed_noise_is_the_2d_programs():
+    """``draw.seed_generator = "cpu"``: the ℓ-chunk seeds come from a host
+    generator, as the 2-D program keys its draw (``mesh._xi_source``)."""
+    import types
+
+    from cora_tpu_torch.parallel import mesh
+
+    lmax, nz, lc, key = 191, 4, 64, 3000000019
+    chunk = mesh._xi_source(types.SimpleNamespace(l_chunk=lc),
+                            torch.zeros(lmax + 1, nz, nz), key, None)
+    widths = noise.chunk_widths(lmax, lc, 1)
+    ref = list(noise.noise_chunks(key, nz, lmax, lc, 1, "cpu", seed_generator="cpu"))
+    assert len(ref) == 3
+    for c, xi in ref:
+        assert torch.equal(chunk(c, lc, widths[c], "cpu"), xi)
