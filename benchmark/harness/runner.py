@@ -1,7 +1,12 @@
 """One run of one cell: set-up, the measured window, the check, the metrics.
 
+What is specific to one comparison lives in the cell's check module
+(``checks/<kind>.py``): what it samples from the seed, what it records of a
+yielded chunk and keeps of a unit, how many channel maps a chunk counts,
+its numbers.  The run drives it.
+
 In a world of several processes (:mod:`harness.world`) every rank runs
-this, its own card: the same units in lockstep, each rank's own rows of
+this, its own card: the same units in lockstep, each rank's own share of
 every unit; rank 0 alone profiles, checks and reports."""
 
 from __future__ import annotations
@@ -13,8 +18,6 @@ import types
 
 import numpy as np
 import torch
-
-from reference.rings import ring_pixels, sample_rings
 
 from . import check, config, stats
 from .trace import profiled
@@ -50,19 +53,18 @@ class Run:
         self.cfg = config.resolve(cell.config)
         self.traffic = cell.traffic
         self.fchunk = min(int(self.traffic["fchunk"]), self.cfg["nz"])
+        self.check = cell.check()
         self.sample(seed)
 
     def sample(self, seed):
-        """Draw from ``seed`` what the check samples: rings, multipoles, the
-        units whose roots are kept; forget the units run so far."""
+        """Draw from ``seed`` what the check samples, then the units it
+        keeps; forget the units run so far."""
         self.seed = int(seed)
         rng = np.random.default_rng(self.seed)
         chk = self.traffic["check"]
-        self.rings = sample_rings(self.cfg["nside"], int(chk["rings"]), rng)
-        self.ells = check.sample_ells(self.cfg["lmax"], int(chk["ells"]), rng)
+        self.drawn = self.check.sample(self.cfg, self.traffic, rng, self.device)
         self.keep = set(rng.choice(int(chk["pool"]), size=int(chk["units"]),
                                    replace=False).tolist())
-        self.pix = None
         self.units = 0
         self.kept = {}
         self.last = None
@@ -71,7 +73,7 @@ class Run:
     # --- the window -----------------------------------------------------
 
     def _checked_chunk(self, k):
-        """z_lo of the chunk of unit k whose pixels are kept for the check."""
+        """z_lo of the chunk of unit k that the check records."""
         nblk = self.cfg["nz"] // self.fchunk
         pick = np.random.default_rng([self.seed, k]).integers(nblk)
         return int(pick) * self.fchunk
@@ -87,19 +89,18 @@ class Run:
         while limit is None or n < limit:
             t0 = time.perf_counter()
             try:
-                z_lo, maps = next(gen)
+                z_lo, out = next(gen)
             except StopIteration:
                 break
-            if self.pix is None:
-                self.pix = torch.from_numpy(
-                    ring_pixels(self.cfg["nside"], self.rings)).to(maps.device)
-            if z_lo <= z_check < z_lo + maps.shape[0]:
+            count = self.check.count(out)
+            if z_lo <= z_check < z_lo + count:
                 i = z_check - z_lo
-                rec = dict(seed=seed, z_lo=z_check, rings=self.rings,
-                           pixels=maps[i:i + self.fchunk].index_select(-1, self.pix))
+                width = min(self.fchunk, count - i)
+                rec = dict(seed=seed, z_lo=z_check, channels=width,
+                           **self.check.record(self.drawn, out, i, width))
             _sync(self.device)
             chunk_ms.append((time.perf_counter() - t0) * 1e3)
-            self.maps += maps.shape[0]
+            self.maps += count
             n += 1
         gen.close()
         return rec
@@ -114,7 +115,7 @@ class Run:
             k = self.units
             self.last = self.run_unit(k, chunk_ms)
             if k in self.keep and self.last is not None:
-                self.kept[k] = dict(self.last, roots=self.entry.keep_roots(self.state))
+                self.kept[k] = dict(self.last, kept=self.check.keep(self.entry, self.state))
             self.units += 1
             t1 = time.perf_counter()
             if not self.world.go_on(t1 - t0 < seconds):
@@ -162,7 +163,7 @@ class Run:
         attempted = maps
 
         if self.last is not None:
-            self.last["roots"] = self.entry.keep_roots(self.state, last=True)
+            self.last["kept"] = self.check.keep(self.entry, self.state, last=True)
         self.entry.release(self.state)
         self.state = None
         if cuda:
@@ -175,8 +176,7 @@ class Run:
         world.leave()
         if not world.lead:
             return None
-        numbers = check.compare(self.cfg, checked, lambda u: u["roots"], self.ells,
-                                self.device)
+        numbers = self.check.compare(self.cfg, checked, self.drawn, self.device)
         correct, rows = check.judge(numbers, self.cell.limits)
 
         e2e = dict(maps_per_s=stats.rate(maps, w0, w1),

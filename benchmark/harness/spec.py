@@ -3,6 +3,10 @@
 configs/<config>.json      the deployment (sizes, channels, precision, draw)
 traffic/<traffic>.json     the entry, its unit of work and the check's sample
 entries/<entry>.py         the code that drives the program for that entry
+checks/<kind>.py           the comparison the traffic's ``check`` names by
+                           ``kind`` (``synth21cm`` where it names none): what
+                           it samples, records and keeps, its numbers and
+                           its control's
 limits/<workload>.json     the limit of each number the check compares
 metrics/<metric>.py        the reader of each per-layer metric (+ its data)
 """
@@ -15,6 +19,7 @@ import os
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
+DEFAULT_CHECK = "synth21cm"
 
 
 def _json(*parts):
@@ -59,6 +64,9 @@ class Cell:
 
     def entry(self):
         return load_module("entries", self.traffic["entry"])
+
+    def check(self):
+        return load_module("checks", self.traffic["check"].get("kind", DEFAULT_CHECK))
 
     def reader(self, metric):
         return load_module("metrics", metric["name"])

@@ -17,8 +17,8 @@ the others killed; a child dies with rank 0 (the parent-death signal).
 
 In a world the window runs in lockstep (:meth:`World.go_on`: one broadcast
 a unit), counts are summed and peaks taken over the ranks after it, and the
-records the check keeps are gathered to rank 0 with the roots each was
-drawn with (:meth:`World.collect`).  Only rank 0 reports.
+records the check keeps are gathered to rank 0 with what it keeps of each
+unit (:meth:`World.collect`).  Only rank 0 reports.
 """
 
 from __future__ import annotations
@@ -211,24 +211,27 @@ class World:
         return self._reduce(n, self.dist.ReduceOp.MAX)
 
     def collect(self, records):
-        """Every rank's ``records`` ([(unit, record)], each record with the
-        roots it was drawn with under ``roots``) on rank 0, in unit order,
-        each with the rank that held it; None on the other ranks.  Pixels
-        travel on the host; each rank's distinct roots once, card to card."""
+        """Every rank's ``records`` ([(unit, record)], each record with what
+        the check keeps of its unit under ``kept``, a dict of tensors) on
+        rank 0, in unit order, each with the rank that held it; None on the
+        other ranks.  The record's own tensors travel on the host; each
+        rank's distinct kept tensors once, card to card."""
         dist = self.dist
-        roots, meta = {}, []
+        kept, meta = {}, []
         for k, rec in records:
-            j = roots.setdefault(id(rec["roots"]), (len(roots), rec["roots"]))[0]
-            rest = {n: v for n, v in rec.items() if n != "roots"}
-            meta.append((k, dict(rest, pixels=rest["pixels"].cpu()), j))
-        mine = [r for _, r in sorted(roots.values(), key=lambda jr: jr[0])]
+            refs = {n: kept.setdefault(id(t), (len(kept), t))[0]
+                    for n, t in rec["kept"].items()}
+            rest = {n: v.cpu() if torch.is_tensor(v) else v
+                    for n, v in rec.items() if n != "kept"}
+            meta.append((k, rest, refs))
+        mine = [t for _, t in sorted(kept.values(), key=lambda jt: jt[0])]
         every = [None] * self.size
-        dist.all_gather_object(every, (meta, [(tuple(r.shape), r.dtype) for r in mine]))
+        dist.all_gather_object(every, (meta, [(tuple(t.shape), t.dtype) for t in mine]))
         got = {0: mine}
         for h in range(1, self.size):
             if self.rank == h:
-                for r in mine:
-                    dist.send(r.contiguous(), dst=0)
+                for t in mine:
+                    dist.send(t.contiguous(), dst=0)
             elif self.lead:
                 got[h] = [torch.empty(shape, dtype=dtype, device=self.device)
                           for shape, dtype in every[h][1]]
@@ -236,12 +239,12 @@ class World:
                     dist.recv(buf, src=h)
         if not self.lead:
             return None
-        out = sorted(((k, h, dict(rec, roots=got[h][j]))
-                      for h, (meta_h, _) in enumerate(every) for k, rec, j in meta_h),
+        out = sorted(((k, h, dict(rec, kept={n: got[h][j] for n, j in refs.items()}))
+                      for h, (meta_h, _) in enumerate(every) for k, rec, refs in meta_h),
                      key=lambda khr: khr[0])
         for k, h, rec in out:
             z = rec["z_lo"]
-            print(f"world: unit {k}, channels {z}-{z + rec['pixels'].shape[0] - 1} "
+            print(f"world: unit {k}, channels {z}-{z + rec['channels'] - 1} "
                   f"checked from rank {h}", file=sys.stderr, flush=True)
         return [rec for _, _, rec in out]
 

@@ -18,7 +18,7 @@ sys.path[:0] = [{root!r}, {bench!r}]
 for name in {modules!r}:
     importlib.import_module(name)
 from harness import spec
-for kind in ("entries", "metrics"):
+for kind in ("entries", "metrics", "checks"):
     for path in sorted(glob.glob(os.path.join({bench!r}, kind, "*.py"))):
         spec.load_module(kind, os.path.basename(path)[:-3])
 print(json.dumps(sorted(sys.modules)))
@@ -46,7 +46,8 @@ def test_harness_loads_no_jax():
 
 def test_reference_loads_nothing_of_the_program():
     loaded = _loaded(["reference", "reference.synth", "reference.cl21cm",
-                      "reference.noise", "reference.rings", "reference.precision"])
+                      "reference.noise", "reference.rings", "reference.precision",
+                      "reference.analysis"])
     assert not [m for m in loaded if m.split(".")[0] in ("cora_tpu_torch",) + env.FORBIDDEN]
 
 

@@ -14,7 +14,9 @@ def reader(name):
 
 
 @pytest.mark.parametrize("name,stage", [("legendre_ms", "legendre"),
-                                        ("pixel_gather_ms", "pixel_gather")])
+                                        ("pixel_gather_ms", "pixel_gather"),
+                                        ("ring_fwd_ms", "ring_fwd"),
+                                        ("projection_ms", "projection")])
 def test_stage_per_map(name, stage):
     ctx = types.SimpleNamespace(stage_times={stage: 0.5, "draw": 9.0}, maps_staged=2000)
     assert reader(name).read(ctx) == pytest.approx(0.25)

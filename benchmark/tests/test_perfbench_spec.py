@@ -31,7 +31,10 @@ def test_cell_parts_found_by_name(w):
 
     cell = spec.Cell(w, bench_json())
     assert os.path.exists(os.path.join(BENCH, "entries", cell.traffic["entry"] + ".py"))
-    assert set(cell.limits) == {"cl", "maps"}
+    assert {"cl", "maps"} <= set(cell.limits) and all(v > 0 for v in cell.limits.values())
+    chk = cell.check()
+    assert all(callable(getattr(chk, f))
+               for f in ("sample", "count", "record", "keep", "compare", "control"))
     assert cell.per_layer and cell.end_to_end
     for m in cell.per_layer:
         assert callable(cell.reader(m).read)

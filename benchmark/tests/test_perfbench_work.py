@@ -42,3 +42,26 @@ def test_flagship_k4_bound_is_the_byte_bound():
     t = roofline.bound_s(prod, other, nbytes, 4)
     assert t == pytest.approx(nbytes / roofline.peaks()["hbm_bytes_s"])
     assert 1.5e-3 < t < 1.7e-3
+
+
+def test_projection_work_is_the_adjoint_of_k4s():
+    # L = 3, R = 2, F2 = 4: Λ's triangle and the sources read, the a_lm triangle written
+    (prod, other), nbytes = _metric("projection_roofline").work(3, 2, 4, 4)
+    assert prod == 2 * 4 * 6 * 2 and other == 0
+    assert nbytes == (6 * 2 + 2 * 4 * 2 * 3 + 4 * 6) * 4
+    assert _metric("projection_roofline").work(1536, 1024, 32, 4) == _metric(
+        "k4_roofline").work(1536, 1024, 32, 4)
+
+
+def test_projection_roofline_reads_the_span():
+    import types
+
+    pr = _metric("projection_roofline")
+    cfg = dict(nside=512, lmax=1535, dtype="float32")
+    flops, nbytes = pr.work(1536, 1024, 32, 4)
+    least = roofline.bound_s(*flops, nbytes, 4)
+    # 64 maps staged: 4 chunks of 16, 1 + 3 projections each, in 0.1 s
+    ctx = types.SimpleNamespace(cfg=cfg, traffic={"iter": 3}, fchunk=16, maps_staged=64,
+                                stage_times={"projection": 0.1})
+    assert pr.read(ctx) == pytest.approx(100.0 * 16 * least / 0.1)
+    assert pr.read(types.SimpleNamespace(**(vars(ctx) | {"stage_times": {}}))) is None

@@ -38,6 +38,27 @@ def result(r):
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
+def test_world_checks_as_before(tmp_path):
+    """Through the hook, the world of 4 samples and compares the chunks it
+    gathers as the check did before it (``before_hook.py``)."""
+    import torch
+    from before_hook import compare, sample
+    from conftest import cut_cell
+
+    from harness import config
+
+    path = tmp_path / "records.pt"
+    out = result(world_run(tmp_path, 0.3, "--records", str(path))[0])
+    saved = torch.load(path)
+    cell = cut_cell(WORKLOAD, nside=8, nz=NZ)
+    cfg = config.resolve(cell.config)
+    rings, ells, _ = sample(cfg, cell.traffic["check"], SEED)
+    assert (saved["rings"], saved["ells"]) == (rings, ells)
+    assert saved["units"] and all(u["pixels"].device.type == "cpu" for u in saved["units"])
+    before = compare(cfg, saved["units"], lambda u: u["kept"]["roots"], ells, "cpu")
+    assert before == {k: c["value"] for k, c in out["checks"].items()}
+
+
 def test_ranks_sum_their_maps_and_the_holder_is_checked(tmp_path):
     r, _ = world_run(tmp_path, 0.3)
     out = result(r)
@@ -87,7 +108,6 @@ def world_of_one(tmp_path):
 
 
 def test_control_is_not_correct_on_the_2d_cell(tiny_cell, world_of_one):
-    import control
     from harness import check
     from harness.runner import Run
 
@@ -95,10 +115,11 @@ def test_control_is_not_correct_on_the_2d_cell(tiny_cell, world_of_one):
     run = Run(cell, SEED, 0, 0, "cpu", time.perf_counter())
     run.setup()
     unit = run.run_unit(0, [])
-    unit["roots"] = run.entry.keep_roots(run.state, last=True)
-    sound = check.compare(run.cfg, [unit], lambda u: u["roots"], run.ells, run.device)
+    unit["kept"] = run.check.keep(run.entry, run.state, last=True)
+    sound = run.check.compare(run.cfg, [unit], run.drawn, run.device)
     assert check.judge(sound, cell.limits)[0]
-    correct, rows = check.judge(control.control_numbers(run, unit), cell.limits)
+    correct, rows = check.judge(run.check.control(run.cfg, unit, run.drawn, run.device),
+                                cell.limits)
     assert not correct, rows
 
 

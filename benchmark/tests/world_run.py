@@ -2,7 +2,8 @@
 CPU: the tests' way into the harness's world of one process a card (gloo).
 
     python benchmark/tests/world_run.py --workload n2048.sharded4 --seed 7 --seconds 0 \\
-        [--nz 64] [--ranks N] [--fault unpermuted|no_gather|stale|half|altered|exit]
+        [--nz 64] [--ranks N] [--fault unpermuted|no_gather|stale|half|altered|exit] \\
+        [--records PATH]
 
 Rank 0 starts the other ranks with this same command, so every rank has the
 same cut and the same fault; ``--ranks`` runs the cell on N ranks in place of
@@ -14,6 +15,8 @@ its cards.  The faults are planted in the program's 2-D module:
   half        every second row of each rank left out (zero)
   altered     each rank's first row altered by 1e-3 of its largest value
   exit        rank 2 exits with code 7 as its second unit of the window starts
+``--records`` saves (``torch.save``) what rank 0's check compares: the
+checked units as gathered, and the rings and multipoles it drew.
 """
 
 import os
@@ -69,14 +72,30 @@ def plant(fault, rank):
         mesh.synthesize_cube_sharded_2d = broken
 
 
+def save_records(cell, path):
+    """Have the cell's check save its units and sample to ``path`` as it
+    compares them."""
+    mod = cell.check()
+    inner = mod.compare
+
+    def compare(cfg, units, drawn, device):
+        torch.save(dict(units=units, rings=drawn.rings, ells=drawn.ells), path)
+        return inner(cfg, units, drawn, device)
+    mod.compare = compare
+    cell.check = lambda: mod
+
+
 def main():
     p = run.arguments()
     p.add_argument("--nz", type=int, default=64)
     p.add_argument("--ranks", type=int)
     p.add_argument("--fault", choices=FAULTS)
+    p.add_argument("--records")
     args = p.parse_args()
     cell = cut_cell(args.workload, nside=8, nz=args.nz)
     cell.chips = args.ranks or cell.chips
+    if args.records:
+        save_records(cell, args.records)
     plant(args.fault, int(os.environ.get("RANK", 0)))
     run.report(run.execute(cell, args, "cpu", T_START))
 
