@@ -542,6 +542,10 @@ def _compare(name, nside, run_k, run_p, run_64, reps=(7, 3), rms_floor=None,
 # float32 K1/K2 shapes (nside, lmax) at F2=32: nside=128 and the flagship,
 # whose times the kernel report carries
 F32_SHAPES = [(128, 383), (512, 1535)]
+# K1 f32 at F2 = 32 before the warp-specialised tile (PERF.md §6; H100 80GB
+# HBM3, 700 W), printed beside the times of the tile that replaced it
+K1_BEFORE = {512: "the tile before it: 4.097 ms, 29.9% of the bound",
+             2048: "the tile before it: 205.6 ms at R = 4096"}
 
 
 def kernel_phase(dev):
@@ -573,6 +577,9 @@ def kernel_phase(dev):
             print(f"   {name} nside={nside}: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms (CUDA events, median); kernel "
                   f"{useful / ms / 1e9:.2f} TFLOP/s useful f32")
+            if name == "scan_contract" and (nside, lmax) == F32_SHAPES[-1]:
+                print(f"   K1 f32 warp-specialised tile at L={lmax + 1}, R={op.nhalf}, F2=32: "
+                      f"{ms:.3f} ms; {K1_BEFORE[nside]}")
             if (nside, lmax) == F32_SHAPES[-1]:  # the round trip's shape
                 x2 = _kernel_inputs(op, 2, seed=nside + 2)[1 + (name == "scan_project")]
                 _, ms2, _ = _compare(
@@ -3413,6 +3420,22 @@ def _two_level(op, t, rows, nz_leg, nz_ring):
     return sht.synthesis_scan_correlated(op, t, rows, xi, nz_leg, nz_ring, consume, out)
 
 
+def _k1_f32_line(op, t, F2=32, reps=3):
+    """K1 f32 on all of ``op``'s rings at the cells' F2 = 32 (the
+    warp-specialised tile): its time (CUDA events, median) and share of its
+    bound, beside the figures of the design before it."""
+    from cora_tpu_torch.ops import scan_legendre as k
+
+    args, A, S = _kernel_inputs(op, F2, op.nside + F2, t)
+    del S
+    ms = _cuda_time_ms(lambda: k.scan_contract(*args, *A), reps)
+    bound, by = _k1_bound(op, t, A)
+    print(f"   K1 f32 warp-specialised tile at L={op.lmax + 1}, R={op.nhalf}, F2={F2}: "
+          f"{ms:.3f} ms, bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f}% of its bound; "
+          f"{K1_BEFORE[op.nside]}")
+    del args, A
+
+
 def _k1_slice_vs_plain(op, t, F2, r0, r1, seed, reps=(3, 1)):
     """K1 on rings [r0, r1) of the scan tables ``t`` against
     ``scan_contract_plain`` on the same slice and random planes: float32
@@ -3736,6 +3759,8 @@ def nside2048_phase(dev, cfg=NSIDE2048, fchunk=8, n64=2):
         print(f"   K1 f32 at R = {op.nhalf}, F2 = {2 * fchunk}: {times[op.nhalf][0]:.3f} ms per "
               f"launch with the float64 carry (the float32 carry's: 191.897 ms, H100 80GB HBM3, "
               f"700 W)")
+        if dev.type == "cuda":
+            _k1_f32_line(op, t)
         _k1_on_ring_slices(op, op.tables(True), 2 * n64, (), seed=17, reps=3)
         # K1 against its plain version on the polar quarter of the rings and
         # on the quarter that holds the worst pixel, at the path's F2 in f32

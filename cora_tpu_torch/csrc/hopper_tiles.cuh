@@ -8,7 +8,9 @@
 //  * register-tiled f32 outer products on the CUDA cores (IEEE fmaf, no
 //    TF32);
 //  * the FP64 tensor-core product mma.sync m16n8k4 (DMMA: IEEE f64 products
-//    and sums, 67 TFLOP/s on an H100 SXM against 34 on the FP64 units).
+//    and sums, 67 TFLOP/s on an H100 SXM against 34 on the FP64 units);
+//  * mbarriers, barriers of a group of warps and setmaxnreg, for blocks
+//    whose warps take separate roles (K1's float32 tile at 32 planes).
 
 #pragma once
 
@@ -17,7 +19,7 @@
 
 namespace cora {
 
-constexpr int kThreads = 256;  // every block of K1 and K4: 8 warps
+constexpr int kThreads = 256;  // K4 and K1 but its 32-plane f32 tile: 8 warps
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -52,6 +54,68 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarrier (sm_90): a 64-bit barrier in shared memory whose phase completes
+// when `count` arrivals have come; a wait names the phase by its parity and
+// returns once that phase has completed (phase k has parity k & 1).
+// Arrivals release and waits acquire at CTA scope, so what a thread wrote
+// before it arrived is seen by a thread that waited.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the barriers' initialisation visible before any thread uses them.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread has started so far
+// has landed (the barrier's pending count is raised by one now, so the
+// thread still arrives itself as well).
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n\t"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra WAIT;\n\t}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Barrier `id` (1–15; 0 is __syncthreads) of the first `n` threads to
+// arrive at it, a multiple of 32: a barrier of one group of warps.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Move this warpgroup's register limit to N (sm_90a; every warp of the
+// warpgroup executes it, and the paths of the two roles never rejoin).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // d += a·b over one 16×8×4 tile on the FP64 tensor cores (sm_90; lane =

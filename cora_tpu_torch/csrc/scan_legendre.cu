@@ -34,45 +34,71 @@
 // chip_smoke.py on an H100 80GB HBM3, 700 W).  The recurrence ran once per
 // plane tile (2× at F2=32, 8× at F2=64 in f64), the planes were staged by
 // plain loads between two barriers a step, and every row read two
-// shared-memory coefficients.  Its sibling K4, probed on the same card,
-// spent as long on that loop of FMAs and shared loads as on all its memory
-// traffic.
+// shared-memory coefficients.
 //
-// This design (chip_smoke.py, same card, two runs: 4.289–4.341 ms f32,
-// 8.892–9.140 ms f64, 28–29% and 25–26% of the bounds):
-//  * All planes in one block (32 in f32, 64 in f64), so the recurrence runs
-//    once per (ℓ, ring, m) in f32 and twice in f64, where a block covers
-//    one ℓ parity (grid z) to keep its accumulators in registers.
-//  * λ through shared memory: each thread runs the recurrence of its (m,
-//    ring) columns and writes the emitted rows to a double buffer; the rows
-//    of step j+1 are generated inside the loop that contracts step j, so
-//    the recurrence's dependent chain hides behind independent FMAs.
-//  * The planes of coming steps (and the recurrence rows a_lm, b_lm one
-//    step further on) arrive by cp.async in a ring of 3 stages, one
-//    __syncthreads per 32-row step; the planes as 16-byte copies from
-//    planes-minor storage ([L/2, M, fs], fs = F2 rounded up to a whole
-//    vector, built so by the transforms).
-//  * f32: 4 m × 64 rings a block, a warp per (m, ℓ parity); a lane holds 8
-//    planes × 8 rings (4 LDS.128, broadcast, per 64 IEEE FMAs; no TF32) and
-//    keeps the two-level sums: a fresh partial per step, added to the
-//    total at its end.  The two warps of an m read the λ rows that both
-//    generated, after the step's barrier.  F2 ≤ 8 takes a 4 × 4 tile and
-//    two blocks an SM.
-//  * f64: 4 m (8 at F2 ≤ 32) × 64 rings × one parity a block; the products
-//    run on the FP64 tensor cores (mma.sync m16n8k4), 32 planes × 64 rings
-//    a warp, from stages padded so a half warp reads distinct banks; the
-//    recurrence stays on the FP64 units.
-//  * A block starts at the step holding its first m (rows ℓ < m are exactly
-//    zero and leave the carry at zero).  He/Ho are staged in shared memory
-//    and written once, m-contiguous, no atomics.
+// The second design (f64 and F2 ≤ 8 keep it): all planes in one
+// block (32 in f32, 64 in f64), so the recurrence runs once per (ℓ, ring,
+// m) in f32 and twice in f64, where a block covers one ℓ parity (grid z);
+// λ through shared memory, each thread running the recurrence of its (m,
+// ring) column and writing the rows of step j+1 from inside the loop that
+// contracts step j; the planes of coming steps (and the recurrence rows
+// a_lm, b_lm one step further on) by cp.async in a ring of 3 stages, one
+// __syncthreads per 32-row step, as 16-byte copies from planes-minor
+// storage ([L/2, M, fs], fs = F2 rounded up to a whole vector).  f32: 4 m ×
+// 64 rings a block, a warp per (m, ℓ parity), a lane 8 planes × 8 rings (4
+// LDS.128 per 64 IEEE FMAs; no TF32) with the two-level sums (a fresh
+// partial per step, added to the total at its end); F2 ≤ 8 a 4 × 4 tile and
+// two blocks an SM.  f64: 4 m (8 at F2 ≤ 32) × 64 rings × one parity a
+// block, the products on the FP64 tensor cores (mma.sync m16n8k4), 32
+// planes × 64 rings a warp, from stages padded so a half warp reads distinct
+// banks, the recurrence on the FP64 units.  A block starts at the step
+// holding its first m (rows ℓ < m are exactly zero and leave the carry at
+// zero); He/Ho are staged in shared memory and written once, m-contiguous,
+// no atomics.  Its f32 tile at 32 planes, with the float64 carry: 4.06–4.26
+// ms at the flagship (29–30% of the bound) and 199.4–201.7 ms at nside 2048
+// (R = 4096, F2 = 32; 39.0–39.4%), the cells' shape.  What held it back:
+// every warp ran a column's dependent float64 chain, its conversion and
+// store, and 8 × 8 products per row, interleaved by hand, with a block-wide
+// barrier every step, at 2 warps per scheduler.
 //
-// What holds it back (probed on the same card by cut-down variants of this
-// source): in f32 the contraction with its loads alone takes 3.21 ms, the
-// recurrence with the loads 2.92 ms, and at one block of 8 warps per SM
-// the two overlap only in part; in f64 the DMMA loop, as in K4, runs at
-// about a quarter of the tensor cores' rate.  Those figures are of the
-// float carry that re-seeded from checkpoint rows; PERF.md has the double
-// carry's.
+// This design, f32 at 32 planes (scan_contract_f32_ws): the recurrence and
+// the contraction are warp roles that meet only through a ring of NS = 4
+// stages, each holding one step's λ rows and plane rows, guarded by
+// mbarrier full/empty pairs.
+//  * 8 producer warps (a lane per (m, ring) column, 2 warps per m, 56
+//    registers by setmaxnreg) run the float64 carry with the same
+//    Recurrence::pair steps, so the λ rows keep their bits; a warp's a_lm,
+//    b_lm come by one 16-byte load a row.  Once no column of a warp still
+//    carries a scale count (k only falls after the seed rows; one vote a
+//    step), the warp takes pair's branch-free path.  The producers also copy
+//    the step's planes (cp.async, completing on the stage's full barrier)
+//    and the recurrence rows two steps ahead, and are at most NS steps
+//    ahead of the slowest consumer.
+//  * 8 consumer warps (200 registers), one per (m, ℓ parity) as before,
+//    only contract: wait on a stage's full barrier, stream λ and plane
+//    fragments from it with the next row's loads in flight beside this
+//    row's 64 FMAs, keep the same per-step partial and total, and release
+//    the stage, one arrival a warp.  The sums run in the same order as in
+//    the second design: the output is the same bits.
+//  * Measured (CUDA-event medians on an NVIDIA H100 80GB HBM3, 700 W, SM
+//    clock 1980 MHz throughout, beside the second design in the same
+//    process): the flagship 3.92–4.03 ms
+//    against 4.02–4.17 (31%), nside 2048 at F2 = 32 191.8 ms against
+//    200.6–201.3 (40.9%).  Consumers alone, fed from a ring by producers
+//    that only copy, 3.00–3.16 ms at the flagship (the second design's
+//    contraction alone: 3.21 ms) and 135–146 ms at nside 2048; producers
+//    alone 98 ms there.
+//
+// What holds it back: the shared-memory path.  A warp's LDS.128 costs 4 SM
+// cycles when a quarter warp reads 4 distinct 16-byte words (the plane
+// fragments) and 2.45 when it reads 1 or 2 (the λ fragments, the warp's
+// coefficients); 4 of them per 64 FMAs keep that path about as busy as the
+// FP32 units.  The consumer loop alone, with no barrier and no producer,
+// runs at 59% of the FP32 rate (126 ms at nside 2048), at 76% without its
+// loads; the producers' coefficient loads cost 11 ms, and their λ stores
+// and conversions share the same path and issue slots.  A wider lane tile
+// would load less per FMA but needs twice its width in registers for the
+// two-level sums.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -89,13 +115,18 @@ using cora::load_rec;
 using cora::Recurrence;
 
 // Block tile per (real type, planes a block FP): MT m values × RT rings, LB
-// ℓ rows a step, NS plane stages.  f32: a warp per (m, ℓ parity), PG ×
-// (32/PG) lanes of TP × TR register tiles.  f64: WPM warps per m, each 32
-// planes.
+// ℓ rows a step, NS plane stages (at 32 f32 planes, NS stages of λ rows and
+// planes).  f32: a warp per (m, ℓ parity), PG × (32/PG) lanes of TP × TR
+// register tiles; at 32 planes these are the consumers, beside PRODUCERS
+// threads, a lane per (m, ring) column, with the register limits of the two
+// roles (setmaxnreg) and 2·CU rows a consumer loop body.  f64: WPM warps per
+// m, each 32 planes.
 template <typename T, int FP> struct Tile;
 template <> struct Tile<float, 32> {
-  static constexpr int MT = 4, RT = 64, LB = 32, NS = 3;
+  static constexpr int MT = 4, RT = 64, LB = 32, NS = 4;
   static constexpr int PG = 4, TP = 8, TR = 8;
+  static constexpr int CONSUMERS = 2 * MT * 32, PRODUCERS = MT * RT;
+  static constexpr int CREG = 200, PREG = 56, CU = 4;
 };
 template <> struct Tile<float, 8> {
   static constexpr int MT = 4, RT = 64, LB = 32, NS = 3;
@@ -284,6 +315,239 @@ scan_contract_f32(const double* __restrict__ rec_a,
   }
 }
 
+// ------------------------------------------- float, warp-specialised --
+
+// Shared memory of scan_contract_f32_ws: NS stages, each the λ rows
+// [MT][LB][RT] and the plane rows [2][NP][KS] of one step; RS slots of
+// recurrence rows [LB][MT][2] (a_lm, b_lm side by side); the stages' full
+// and empty barriers.  He/Ho [2][FP][RT][MT] are staged in the stages.
+template <int FP>
+struct WsLayout {
+  using C = Tile<float, FP>;
+  static constexpr int NP = C::LB / 2;
+  static constexpr int FPP = FP + 4, KS = C::MT * FPP;
+  static constexpr int P_STAGE = 2 * NP * KS;        // [2][NP][KS] float
+  static constexpr int LAM = C::MT * C::LB * C::RT;  // [MT][LB][RT] float
+  static constexpr int REC = 2 * C::LB * C::MT;      // [LB][MT][2] double
+  static constexpr int RS = 3;  // recurrence rows are copied two steps ahead
+  static constexpr size_t STAGES = 4 * (size_t)C::NS * (LAM + P_STAGE);
+  static constexpr size_t BYTES = STAGES + 8 * (RS * REC + 2 * C::NS);
+  static constexpr int THREADS = C::CONSUMERS + C::PRODUCERS;
+  static_assert(4 * 2 * FP * C::RT * C::MT <= STAGES, "He/Ho fit the stages");
+  static_assert(C::PRODUCERS == C::MT * C::RT && C::RT == 64,
+                "a producer lane per column, two warps per m");
+};
+
+template <int FP>
+__global__ void __launch_bounds__(WsLayout<FP>::THREADS, 1)
+scan_contract_f32_ws(const double* __restrict__ rec_a,
+                     const double* __restrict__ rec_b,
+                     const double* __restrict__ seed_T,
+                     const double* __restrict__ k0_T,
+                     const double* __restrict__ z,
+                     const float* __restrict__ alm0,
+                     const float* __restrict__ alm1, float* __restrict__ he,
+                     float* __restrict__ ho, int L, int M, int R, int F2,
+                     int fs) {
+  using C = Tile<float, FP>;
+  using Y = WsLayout<FP>;
+  constexpr int MT = C::MT, RT = C::RT, LB = C::LB, NP = Y::NP, NS = C::NS;
+  constexpr int TP = C::TP, TR = C::TR, PG = C::PG, RG = 32 / PG;
+  constexpr int VP = 4, VR = 4, NC = C::CONSUMERS, NPT = C::PRODUCERS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sLam = reinterpret_cast<float*>(smem_raw);  // [NS][LAM]
+  float* const sP = sLam + NS * Y::LAM;                    // [NS][P_STAGE]
+  double* const sRec = reinterpret_cast<double*>(sP + NS * Y::P_STAGE);
+  unsigned long long* const full =
+      reinterpret_cast<unsigned long long*>(sRec + Y::RS * Y::REC);
+  unsigned long long* const empty = full + NS;
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * RT, m0 = blockIdx.y * MT, f0 = blockIdx.z * FP;
+  const int lstart = (m0 / LB) * LB;
+  const int nsteps = lstart < L ? (L - lstart + LB - 1) / LB : 0;
+
+  // stage s % NS holds step s: full once every producer warp has written
+  // its λ rows and the producers' plane copies have landed, empty once
+  // every consumer warp has read it
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      cora::mbar_init(full + i, NPT / 32);
+      cora::mbar_init(empty + i, NC / 32);
+    }
+    cora::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < NC) {
+    // consumer warp (wm, wp): the products of m index wm and ℓ parity wp,
+    // lane tiles of 8 planes × 8 rings, each step's rows into a fresh
+    // partial added to the total at the step's end
+    cora::setmaxnreg_inc<C::CREG>();
+    const int wm = w >> 1, wp = w & 1;
+    const int fp0 = VP * (lane % PG), rr0 = VR * (lane / PG);
+    const int a_off = wp * NP * Y::KS + wm * Y::FPP + fp0;
+    const int l_off = wm * LB * RT + wp * RT + rr0;
+    float acc[TP][TR];
+#pragma unroll
+    for (int i = 0; i < TP; ++i)
+#pragma unroll
+      for (int t = 0; t < TR; ++t) acc[i][t] = 0.f;
+
+    for (int s = 0; s < nsteps; ++s) {
+      const int st = s % NS;
+      cora::mbar_wait(full + st, (s / NS) & 1);
+      const float* P = sP + st * Y::P_STAGE + a_off;
+      const float* lam = sLam + st * Y::LAM + l_off;
+      float part[TP][TR];
+#pragma unroll
+      for (int i = 0; i < TP; ++i)
+#pragma unroll
+        for (int t = 0; t < TR; ++t) part[i][t] = 0.f;
+      // fragments of row p + 1 load while row p's products run
+      float a[2][TP], b[2][TR];
+      cora::lds_vec<TP, VP>(a[0], P, VP * PG);
+      cora::lds_vec<TR, VR>(b[0], lam, VR * RG);
+#pragma unroll C::CU
+      for (int p = 0; p < NP; p += 2) {
+        cora::lds_vec<TP, VP>(a[1], P + (p + 1) * Y::KS, VP * PG);
+        cora::lds_vec<TR, VR>(b[1], lam + 2 * (p + 1) * RT, VR * RG);
+        cora::outer_fma(part, a[0], b[0]);
+        if (p + 2 < NP) {
+          cora::lds_vec<TP, VP>(a[0], P + (p + 2) * Y::KS, VP * PG);
+          cora::lds_vec<TR, VR>(b[0], lam + 2 * (p + 2) * RT, VR * RG);
+        }
+        cora::outer_fma(part, a[1], b[1]);
+      }
+      __syncwarp();
+      if (lane == 0) cora::mbar_arrive(empty + st);
+#pragma unroll
+      for (int i = 0; i < TP; ++i)
+#pragma unroll
+        for (int t = 0; t < TR; ++t) acc[i][t] += part[i][t];
+    }
+
+    // He/Ho through shared memory [2][FP][RT][MT], written m-contiguous,
+    // once every consumer has read its last stage
+    cora::bar_sync(1, NC);
+    float* const E = sLam;
+#pragma unroll
+    for (int i = 0; i < TP; ++i)
+#pragma unroll
+      for (int t = 0; t < TR; ++t) {
+        const int f = (i / VP) * VP * PG + fp0 + i % VP;
+        const int r = (t / VR) * VR * RG + rr0 + t % VR;
+        E[((wp * FP + f) * RT + r) * MT + wm] = acc[i][t];
+      }
+    cora::bar_sync(1, NC);
+    const int nf = min(FP, F2 - f0);
+    for (int e = threadIdx.x; e < 2 * nf * RT * MT; e += NC) {
+      const int mm = e % MT, r = (e / MT) % RT, f = (e / (MT * RT)) % nf,
+                q = e / (MT * RT * nf);
+      const int m = m0 + mm, gr = r0 + r;
+      if (m < M && gr < R)
+        (q ? ho : he)[((size_t)(f0 + f) * R + gr) * M + m] =
+            E[((q * FP + f) * RT + r) * MT + mm];
+    }
+  } else {
+    // producer warp pw: the float64 carry of column (m index cm, ring cr)
+    // in each lane, each step's λ rows into the step's stage; its threads
+    // also copy the step's planes there and the recurrence rows two steps
+    // ahead into a ring of RS slots
+    cora::setmaxnreg_dec<C::PREG>();
+    const int pt = threadIdx.x - NC, pw = pt >> 5;
+    const int cm = pw / (RT / 32), cr = (pw % (RT / 32)) * 32 + lane;
+    // the coefficients reach pair in registers: the column indexes them at 0
+    Recurrence<float, 1> rc;
+    rc.init_col(0, 0, cr, seed_T, k0_T, z, m0 + cm, r0, M, R);
+
+    // this thread's plane copies: vector q of m index pm, rows pr + k·NPT/32
+    constexpr int NQ = FP / 4, NV = 2 * NP * MT * NQ;
+    static_assert(NPT % (MT * NQ) == 0 && NV % NPT == 0, "plane copies");
+    const int q = pt % NQ, pm = (pt / NQ) % MT, pr = pt / (NQ * MT);
+    const bool okv = m0 + pm < M && f0 + q * 4 < F2;
+    const size_t voff = (size_t)(m0 + pm) * fs + f0 + q * 4;
+    float* const vdst = sP + pm * Y::FPP + q * 4;
+    auto load_planes = [&](int s, int st) {
+      const int jp0 = (lstart + s * LB) / 2;
+#pragma unroll
+      for (int k = 0; k < NV / NPT; ++k) {
+        const int row = pr + k * (NPT / (NQ * MT));  // [2][NP]
+        const int par = row / NP, jr = row % NP;
+        const bool ok = okv && jp0 + jr < L / 2;
+        const float* src = par ? alm1 : alm0;
+        cora::cp_async16(vdst + st * Y::P_STAGE + row * Y::KS,
+                         ok ? src + (size_t)(jp0 + jr) * M * fs + voff : src,
+                         ok);
+      }
+    };
+    // the a_lm, b_lm rows of step s into slot s % RS, element e of
+    // [LB][MT][2] by thread e % NPT
+    static_assert(Y::REC % NPT == 0, "recurrence-row copies");
+    auto load_rec = [&](int s) {
+#pragma unroll
+      for (int i = 0; i < Y::REC / NPT; ++i) {
+        const int e = pt + i * NPT;
+        const int ab = e & 1, mm = (e >> 1) % MT, row = e / (2 * MT);
+        const int gl = lstart + s * LB + row;
+        const bool ok = m0 + mm < M && gl < L;
+        const double* src = ab ? rec_b : rec_a;
+        cora::cp_async_el(sRec + (s % Y::RS) * Y::REC + e,
+                          ok ? src + (size_t)gl * M + m0 + mm : src, ok);
+      }
+    };
+    // λ rows of step s into stage st; a_lm, b_lm of rows 2p and 2p + 1 of
+    // this warp's m by one 16-byte load each
+    auto gen_step = [&](int s, int st, auto seed, auto scaled) {
+      const double2* rec =
+          reinterpret_cast<const double2*>(sRec + (s % Y::RS) * Y::REC) + cm;
+      float* dst = sLam + st * Y::LAM + cm * LB * RT + cr;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const double2 ev = rec[2 * p * MT], od = rec[(2 * p + 1) * MT];
+        const double ra[2] = {ev.x, od.x}, rb[2] = {ev.y, od.y};
+        float o0[1], o1[1];
+        rc.template pair<decltype(seed)::value, decltype(scaled)::value>(
+            lstart + s * LB + 2 * p, ra, rb, 1, o0, o1);
+        dst[2 * p * RT] = o0[0];
+        dst[(2 * p + 1) * RT] = o1[0];
+      }
+    };
+    // one group of copies a step: the rec rows of s + 2 and the planes of
+    // s; waiting for all but the newest group leaves the planes of the
+    // step before in flight (the stage's full barrier waits for them)
+    auto step = [&](int s, auto seed, auto scaled) {
+      const int st = s % NS;
+      cora::cp_async_wait<1>();
+      cora::bar_sync(2, NPT);  // rec rows of s in; every producer past s - 1
+      if (s + 2 < nsteps) load_rec(s + 2);
+      if (s >= NS) cora::mbar_wait(empty + st, (s / NS - 1) & 1);
+      load_planes(s, st);
+      cora::cp_async_mbar_arrive(full + st);
+      cora::cp_async_commit();
+      gen_step(s, st, seed, scaled);
+      __syncwarp();
+      if (lane == 0) cora::mbar_arrive(full + st);
+    };
+
+    if (nsteps > 0) {
+      load_rec(0);
+      cora::cp_async_commit();
+      if (nsteps > 1) load_rec(1);
+      cora::cp_async_commit();
+      step(0, std::true_type{}, std::true_type{});  // the block's seed rows
+    }
+    for (int s = 1; s < nsteps; ++s) {
+      // past the seed rows k only falls: a warp none of whose columns still
+      // carries a scale count emits every row and rescales none
+      if (__any_sync(0xffffffffu, rc.k[0] > 0))
+        step(s, std::false_type{}, std::true_type{});
+      else
+        step(s, std::false_type{}, std::false_type{});
+    }
+  }
+}
+
 // --------------------------------------------------------------- double --
 
 template <int FP>
@@ -439,12 +703,17 @@ cudaError_t launch_tile(const void* rec_a, const void* rec_b,
   using C = Tile<T, FP>;
   constexpr bool f64 = sizeof(T) == 8;
   size_t bytes;
+  int threads = kThreads;
   void (*kern)(const double*, const double*, const double*, const double*,
                const double*, const T*, const T*, T*, T*, int, int, int, int,
                int);
   if constexpr (f64) {
     kern = scan_contract_f64<FP>;
     bytes = F64Layout<FP>::BYTES;
+  } else if constexpr (FP == 32) {
+    kern = scan_contract_f32_ws<FP>;
+    bytes = WsLayout<FP>::BYTES;
+    threads = WsLayout<FP>::THREADS;
   } else {
     kern = scan_contract_f32<FP>;
     bytes = F32Layout<FP>::BYTES;
@@ -454,7 +723,7 @@ cudaError_t launch_tile(const void* rec_a, const void* rec_b,
   if (err != cudaSuccess) return err;
   const dim3 grid((R + C::RT - 1) / C::RT, (M + C::MT - 1) / C::MT,
                   ((F2 + FP - 1) / FP) * (f64 ? 2 : 1));
-  kern<<<grid, kThreads, bytes, stream>>>(
+  kern<<<grid, threads, bytes, stream>>>(
       (const double*)rec_a, (const double*)rec_b, (const double*)seed_T,
       (const double*)k0_T, (const double*)z, (const T*)alm0, (const T*)alm1,
       (T*)he, (T*)ho, L, M, R, F2, fs);

@@ -35,7 +35,8 @@ constexpr double kScanThresh = 0x1p256;
 constexpr double kScanDown = 0x1p-512;
 
 // The recurrence of CPT (m, ring) columns per thread, emitting rows of T:
-// column j is c = tid + j·256 of the block's MT × RT, m-major.
+// column j is c = tid + j·256 of the block's MT × RT, m-major (init), or
+// where init_col puts it.
 template <typename T, int CPT> struct Recurrence {
   double zr[CPT], seed[CPT], lp[CPT], lpp[CPT];
   int k0[CPT], k[CPT], m[CPT], mm[CPT], rl[CPT];
@@ -48,21 +49,31 @@ template <typename T, int CPT> struct Recurrence {
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int c = threadIdx.x + j * kThreads;
-      mm[j] = c / RT;
-      rl[j] = c % RT;
-      m[j] = m0 + mm[j];
-      const int r = r0 + rl[j];
-      zr[j] = 0;
-      seed[j] = 0;
-      k0[j] = 1;  // a column past R or M never emits
-      if (r < R && m[j] < M) {
-        zr[j] = z[r];
-        seed[j] = seed_T[(size_t)m[j] * R + r];
-        k0[j] = (int)k0_T[(size_t)m[j] * R + r];
-      }
-      lp[j] = lpp[j] = 0;
-      k[j] = 0;
+      init_col(j, c / RT, c % RT, seed_T, k0_T, z, m0, r0, M, R);
     }
+  }
+
+  // Column j at m index mj and ring index rj of the block's tile; mj
+  // indexes the rows' a_lm, b_lm in pair.
+  __device__ __forceinline__ void init_col(int j, int mj, int rj,
+                                           const double* __restrict__ seed_T,
+                                           const double* __restrict__ k0_T,
+                                           const double* __restrict__ z,
+                                           int m0, int r0, int M, int R) {
+    mm[j] = mj;
+    rl[j] = rj;
+    m[j] = m0 + mj;
+    const int r = r0 + rj;
+    zr[j] = 0;
+    seed[j] = 0;
+    k0[j] = 1;  // a column past R or M never emits
+    if (r < R && m[j] < M) {
+      zr[j] = z[r];
+      seed[j] = seed_T[(size_t)m[j] * R + r];
+      k0[j] = (int)k0_T[(size_t)m[j] * R + r];
+    }
+    lp[j] = lpp[j] = 0;
+    k[j] = 0;
   }
 
   // Rows l (even) and l + 1 of every column: out0/out1 are the emitted
@@ -71,8 +82,11 @@ template <typename T, int CPT> struct Recurrence {
   // kSeed: a column's seed row ℓ = m may lie in this pair.  A block's m
   // values all lie in its first step, so only that step's pairs need the
   // check; the others skip its compare and selects (the loop is bound by
-  // its instruction issue).
-  template <bool kSeed>
+  // its instruction issue).  kScaled = false: the caller knows that no
+  // column has k > 0 (k only falls after the seed rows), so every row is
+  // emitted and none is rescaled; the compare, selects and rescale go, and
+  // the bits stay the same.
+  template <bool kSeed, bool kScaled = true>
   __device__ __forceinline__ void pair(int l, const double* ra,
                                        const double* rb, int rs,
                                        T (&out0)[CPT], T (&out1)[CPT]) {
@@ -84,7 +98,7 @@ template <typename T, int CPT> struct Recurrence {
         lam = seed[j];
         k[j] = k0[j];
       }
-      out0[j] = (k[j] == 0) ? T(lam) : T(0);
+      out0[j] = (!kScaled || k[j] == 0) ? T(lam) : T(0);
       lpp[j] = lp[j];
       lp[j] = lam;
       // odd row ℓ = l + 1
@@ -93,11 +107,11 @@ template <typename T, int CPT> struct Recurrence {
         lam = seed[j];
         k[j] = k0[j];
       }
-      out1[j] = (k[j] == 0) ? T(lam) : T(0);
+      out1[j] = (!kScaled || k[j] == 0) ? T(lam) : T(0);
       lpp[j] = lp[j];
       lp[j] = lam;
       // rescale once per row pair
-      if (fabs(lp[j]) > kScanThresh && k[j] > 0) {
+      if (kScaled && fabs(lp[j]) > kScanThresh && k[j] > 0) {
         lp[j] *= kScanDown;
         lpp[j] *= kScanDown;
         k[j] -= 1;

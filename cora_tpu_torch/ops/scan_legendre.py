@@ -24,9 +24,12 @@ the flagship call (nside=512, L=1536, 32 planes) 82 GFLOP, 1.23 ms at the
 f32 rate of 67 TFLOP/s; in f64 (L=1537, 64 planes) 2.31 ms of tensor-core
 products.  A K1 block holds all planes, so the recurrence runs once per
 (ℓ, ring, m) in f32 (twice in f64, a block per ℓ parity); λ passes through
-shared memory while the planes stream in by cp.async.  K2 turns the
-product round: rings are its inner dimension, a block holds 2 m × 128 rings
-with its sources in shared memory, and the blocks of one m group (a
+shared memory while the planes stream in by cp.async.  Above 8 float32
+planes the block is warp-specialised: producer warps carry the recurrence
+and copy the planes into a ring of stages, consumer warps only contract,
+the two meeting at mbarriers.  K2 turns the product round: rings are its
+inner dimension, a block holds 2 m × 128 rings with its sources in shared
+memory, and the blocks of one m group (a
 thread-block cluster) add their partial sums in rank order through
 distributed shared memory — no atomics, the same bits from run to run; at
 F2 ≤ 8 one block per m keeps the carry and the sources in registers
@@ -42,7 +45,8 @@ even when re-seeded every 1024 ℓ).  The float32 kernels round each emitted
 λ once to float32 for their products.  The planes' dtype picks the entry
 point; ``_build.launches`` counts the launches per C entry point
 (``cora_scan_contract``, ``cora_scan_contract_f64``, ``cora_scan_project``,
-``cora_scan_project_f64``).
+``cora_scan_project_f64``), and ``cora_scan_contract.ws`` those of
+``cora_scan_contract`` that take the warp-specialised tile.
 """
 
 from __future__ import annotations
@@ -60,6 +64,9 @@ from . import _build
 SCALE = (512.0, 256.0)
 
 _PLAIN_L_BLOCK = 64  # ℓ rows per einsum in the plain versions
+# K1's float32 planes above this many take the warp-specialised tile
+# (csrc/scan_legendre.cu), counted as ``cora_scan_contract.ws``
+_F32_SMALL_TILE = 8
 _DTYPES = (torch.float32, torch.float64)
 # both kernels' entry points: (5 table pointers, in0, in1, out0, out1, L, M,
 # R, F2, fs), fs the planes' vector stride (:func:`kernel_planes`)
@@ -125,9 +132,12 @@ def scan_contract(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1):
     F2 = alm0.shape[0]
     # the largest grid of either precision: 32-ring tiles, 4 m values a
     # block, a plane tile of 8 and two ℓ parities (csrc/scan_legendre.cu)
-    return _launch("scan_contract", "scan_legendre", tabs, alm0, alm1,
-                   (F2, L // 2, M), (F2, z.shape[0], M),
-                   (-(-z.shape[0] // 32), -(-M // 4), 2 * -(-F2 // 8)))
+    out = _launch("scan_contract", "scan_legendre", tabs, alm0, alm1,
+                  (F2, L // 2, M), (F2, z.shape[0], M),
+                  (-(-z.shape[0] // 32), -(-M // 4), 2 * -(-F2 // 8)))
+    if alm0.dtype == torch.float32 and F2 > _F32_SMALL_TILE:
+        _build.launches["cora_scan_contract.ws"] += 1
+    return out
 
 
 def scan_project(rec_a, rec_b, seed_T, k0_T, z, src0, src1):

@@ -121,7 +121,7 @@ def _sum4(g):
 
 
 def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1, warps=4,
-                    ft=32, lb=32, dmma=False):
+                    ft=32, lb=32, dmma=False, stages=1):
     """numpy replay of csrc/scan_legendre.cu's block loop: the recurrence
     carried in float64 from the float64 tables (scaled with S=512, β=256),
     each emitted row rounded to the dtype of the planes, the products in
@@ -129,7 +129,12 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1, warps=4,
     ``lb`` rows from the step holding the block's first m.  f32 sums each
     parity in a fresh partial per step, added at the step's end; with
     ``dmma`` (f64, the tensor cores' m8n8k4) each group of 4 rows of one
-    parity is summed pairwise and added to the running total."""
+    parity is summed pairwise and added to the running total.
+
+    ``stages``: the λ rows pass through a ring of that many stages, as
+    in the warp-specialised f32 kernel: the producer writes step s into
+    stage s % stages as soon as that stage is free, up to ``stages`` steps
+    ahead of the step being contracted, which reads it from there."""
     f32 = alm0.dtype.type
     S, beta = k1.SCALE
     L, M = rec_a.shape
@@ -141,37 +146,52 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1, warps=4,
         ms = np.arange(m0, min(m0 + warps, M))
         for f0 in range(0, F2, ft):
             fs = np.arange(f0, min(f0 + ft, F2))
-            lp = np.zeros((ms.size, R))
-            lpp = np.zeros_like(lp)
-            k = np.zeros_like(lp)
+            carry = dict(lp=np.zeros((ms.size, R)), lpp=np.zeros((ms.size, R)),
+                         k=np.zeros((ms.size, R)))
             seed, k0 = seed_T[ms], k0_T[ms]
-            acc = [np.zeros((fs.size, ms.size, R), f32) for _ in range(2)]
-            lstart = (m0 // lb) * lb
-            for lb0 in range(lstart, L, lb):
-                part = [np.zeros_like(acc[0]) for _ in range(2)]
-                group = [[], []]
+
+            def produce(lb0):
+                """The emitted λ rows (row, parity, values) of the step at lb0."""
+                lp, lpp, k = carry["lp"], carry["lpp"], carry["k"]
+                rows = []
                 for p in range(min(lb // 2, (L - lb0) // 2)):
                     l = lb0 + 2 * p
-                    for row, par, alm in ((l, 0, alm0), (l + 1, 1, alm1)):
+                    for row, par in ((l, 0), (l + 1, 1)):
                         lam = (rec_a[row, ms][:, None] * (z[None, :] * lp)
                                + rec_b[row, ms][:, None] * lpp)
                         at = (ms == row)[:, None]
                         lam = np.where(at, seed, lam)
                         k = np.where(at, k0, k)
-                        out = np.where(k == 0, lam, 0.0).astype(f32)
+                        rows.append((row, par, np.where(k == 0, lam, 0.0).astype(f32)))
                         lpp, lp = lp, lam
-                        a = alm[fs][:, row // 2][:, ms]
-                        if dmma:
-                            group[par].append(a[:, :, None] * out[None])
-                            if len(group[par]) == 4:
-                                acc[par] += _sum4(group[par])
-                                group[par] = []
-                        else:
-                            part[par] += a[:, :, None] * out[None]
                     grow = (np.abs(lp) > 2.0**beta) & (k > 0)
                     lp = np.where(grow, lp * 2.0**-S, lp)
                     lpp = np.where(grow, lpp * 2.0**-S, lpp)
                     k = np.where(grow, k - 1, k)
+                carry.update(lp=lp, lpp=lpp, k=k)
+                return rows
+
+            acc = [np.zeros((fs.size, ms.size, R), f32) for _ in range(2)]
+            steps = list(range((m0 // lb) * lb, L, lb))
+            ring = [None] * stages
+            made = 0
+            for s, lb0 in enumerate(steps):
+                while made < len(steps) and made < s + stages:
+                    assert ring[made % stages] is None  # its stage is free
+                    ring[made % stages] = produce(steps[made])
+                    made += 1
+                rows, ring[s % stages] = ring[s % stages], None
+                part = [np.zeros_like(acc[0]) for _ in range(2)]
+                group = [[], []]
+                for row, par, out in rows:
+                    a = (alm1 if par else alm0)[fs][:, row // 2][:, ms]
+                    if dmma:
+                        group[par].append(a[:, :, None] * out[None])
+                        if len(group[par]) == 4:
+                            acc[par] += _sum4(group[par])
+                            group[par] = []
+                    else:
+                        part[par] += a[:, :, None] * out[None]
                 for par in (0, 1):
                     if group[par]:  # a short last step: rows past L are zero
                         acc[par] += _sum4(group[par])
@@ -185,8 +205,11 @@ def _emulate_kernel(rec_a, rec_b, seed_T, k0_T, z, alm0, alm1, warps=4,
     (8, 23, 6, 2, 6),     # l_chunk 6: padded rows end inside a 32-row step
     (16, 47, 8, 2, 18),   # two F tiles, ragged second one
     (8, 23, 4, 1, 4),
-])
+    (32, 191, 16, 1, 20),  # 6 steps through the 3-stage ring; m0 = 36, 44, …
+])                         # start inside a step
 def test_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2):
+    """The f32 kernel's block loop, its λ rows through the warp-specialised
+    kernel's ring of 3 stages, against the plain version."""
     op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke,
                   device="cpu")
     t = op.tables(False)
@@ -200,7 +223,7 @@ def test_kernel_block_structure_matches_plain(nside, lmax, lc, ke, F2):
     args = tsht._kernel_tables(t)
     he_p, ho_p = k1.scan_contract_plain(*args, A0, A1)
     he_e, ho_e = _emulate_kernel(*[a.numpy() for a in args], A0.numpy(),
-                                 A1.numpy())
+                                 A1.numpy(), stages=3)
     sc = float(he_p.abs().max())
     assert np.abs(he_e - he_p.numpy()).max() <= 2e-6 * sc
     assert np.abs(ho_e - ho_p.numpy()).max() <= 2e-6 * sc
@@ -732,15 +755,41 @@ def test_f32_kernel_plane_tiles_on_card(cuda_device, nside, lmax, lc, ke, F2):
     """K1 in float32 against its plain version at every plane tile (F2 = 2,
     6, 20, 32, 64): padded rows ending inside a 32-row step (l_chunk 6),
     and odd L with R = 32, M = 41 off the block tiles; ≤ 1e-4·max, the
-    bound of the kernel's other checks."""
+    bound of the kernel's other checks.  F2 > 8 takes the warp-specialised
+    tile, counted as ``cora_scan_contract.ws``; F2 ≤ 8 does not."""
     op = tsht.SHT(nside, lmax, l_chunk=lc, ckpt_every=ke, device="cpu")
     args, A, _ = _planes_for(op, op.tables(False), F2, 9 + F2, False)
     ref = k1.scan_contract_plain(*args, *A)
     before = _build.launches["cora_scan_contract"]
+    ws_before = _build.launches["cora_scan_contract.ws"]
     got = k1.scan_contract(*[a.to(cuda_device) for a in args],
                            *[a.to(cuda_device) for a in A])
     torch.cuda.synchronize()
     assert _build.launches["cora_scan_contract"] == before + 1
+    assert _build.launches["cora_scan_contract.ws"] == ws_before + (F2 > 8)
     sc = max(float(x.abs().max()) for x in ref)
     for g, r in zip(got, ref):
         assert float((g.cpu() - r).abs().max()) <= 1e-4 * sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F2", [20, 32])
+def test_f32_ws_kernel_same_bits_twice_on_card(cuda_device, F2):
+    """The warp-specialised f32 tile launched twice on the same inputs gives
+    the same bits (fixed-order sums, no atomics), at a shape whose blocks
+    run 6 steps through the 3-stage ring (L = 192) and start inside a step
+    (M = 192: m0 = 36, 44, …), R = 64 on one ring tile."""
+    op = tsht.SHT(32, 191, l_chunk=16, device="cpu")
+    args, A, _ = _planes_for(op, op.tables(False), F2, 11 + F2, False)
+    args = [a.to(cuda_device) for a in args]
+    A = [a.to(cuda_device) for a in A]
+    ws_before = _build.launches["cora_scan_contract.ws"]
+    got = k1.scan_contract(*args, *A)
+    again = k1.scan_contract(*args, *A)
+    torch.cuda.synchronize()
+    assert _build.launches["cora_scan_contract.ws"] == ws_before + 2
+    ref = k1.scan_contract_plain(*args, *A)
+    sc = max(float(x.abs().max()) for x in ref)
+    for g, g2, r in zip(got, again, ref):
+        assert torch.equal(g, g2)
+        assert float((g - r).abs().max()) <= 1e-4 * sc
