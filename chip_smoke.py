@@ -11,9 +11,10 @@ no stage synchronises, and stages nest (``lambda_build`` holds
 
 1. device   — CUDA must be available; prints the card's name and power limit
               (nvidia-smi) and pins true f32 (TF32 off).
-2. build    — builds the six CUDA sources (with the shared headers
+2. build    — builds the eight CUDA sources (with the shared headers
               csrc/*.cuh: tile building blocks, the scan recurrence of K1
-              and K2, the adjoint loops of K2 and K3) with nvcc (one process
+              and K2, the adjoint loops of K2 and K3, the cached Λ's chunk
+              descriptor of K4 and K7) with nvcc (one process
               per source, started together), prints the build time and
               ptxas's register and shared-memory report.
 3. kernels  — K1 scan_contract and K2 scan_project (scan-mode operators)
@@ -41,12 +42,20 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               Λ: f32 against its plain version (≤ 1e-5·max; error against
               an f64 plain run ≤ 1.5× the plain f32 version's) at nside=128
               (L=384, 385) and at the flagship call; f64 (≤ 1e-12·max) at the
-              F64_SHAPES; the adjoint identity with the per-chunk bmm
-              projection at the flagship; the per-chunk torch.bmm timed as
+              F64_SHAPES; the adjoint identity with K7 (the cached
+              projection) at the flagship; the per-chunk torch.bmm timed as
               the yardstick (library_ms); K4 at F2=2 held to its plain
               version as at F2=32, and timed; cached mode at nside=1 (R=2
               rings, padded to a whole vector) through K4 against the plain
-              version (≤ 1e-5·max), scalar and spin.  Every kernel
+              version (≤ 1e-5·max), scalar and spin.  K7
+              (legendre_project, the cached projection) at the flagship
+              calls (f32 L=1536, F2=32; f64 L=1537, F2=64) on the same Λ:
+              the complex a_lm in ℓ order against its plain version (the
+              per-chunk bmm path; f32 ≤ 1e-5·max, f64 ≤ 1e-12·max), the
+              same bits twice, timed beside its bound and the plain
+              version's time (library_ms); and at its small plane tiles
+              on random Λ at nside=512 (the spin layout at F2=4, f64 at
+              F2=8) against the plain version, both timed.  Every kernel
               of phase 3 has CUDA-event times, its bound (bytes or
               operations) and its share of that bound printed; K4 its
               GB/s and TFLOP/s, K1 and K2 their TFLOP/s.
@@ -83,8 +92,8 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               (kernels) and on cpu (plain versions; in cached mode a
               device-built Λ on both): mkfullsky at nside=64, nz=8 with the
               same roots and white noise (K1 or K4 launched), then map2alm
-              (iter=3) of the same f32 maps (K2 or K4) and of their f64 copy
-              (f64 K2 or K4): RMS ratios ≤ 1e-5, f64 ≤ 1e-10.
+              (iter=3) of the same f32 maps (K2 or K7) and of their f64 copy
+              (f64 K2 or K7): RMS ratios ≤ 1e-5, f64 ≤ 1e-10.
               alm2map_spin and map2alm_spin (iter=3) in scan (K3) and cached
               (K4) mode, and alm2map_der1 (each device's default mode), on
               the same alms/maps, cuda against cpu: RMS ratios ≤ 1e-5.
@@ -107,7 +116,8 @@ no stage synchronises, and stages nest (``lambda_build`` holds
 6. main, analysis — anafast (iter=3 Jacobi, lmax=1535) over that whole
               cube in 16-channel slices through the default (cached)
               operator, counters reset just before: K4 launches > 0 (the
-              Jacobi syntheses), no K1/K2; each channel's Ĉ_ℓ against its
+              Jacobi syntheses), K7 1 + iter launches a call (the
+              projections), no K1/K2; each channel's Ĉ_ℓ against its
               C_ℓ(ν,ν) in bins of 64 over ℓ ∈ [2, 767], max |r − 1|/σ ≤ 5;
               stage times and peak device memory.
 5b. scan tables — run after phase 6 (which reuses phase 5's operator),
@@ -146,8 +156,9 @@ no stage synchronises, and stages nest (``lambda_build`` holds
               cached Λ in float64) and K3 synthesis entry points and none of
               the f32 ones; time and peak device memory.
 11. polarised analysis — sphtrans_sky (float64) of 4 channels of that
-              cube, counters reset just before: the f64 K4, K3, K3
-              adjoint and ring kernels launched and no f32 kernel; each
+              cube, counters reset just before: the f64 K4, K7 (the T
+              projection), K3, K3 adjoint and ring kernels launched and no
+              f32 kernel; each
               channel's EE and BB within 5σ of its model C_ℓ in bins of
               64 over ℓ ∈ [64, 1023];
               then the T analysis in scan mode (the f64 K1 and K2 only),
@@ -355,11 +366,14 @@ def device_phase():
 
 
 KERNELS = ("scan_legendre", "scan_project", "wigner_apply", "legendre_contract",
-           "jacobi_eigh", "correlated_draw", "ring_synth")
+           "legendre_project", "jacobi_eigh", "correlated_draw", "ring_synth")
 K3_SRC = "cora_tpu_torch/csrc/wigner_apply.cu"
 K3_REPLACES = "cora_tpu/ops/pallas_scan_legendre.py:615"
 K4_SRC = "cora_tpu_torch/csrc/legendre_contract.cu"
 K4_REPLACES = "cora_tpu/ops/pallas_legendre.py:81"
+K7_SRC = "cora_tpu_torch/csrc/legendre_project.cu"
+K7_REPLACES = ("none: the JAX package's cached projection is an XLA einsum "
+               "(cora_tpu/healpix/sht.py _legendre_project_cached)")
 K5_SRC = "cora_tpu_torch/csrc/jacobi_eigh.cu"
 K5_REPLACES = ("none: the JAX package's roots are XLA's eigh (cora_tpu/util/linalg.py "
                "batch_matrix_root, from cora_tpu/signal/clfast.py _roots_from_cla_jit)")
@@ -884,6 +898,108 @@ def _k4_stored_bytes(lam, A, R):
     return _nbytes(lam, A) + 2 * A.shape[0] * R * A.shape[2] * A.element_size()
 
 
+# K7 at the flagship calls: f32 L = 1536, F2 = 32; f64 L = 1537, F2 = 64
+K7_SHAPES = {False: [(512, 1535, 32)], True: [(512, 1536, 64)]}
+
+
+def _k7_check(reports, op, lam, desc, S, dtype):
+    """K7 (legendre_project in the scalar layout, complex a_lm in ℓ order)
+    on the operator's device-built Λ and the sources ``S``: against its
+    plain version (the per-chunk bmm path, f32 ≤ 1e-5·max, f64 ≤
+    1e-12·max), the same bits twice, one launch a call; CUDA-event times
+    beside its bound (``metrics.projection_roofline.work``) and the plain
+    version's (library_ms)."""
+    import torch
+
+    from cora_tpu_torch.ops import _build
+    from cora_tpu_torch.ops import legendre as k4
+
+    f64 = dtype == torch.float64
+    L = op.lmax + 1
+    S = [_as_built(x) for x in S]  # planes-minor, as project_GeGo builds them
+    F2 = S[0].shape[0]
+    name = "legendre_project" + ("_f64" if f64 else "")
+    entry = "cora_" + name if f64 else "cora_legendre_project_f32"
+    run_k = lambda: k4.legendre_project(lam, desc, *S, LA=L, odd0=op.odd0)
+    run_p = lambda: k4.legendre_project_plain(lam, desc, *S, LA=L, odd0=op.odd0)
+    before = _build.launches[entry]
+    got, again = run_k(), run_k()
+    torch.cuda.synchronize()
+    check(_build.launches[entry] == before + 2, f"{name}: one launch a call")
+    check(torch.equal(got, again), f"{name} L={L} F2={F2}: the same bits twice")
+    ref = run_p()
+    torch.cuda.synchronize()
+    tol = 1e-12 if f64 else 1e-5
+    err = float((got - ref).abs().max())
+    print(f"   {name} L={L} F2={F2}: max|K7 - plain| = {err:.6g} "
+          f"({err / float(ref.abs().max()):.3e} rel)")
+    check(err <= tol * float(ref.abs().max()), f"{name} L={L}: K7 vs plain ≤ {tol:g}·max")
+    del got, again, ref
+    ms = _cuda_time_ms(run_k, 7)
+    plain_ms = _cuda_time_ms(run_p, 3)
+    flops, nbytes = _bench("metrics.projection_roofline").work(L, op.nhalf, F2,
+                                                              S[0].element_size())
+    print(f"   {name} nside={op.nside} L={L} F2={F2}: kernel {ms:.3f} ms, plain "
+          f"(per-chunk bmm path) {plain_ms:.3f} ms (CUDA events, median); "
+          f"{nbytes / 1e9:.3f} GB needed (m ≤ ℓ): {nbytes / ms / 1e6:.0f} GB/s")
+    reports[name] = _with_bound(dict(
+        name=name, route="cuda", source=K7_SRC, replaces=K7_REPLACES,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms), flops, nbytes,
+        S[0].element_size(), plain_ms)
+
+
+# K7's small plane tiles at the flagship nside: (layout, dtype, F2) — the
+# cached spin analysis of one Q/U pair (f32, F2 = 4: the 8-plane tile) and a
+# float64 analysis of 4 maps (F2 = 8, as sphtrans_sky's T analysis of 4
+# channels)
+K7_SMALL = (("spin", "float32", 4), ("scalar", "float64", 8))
+
+
+def _k7_small_check(dev, reports, cases=K7_SMALL):
+    """K7 at small plane counts on random Λ at nside=512: the spin layout
+    (SpinSHT(512, 1535, 2): one source, consecutive ℓ, planes out) and the
+    scalar one (SHT(512, 1536): complex a_lm in ℓ order); against its plain
+    version (f32 ≤ 1e-5·max, f64 ≤ 1e-12·max), CUDA-event times beside the
+    plain version's, kept under ``small`` in the report of the flagship's
+    entry."""
+    import torch
+
+    from cora_tpu_torch.healpix import sht, spin
+    from cora_tpu_torch.ops import legendre as k4
+
+    for layout, dtname, F2 in cases:
+        dtype = getattr(torch, dtname)
+        f64 = dtype == torch.float64
+        if layout == "spin":
+            op = spin.SpinSHT(512, 1535, 2, device=dev, legendre_mode="cached")
+            R, nsrc, odd0 = 2 * op.nside, 1, None
+        else:
+            op = sht.SHT(512, 1535 + f64, device=dev, legendre_mode="cached")
+            R, nsrc, odd0 = op.nhalf, 2, op.odd0
+        L = op.lmax + 1
+        desc, total = op.lambda_desc()
+        g = torch.Generator(device=dev).manual_seed(F2)
+        lam = torch.randn(total, generator=g, device=dev, dtype=dtype)
+        S = [_planes_minor_randn((F2, R, L), F2 + i, dtype, dev) for i in range(nsrc)]
+        run_k = lambda: k4.legendre_project(lam, desc, *S, LA=L, odd0=odd0)
+        run_p = lambda: k4.legendre_project_plain(lam, desc, *S, LA=L, odd0=odd0)
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        tol = 1e-12 if f64 else 1e-5
+        check(err <= tol, f"K7 {layout} {dtname} F2={F2}: K7 vs plain ≤ {tol:g}·max")
+        del got, ref
+        ms, plain_ms = _cuda_time_ms(run_k, 7), _cuda_time_ms(run_p, 3)
+        print(f"   legendre_project {layout} {dtname} L={L} R={R} F2={F2}: kernel "
+              f"{ms:.3f} ms, plain (per-chunk bmm path) {plain_ms:.3f} ms (CUDA "
+              f"events, median); {err:.2e}·max off the plain version")
+        name = "legendre_project" + ("_f64" if f64 else "")
+        reports[name].setdefault("small", []).append(dict(
+            layout=layout, F2=F2, L=L, ms=ms, plain_ms=plain_ms, max_rel_err=err))
+        del lam, S
+        torch.cuda.empty_cache()
+
+
 # K4 shapes (nside, lmax, F2): float32 at nside=128 with even and odd L and
 # at the flagship call; float64 at the F64_SHAPES
 F32_K4_SHAPES = [(128, 383, 32), (128, 384, 32), (512, 1535, 32)]
@@ -893,8 +1009,9 @@ def legendre_phase(dev, reports):
     """K4 on device-built Λ chunks against its plain version: float32 at the
     F32_K4_SHAPES (≤ 1e-5·max; error against an f64 plain run ≤ 1.5× the
     f32 plain version's), float64 at the F64_SHAPES (≤ 1e-12·max); the
-    adjoint identity with the bmm projection at the flagship; CUDA-event
-    times for the kernel, its plain version and the per-chunk bmm."""
+    adjoint identity with K7 at the flagship; CUDA-event times for the
+    kernel, its plain version and the per-chunk bmm.  K7 at the flagship
+    calls (:func:`_k7_check`)."""
     import torch
 
     from cora_tpu_torch.healpix import sht
@@ -952,6 +1069,8 @@ def legendre_phase(dev, reports):
                 name=name, route="cuda", source=K4_SRC, replaces=K4_REPLACES,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms), flops, nbytes,
                 A.element_size(), lib_ms)
+            if (nside, lmax, F2) in K7_SHAPES[f64]:
+                _k7_check(reports, op, lam, desc, S, dtype)
             if (nside, lmax, F2) == F32_K4_SHAPES[-1] and not f64:
                 H0, H1 = run_k()
                 P = k4.legendre_project(lam, desc, *S, LA=lmax + 1)
@@ -960,13 +1079,14 @@ def legendre_phase(dev, reports):
                 lhs, rhs = dot((H0, H1), S), dot((A,), (P,))
                 gap = abs(lhs - rhs) / np.sqrt(dot((H0, H1), (H0, H1)) * dot(S, S))
                 print(f"   K4 adjoint at nside={nside}: <K4(a),S>={lhs:.9e} "
-                      f"<a,P(S)>={rhs:.9e} gap/(|K4 a||S|)={gap:.3e}")
-                check(gap <= 1e-7, "adjoint identity K4 / per-chunk bmm ≤ 1e-7")
+                      f"<a,K7(S)>={rhs:.9e} gap/(|K4 a||S|)={gap:.3e}")
+                check(gap <= 1e-7, "adjoint identity K4 / K7 ≤ 1e-7")
                 del H0, H1, P
             del lam, A, S
             op._tables.clear()
             torch.cuda.empty_cache()
     sht._get_sht_cached.cache_clear()
+    _k7_small_check(dev, reports)
     _nside1_check(dev)
 
 
@@ -1361,10 +1481,10 @@ def parity_phase(dev):
     rms = lambda x: float(np.sqrt(np.mean(np.abs(x.astype(np.complex128)) ** 2)))
     # per mode: the kernels its cuda run must launch (synthesis, analysis,
     # f64 analysis); the Λ is device-built on both devices, so the cached
-    # runs differ only by K4 against its plain version
+    # runs differ only by K4 and K7 against their plain versions
     kernels = {"scan": ("scan_contract", "scan_project", "scan_project_f64"),
-               "cached": ("legendre_contract", "legendre_contract",
-                          "legendre_contract_f64")}
+               "cached": ("legendre_contract", "legendre_project",
+                          "legendre_project_f64")}
     for mode, (k_syn, k_ana, k_ana64) in kernels.items():
         ops = {d: sht.get_sht(nside, L - 1, legendre_mode=mode,
                               lambda_build="device", device=d) for d in (dev, "cpu")}
@@ -1457,6 +1577,7 @@ def _reset_counts():
 
 # the report names of the C entry points whose names are not "cora_" + name
 _ENTRIES = {"legendre_contract": "cora_legendre_contract_f32",
+            "legendre_project": "cora_legendre_project_f32",
             "jacobi_eigh": "cora_jacobi_eigh_f64",
             "correlated_draw": "cora_correlated_draw_f32",
             "ring_pack": "cora_ring_pack_f32",
@@ -1468,6 +1589,7 @@ _RING_F64 = ("ring_pack_f64", "ring_bluestein_mul_f64", "ring_unpack_f64")
 _REPORT_NAMES = ("scan_contract", "scan_contract_f64", "scan_project", "scan_project_f64",
                  "wigner_contract", "wigner_contract_f64", "wigner_project",
                  "wigner_project_f64", "legendre_contract", "legendre_contract_f64",
+                 "legendre_project", "legendre_project_f64",
                  "jacobi_eigh", "correlated_draw", "correlated_draw_f64")
 
 
@@ -1700,8 +1822,9 @@ def scan_tables_phase(dev, nsides=(128, 512)):
 
 def analysis_phase(dev, reports, sky, cl_diag):
     """anafast over the whole cube, 16 channels a call, through the default
-    (cached) operator: projection by per-chunk bmm, the Jacobi syntheses
-    through K4; against each channel's C_ℓ(ν,ν) in bins of 64."""
+    (cached) operator: projection by K7 (1 + iter launches a call), the
+    Jacobi syntheses through K4; against each channel's C_ℓ(ν,ν) in bins
+    of 64."""
     import torch
 
     from cora_tpu_torch.healpix import sht
@@ -1728,10 +1851,14 @@ def analysis_phase(dev, reports, sky, cl_diag):
         print(f"   stage {key:13s} {st.get(key, 0.0):9.3f} s device span")
     print(f"   total anafast   {total:9.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB; legendre_contract launches "
-          f"{n['legendre_contract']}, scan launches {n['scan_contract']} / "
+          f"{n['legendre_contract']}, legendre_project launches "
+          f"{n['legendre_project']}, scan launches {n['scan_contract']} / "
           f"{n['scan_project']}")
     check(n["legendre_contract"] > 0 and n["scan_contract"] == n["scan_project"] == 0,
           "anafast's Jacobi syntheses launched K4 and no scan kernel")
+    check(n["legendre_project"] == 4 * len(cls),
+          "anafast's projections launched K7 1 + iter times a call")
+    reports["legendre_project"]["launches"] = n["legendre_project"]
     cl = torch.cat(cls).double().cpu().numpy().T  # [L, nfreq]
     check(cl.shape == cl_diag.shape and np.isfinite(cl).all(),
           f"C_ℓ [{lmax + 1}, {nfreq}] finite")
@@ -2130,13 +2257,14 @@ def pol_analysis_phase(dev, reports, data, freqs, chans=(0, 21, 42, 63)):
     check(alms.dtype == torch.complex128 and bool(torch.isfinite(alms).all()),
           "alms complex128, finite")
     for name, n in launches.items():
-        if name in ("legendre_contract_f64", "wigner_contract_f64",
+        if name in ("legendre_contract_f64", "legendre_project_f64", "wigner_contract_f64",
                     "wigner_project_f64", "ring_pack_f64", "ring_bluestein_mul_f64",
                     "ring_unpack_f64"):
             check(n > 0, f"the float64 path launched {name}")
         else:
             check(n == 0, f"the float64 path launched no {name}")
     reports["wigner_project_f64"]["launches"] = launches["wigner_project_f64"]
+    reports["legendre_project_f64"]["launches"] = launches["legendre_project_f64"]
 
     # the T analysis again in scan mode: the f64 K1 and K2
     _clear_operators()
@@ -3024,7 +3152,8 @@ def lss_phase(dev, nside=256, nfreq=256, per_decade=1000):
           "the chain launched legendre_contract_f64 (K4: the draw's synthesis, the "
           "gradient's analysis) and wigner_contract_f64 (K3: the spin-1 gradient)")
     check(all(n[k] == 0 for k in ("scan_contract", "scan_project", "wigner_contract",
-                                  "wigner_project", "legendre_contract")),
+                                  "wigner_project", "legendre_contract",
+                                  "legendre_project")),
           "the chain launched no float32 kernel")
 
     # The initial δ's mean square per channel against Σ(2ℓ+1)C_ℓ/4π of the

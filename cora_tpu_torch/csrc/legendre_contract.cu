@@ -85,12 +85,13 @@
 #include <cstdint>
 
 #include "hopper_tiles.cuh"
+#include "legendre_chunks.cuh"
 
 namespace {
 
+using cora::Chunk;
 using cora::kThreads;
-
-constexpr int kDesc = 5;  // descriptor entries per chunk
+using cora::next_chunk;
 
 // Block tile per (real type, planes a block FP): MT m values × RT rings × FP
 // planes; LB Λ rows a stage, NS stages.  f32: PG × (32/PG) lanes of TP × TR
@@ -127,26 +128,6 @@ template <typename T, int FP> struct Layout {
   static constexpr int EPI = FP * C::RT * C::MT;
   static constexpr size_t BYTES = sizeof(T) * (STAGES > EPI ? STAGES : EPI);
 };
-
-// A chunk's descriptor entries, kept in registers by a cursor (c = nchunk:
-// past the last chunk).
-struct Chunk {
-  int c;
-  long long off;
-  int nrows, mw, row0;
-};
-
-// The first chunk at or after c that targets `tgt` and reaches past m0.
-__device__ __forceinline__ Chunk next_chunk(const long long* __restrict__ desc,
-                                            int nchunk, int c, int tgt,
-                                            int m0) {
-  for (; c < nchunk; ++c) {
-    const long long* d = desc + (size_t)c * kDesc;
-    if (d[4] == tgt && d[2] > m0 && d[1] > 0)
-      return Chunk{c, d[0], (int)d[1], (int)d[2], (int)d[3]};
-  }
-  return Chunk{nchunk, 0, 0, 0, 0};
-}
 
 // Start one stage's copies, all 16-byte vectors: Λ rows [i0, i0 + LB) of
 // chunk ch for the block's m group and ring tile, and the matching plane

@@ -11,7 +11,8 @@ rows, each rounded once to the table's precision) or by the host f64
 recurrence (``"host"``, cast to ``cache_dtype``, cached on disk), at the
 first ``tables()``.  Synthesis contracts them with kernel K4
 (:func:`cora_tpu_torch.ops.legendre.legendre_contract`), the adjoint with
-one ``torch.bmm`` per chunk; the correlated draw writes each frequency
+kernel K7 (:func:`cora_tpu_torch.ops.legendre.legendre_project`, the a_lm
+back in ℓ order); the correlated draw writes each frequency
 chunk's parity-packed a_lm planes with kernel K6, one launch per ℓ-chunk
 (:func:`cora_tpu_torch.ops.draw.correlated_draw`), and runs K4 once.
 
@@ -77,8 +78,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.draw import correlated_draw
-from ..ops.legendre import (chunk_desc, chunk_views, flat_lambda, hold,
-                            legendre_contract, legendre_project, release)
+from ..ops.legendre import (chunk_desc, chunk_views, ell_order, flat_lambda,
+                            hold, legendre_contract, legendre_project, release)
 from ..ops.ring_synth import bluestein_mul, ring_pack, ring_unpack
 from ..ops.scan_legendre import (SCALE, _lambda_blocks, planes_minor,
                                  scan_contract, scan_project)
@@ -837,16 +838,6 @@ def _contraction(op, t, A):
     return lambda: scan_contract(*_kernel_tables(t), A[:, :op.odd0], A[:, op.odd0:])
 
 
-def _project(op, t, src0, src1):
-    """The adjoint of :func:`_contraction`: the even-ℓ and odd-ℓ a_lm rows
-    (A0, A1) [F2, ≥ rows of the parity, L] from their sources [F2, nh, L],
-    by one ``torch.bmm`` per Λ chunk (cached mode) or K2 (scan mode)."""
-    if op.legendre_mode == "cached":
-        ap = legendre_project(t["lam"], t["lam_desc"], src0, src1, LA=op.lmax + 1)
-        return ap[:, :op.odd0], ap[:, op.odd0:]
-    return scan_project(*_kernel_tables(t), src0, src1)
-
-
 def fused_planes(op, t, alm):
     """The Legendre stage of a batched alm [*batch, L, L] in the operator's
     mode, in stage ``legendre``: the per-ℓ-parity accumulators (H0, H1)
@@ -883,9 +874,12 @@ def project_GeGo(op, t, Ge, Go):
     ``cora_tpu``'s ``_fused_scan_project`` and ``_legendre_project_cached``.
 
     Even-ℓ rows see Ge on even m and Go on odd m, odd-ℓ rows the
-    complement (:func:`_route`, written planes-minor, as K2 reads them);
-    the batch is flattened into the plane axis with re/im minor, and the
-    even and odd ℓ rows are interleaved back.
+    complement (:func:`_route`, written planes-minor, as K2 and K7 read
+    them); the batch is flattened into the plane axis with re/im minor.
+    Cached mode: one :func:`~cora_tpu_torch.ops.legendre.legendre_project`
+    (K7 on CUDA) returns the complex a_lm with the rows in ℓ order.  Scan
+    mode: K2 returns the even and odd ℓ rows, put in ℓ order by
+    :func:`~cora_tpu_torch.ops.legendre.ell_order`.
     """
     L = op.lmax + 1
     rdt = _real_dtype(t)
@@ -893,11 +887,12 @@ def project_GeGo(op, t, Ge, Go):
     Pe, Po = _planes(Ge, rdt), _planes(Go, rdt)
     src0, src1 = _route(Pe, Po, L, out=[planes_minor(*Pe.shape, rdt, Pe.device)
                                         for _ in range(2)])
-    A0, A1 = _project(op, t, src0, src1)
-    alm = A0.new_empty((A0.shape[0], L, L))
-    alm[:, 0::2] = A0[:, :(L + 1) // 2]
-    alm[:, 1::2] = A1[:, :L // 2]
-    return _join(alm, batch)
+    if op.legendre_mode == "cached":
+        alm = legendre_project(t["lam"], t["lam_desc"], src0, src1, LA=L,
+                               odd0=op.odd0)
+    else:
+        alm = ell_order(*scan_project(*_kernel_tables(t), src0, src1), L)
+    return alm.reshape(batch + (L, L))
 
 
 def _planes(x, dt):

@@ -29,7 +29,8 @@ flat allocation per family, built on the operator's device at the first
 nside=512, lmax=1535; within the budget of
 :func:`cora_tpu_torch.ops.legendre.hold`).  Synthesis contracts them
 with kernel K4 (:func:`cora_tpu_torch.ops.legendre.legendre_contract`, one
-target), the adjoint with one ``torch.bmm`` per chunk.  The f32 rows are
+target), the adjoint with kernel K7
+(:func:`cora_tpu_torch.ops.legendre.legendre_project`).  The f32 rows are
 cast from f64, so no seed below float32's range is lost on the way.
 """
 
@@ -332,13 +333,13 @@ class SpinSHT:
     def _project2(self, t, sp, G_a, G_b):
         """The adjoint of :meth:`_contract2`: alms [B, L, L] (complex) from
         ring spectra [B, nh, L] of both batches, one K3 launch (scan mode)
-        or one ``torch.bmm`` per Λ chunk (cached mode)."""
+        or one K7 launch (cached mode; the per-chunk bmm on the CPU)."""
         B = G_a.shape[0]
         G = torch.cat([G_a, G_b])
         if self.legendre_mode == "cached":
             lam, desc = t["sp"][sp]
-            x = torch.cat([G.real, G.imag]).to(lam.dtype)
-            a = legendre_project(lam, desc, x, LA=self.lmax + 1)
+            a = legendre_project(lam, desc, _real_planes(G, lam.dtype),
+                                 LA=self.lmax + 1)
         else:
             a = wigner_project(*t[sp], _real_planes(G, t[sp][0].dtype))
         A = torch.complex(a[:2 * B], a[2 * B:])

@@ -1,5 +1,5 @@
-"""Legendre contraction from a stored Λ table: the CUDA kernel K4, its plain
-version, and the per-chunk adjoint.
+"""Legendre contraction from a stored Λ table and its adjoint: the CUDA
+kernels K4 and K7 and their plain versions.
 
 K4 replaces the TPU kernel ``legendre_contract_pallas`` of
 ``cora_tpu/ops/pallas_legendre.py`` (H[f, r, m] = Σ_ℓ Λ[ℓ, r, m]·a[f, ℓ, m]
@@ -33,9 +33,14 @@ from planes-minor storage
 transforms build; an R that is not a whole number of vectors (nside=1 in
 float32) is padded with zero rings by the wrapper.
 
-The adjoint, :func:`legendre_project` (alm rows = Σ_r Λ·src), is one
-``torch.bmm`` per chunk, as the reference leaves its adjoint to an einsum
-outside Pallas; TF32 is off (:func:`cora_tpu_torch.device.set_f32_contract`).
+The adjoint, :func:`legendre_project` (a_lm rows = Σ_r Λ·src), launches
+K7 (``csrc/legendre_project.cu``, counted as ``cora_legendre_project_f32``
+and ``_f64``) for CUDA tensors: one launch over every chunk, the sources
+read planes-minor where the transforms build them, every output element
+written once; in the scalar layout it can return the rows in ℓ order as
+complex a_lm (``odd0``).  CPU tensors run :func:`legendre_project_plain`,
+one ``torch.bmm`` per chunk (the reference leaves its adjoint to an einsum
+outside Pallas; TF32 is off, :func:`cora_tpu_torch.device.set_f32_contract`).
 
 The transform operators build their flat Λ with :func:`chunk_desc` and
 :func:`flat_lambda` and register it with :func:`hold`, which keeps the Λ
@@ -45,6 +50,7 @@ tables of all operators on one device within :data:`LAMBDA_BUDGET` bytes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 from collections import OrderedDict
 
@@ -56,6 +62,11 @@ from .scan_legendre import kernel_planes, vector_width
 
 # (lam, desc, nchunk, A, H0, H1, F2, M, R, fs)
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+# (lam, desc, nchunk, ntiles, S0, S1, out, F2, M, R, fs, odd0, o_pair, o_c,
+# o_row, o_m)
+_PROJECT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                     + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4)
+ROW_TILE = 64  # rows a K7 block (csrc/legendre_project.cu kRowTile)
 _DESC_DEV = {}  # device copies of descriptors, keyed by content and device
 
 # Λ tables held by live operators, least recently used first:
@@ -155,15 +166,20 @@ def _check_args(lam, desc, A, H0, H1):
     if H1 is not None and H1.shape != H0.shape:
         raise ValueError("legendre_contract: H1 and H0 differ in shape")
     rows = _desc_rows(desc)
+    _check_chunks("legendre_contract", rows, lam, M, R, LA, H1 is not None, "accumulator")
+    return rows, F2, LA, M, R
+
+
+def _check_chunks(fn, rows, lam, M, R, LA, second, what):
+    """Each chunk within Λ, the m range and (``LA`` not None) the plane
+    rows, and routed to a target that exists (1 only with a ``second``)."""
     for off, nrows, mw, row0, tgt in rows:
         if (off < 0 or nrows < 0 or mw < 0 or mw > M or row0 < 0
-                or row0 + nrows > LA or off + mw * nrows * R > lam.numel()):
-            raise ValueError("legendre_contract: chunk "
-                             f"{(off, nrows, mw, row0, tgt)} exceeds its tensors")
-        if tgt not in (0, 1) or (tgt == 1 and H1 is None):
-            raise ValueError(f"legendre_contract: chunk target {tgt} has no "
-                             "accumulator")
-    return rows, F2, LA, M, R
+                or (LA is not None and row0 + nrows > LA)
+                or off + mw * nrows * R > lam.numel()):
+            raise ValueError(f"{fn}: chunk {(off, nrows, mw, row0, tgt)} exceeds its tensors")
+        if tgt not in (0, 1) or (tgt == 1 and not second):
+            raise ValueError(f"{fn}: chunk target {tgt} has no {what}")
 
 
 def legendre_contract(lam, desc, A, H0, H1=None):
@@ -245,24 +261,157 @@ def legendre_contract_plain(lam, desc, A, H0, H1=None):
     return H0, H1
 
 
-def legendre_project(lam, desc, S0, S1=None, LA=None):
+def _row_ells(row0, nrows, odd0):
+    """ℓ of the plane rows [row0, row0 + nrows): the rows themselves, or with
+    ``odd0`` the scalar layout's (even ℓ from row 0, odd ℓ from row odd0)."""
+    r = np.arange(row0, row0 + nrows)
+    if odd0 is None:
+        return r
+    return np.where(r < odd0, 2 * r, 2 * (r - odd0) + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _project_plan(rows, LA, odd0):
+    """(LA, output rows no chunk covers, K7's row tiles) of one projection's
+    chunk ``rows``; raises where a chunk's rows fall outside the output or
+    two chunks share a row (K7 writes each element once)."""
+    ells = [_row_ells(row0, nrows, odd0) for _, nrows, _, row0, _ in rows]
+    ells = np.concatenate(ells) if ells else np.zeros(0, np.int64)
+    if LA is None:
+        LA = int(ells.max()) + 1 if ells.size else 0
+    if ells.size and (ells.min() < 0 or ells.max() >= LA):
+        raise ValueError(f"legendre_project: chunk rows exceed the output's {LA} rows")
+    seen = np.bincount(ells, minlength=LA)
+    if (seen > 1).any():
+        raise ValueError("legendre_project: chunks overlap in rows "
+                         f"{np.flatnonzero(seen > 1)[:8].tolist()}")
+    ntiles = sum(-(-nrows // ROW_TILE) for _, nrows, _, _, _ in rows)
+    return LA, tuple(np.flatnonzero(seen == 0).tolist()), ntiles
+
+
+def _check_project_args(lam, desc, S0, S1, LA, odd0):
+    """Shapes, dtypes and chunks of one projection (host checks); returns
+    (rows, F2, R, M, LA, uncovered output rows, row tiles)."""
+    dt = S0.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"legendre_project: float32 or float64 sources, got {dt}")
+    for name, x in (("lam", lam), ("S1", S1)):
+        if x is None:
+            continue
+        if x.dtype != dt:
+            raise TypeError(f"legendre_project: {name} must be {dt}, got {x.dtype}")
+        if x.device != S0.device:
+            raise ValueError(f"legendre_project: {name} on {x.device}, "
+                             f"expected {S0.device}")
+    if S0.dim() != 3 or lam.dim() != 1:
+        raise ValueError("legendre_project: S0 must be [F2, R, M], lam flat")
+    F2, R, M = S0.shape
+    if S1 is not None and S1.shape != S0.shape:
+        raise ValueError("legendre_project: S1 and S0 differ in shape")
+    if odd0 is not None and (F2 % 2 or odd0 < 1):
+        raise ValueError("legendre_project: complex a_lm need an even F2 and odd0 ≥ 1")
+    rows = _desc_rows(desc)
+    _check_chunks("legendre_project", rows, lam, M, R, None, S1 is not None, "source")
+    LA, uncovered, ntiles = _project_plan(tuple(rows), LA, odd0)
+    return rows, F2, R, M, LA, uncovered, ntiles
+
+
+def legendre_project(lam, desc, S0, S1=None, LA=None, odd0=None):
     """The adjoint of :func:`legendre_contract`: planes [F2, LA, M] with
 
-        out[f, row0_c + i, m] += Σ_r Λ_c[m, i, r] · S_t(c)[f, r, m]   (m < mw_c)
+        out[f, row0_c + i, m] = Σ_r Λ_c[m, i, r] · S_t(c)[f, r, m]   (m < mw_c)
 
-    from sources ``S0`` (and ``S1``) [F2, R, M], one ``torch.bmm`` per chunk
-    on any device.  ``LA`` defaults to the last row any chunk touches."""
+    and zero elsewhere, from sources ``S0`` (and ``S1``) [F2, R, M].  ``LA``
+    defaults to the last row any chunk touches.  With ``odd0`` (the scalar
+    layout: even ℓ in rows [0, odd0), odd ℓ from row odd0) the rows come
+    back in ℓ order as complex a_lm [F2/2, LA, M], plane 2b the real part of
+    element b and 2b + 1 its imaginary part.  Chunks may not share a row.
+
+    CPU tensors run :func:`legendre_project_plain`; CUDA tensors (float32 or
+    float64; lam contiguous, its chunks 16-byte aligned; the sources read
+    planes-minor, :func:`cora_tpu_torch.ops.scan_legendre.kernel_planes`)
+    launch K7 or raise.  Where R is not a whole number of 16-byte vectors
+    (nside=1 in float32), Λ and the sources are padded with zero rings for
+    the launch.
+    """
+    rows, F2, R, M, LA, uncovered, ntiles = _check_project_args(lam, desc, S0, S1,
+                                                                LA, odd0)
+    if S0.device.type == "cpu":
+        return legendre_project_plain(lam, desc, S0, S1, LA, odd0)
+    dev = S0.device
+    if dev.type != "cuda":
+        raise ValueError(f"legendre_project: unsupported device {dev}")
+    if not lam.is_contiguous():
+        raise ValueError("legendre_project: lam must be contiguous")
+    v = vector_width(lam.dtype)
+    if R % v:  # nside=1 in float32 (R=2): zero rings up to a whole vector
+        Rp = -(-R // v) * v
+        lam_p, rows_p = _pad_rings(lam, rows, R, Rp)
+        Sp = [None if S is None else torch.nn.functional.pad(S, (0, 0, 0, Rp - R))
+              for S in (S0, S1)]
+        return legendre_project(lam_p, torch.tensor(rows_p, dtype=torch.int64),
+                                *Sp, LA=LA, odd0=odd0)
+    if lam.data_ptr() % 16 or any(off % v for off, *_ in rows):
+        raise ValueError("legendre_project: the kernel copies Λ rows as 16-byte "
+                         "vectors; lam and its chunks must be 16-byte aligned")
+    S0, fs = kernel_planes(S0, "legendre_project: S0")
+    if S1 is not None:
+        S1, _ = kernel_planes(S1, "legendre_project: S1")
+    if -(-M // 4) > 65535 or -(-F2 // 8) > 65535 or ntiles >= 2**31:
+        raise ValueError("legendre_project: shape exceeds the kernel's grid")
+    if odd0 is None:
+        res = out = S0.new_empty((F2, LA, M))
+        strides = (2 * LA * M, LA * M, M, 1)  # (f/2, f%2, ℓ, m)
+    else:
+        cdt = torch.complex128 if S0.dtype == torch.float64 else torch.complex64
+        res = torch.empty((F2 // 2, LA, M), dtype=cdt, device=dev)
+        out = torch.view_as_real(res)
+        strides = (2 * LA * M, 1, 2 * M, 2)
+    if uncovered:  # rows no chunk writes
+        res.index_fill_(1, torch.tensor(uncovered, device=dev), 0)
+    if ntiles:
+        d = _device_desc(rows, dev)
+        entry = ("cora_legendre_project_f64" if S0.dtype == torch.float64
+                 else "cora_legendre_project_f32")
+        _build.kernel("legendre_project", entry, _PROJECT_ARGTYPES)(
+            dev, lam.data_ptr(), d.data_ptr(), len(rows), int(ntiles),
+            S0.data_ptr(), None if S1 is None else S1.data_ptr(), out.data_ptr(),
+            int(F2), int(M), int(R), int(fs), int(odd0 or 0), *strides)
+    return res
+
+
+def legendre_project_plain(lam, desc, S0, S1=None, LA=None, odd0=None):
+    """Plain PyTorch version of :func:`legendre_project` (any float dtype,
+    any device): a permute-copy of each source to [M, R, F2], one
+    ``torch.bmm`` per chunk added into zeroed planes; with ``odd0`` the even
+    and odd ℓ rows interleaved and joined to complex."""
     F2, R, M = S0.shape
     rows = _desc_rows(desc)
+    nrow = max((row0 + nrows for _, nrows, _, row0, _ in rows), default=0)
     if LA is None:
-        LA = max(row0 + nrows for _, nrows, _, row0, _ in rows)
+        LA = nrow if odd0 is None else _project_plan(tuple(rows), None, odd0)[0]
+    P = LA if odd0 is None else max(nrow, odd0 + LA // 2)
     src = [None if S is None else S.permute(2, 1, 0).contiguous()  # [M, R, F2]
            for S in (S0, S1)]
-    out = S0.new_zeros((F2, LA, M))
+    out = S0.new_zeros((F2, P, M))
     for (off, nrows, mw, row0, tgt), lam_c in zip(rows, chunk_views(lam, desc, R)):
         x = torch.bmm(lam_c, src[tgt][:mw])  # [mw, nrows, F2]
         out[:, row0:row0 + nrows, :mw] += x.permute(2, 1, 0)
-    return out
+    if odd0 is None:
+        return out
+    return ell_order(out[:, :odd0], out[:, odd0:], LA)
+
+
+def ell_order(A0, A1, L):
+    """Complex a_lm [F2/2, L, M] in ℓ order from the scalar layout's even-ℓ
+    rows ``A0`` (row i is ℓ = 2i) and odd-ℓ rows ``A1`` (ℓ = 2i + 1), real
+    planes [F2, ≥ rows of the parity, M] with re/im minor — the order K7
+    writes with ``odd0``."""
+    alm = A0.new_empty((A0.shape[0], L) + tuple(A0.shape[2:]))
+    alm[:, 0::2] = A0[:, :(L + 1) // 2]
+    alm[:, 1::2] = A1[:, :L // 2]
+    pairs = alm.reshape((-1, 2) + tuple(alm.shape[1:]))
+    return torch.complex(pairs[:, 0], pairs[:, 1])
 
 
 def dense_lambda(lam, desc, R, L, parity_packed=True):

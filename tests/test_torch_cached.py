@@ -7,7 +7,9 @@ the same numpy inputs; the port's contraction is K4's plain version here.
 Tolerances: float32 within 1e-6 relative RMS (only sum orders differ);
 float64 within 1e-12 (the same f32-rounded Λ in float64 on both sides);
 the port's cached mode against its own scan mode within 1e-5 RMS, the f32
-map contract.
+map contract.  Tests marked ``cuda`` move the port's operators to the card
+(kernels K4 and K7) and hold them to the same reference at the same
+tolerances.
 """
 
 import functools
@@ -21,8 +23,10 @@ import torch
 from cora_tpu.healpix import sht as jsht
 from cora_tpu.healpix import spin as jspin
 from cora_tpu_torch import convert
+from cora_tpu_torch.device import resolve_device
 from cora_tpu_torch.healpix import sht as tsht
 from cora_tpu_torch.healpix import spin as tspin
+from cora_tpu_torch.ops import _build
 from cora_tpu_torch.ops import legendre as k4
 
 torch.set_num_threads(1)
@@ -53,9 +57,9 @@ def _jax_op(nside=NSIDE, lmax=LMAX, lc=LC):
                     fft_mode="xla", ring_mode="split", cap_bands=0)
 
 
-def _port_op(double, nside=NSIDE, lmax=LMAX, lc=LC):
+def _port_op(double, nside=NSIDE, lmax=LMAX, lc=LC, device="cpu"):
     """A port cached operator holding the reference's Λ chunks."""
-    top = tsht.SHT(nside, lmax, l_chunk=lc, device="cpu", legendre_mode="cached")
+    top = tsht.SHT(nside, lmax, l_chunk=lc, device=device, legendre_mode="cached")
     chunks = convert.lambda_chunks_from_numpy(
         _jax_op(nside, lmax, lc).tables(False)["lam"], top.lambda_desc()[0],
         top.nhalf)
@@ -171,8 +175,8 @@ def _jax_spin():
                          legendre_mode="cached")
 
 
-def _port_spin(double):
-    top = tspin.SpinSHT(SPIN_NSIDE, SPIN_LMAX, 2, device="cpu",
+def _port_spin(double, device="cpu"):
+    top = tspin.SpinSHT(SPIN_NSIDE, SPIN_LMAX, 2, device=device,
                         legendre_mode="cached", l_chunk=16)
     desc = top.lambda_desc()[0]
     jt = _jax_spin().tables(False)["sp"]
@@ -408,3 +412,86 @@ def test_get_sht_checkpoint_cache_file(setting, tmp_path, monkeypatch):
         tsht._get_sht_cached.cache_clear()
     assert op.legendre_mode == "scan" and op.lambda_cache is None
     assert not any(tmp_path.rglob("*.npz"))
+
+
+# --- on the card -------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
+    return resolve_device("cuda")
+
+
+def _k7_launches(double):
+    return _build.launches["cora_legendre_project_f64" if double
+                           else "cora_legendre_project_f32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("double", [False, True])
+def test_projection_on_gpu_matches_jax_cached(cuda_device, double):
+    """The cached projection on the card (one K7 launch, the complex a_lm
+    written in ℓ order) against the reference's ``_legendre_project_cached``
+    on its own Λ chunks and the same ring spectra."""
+    rng = np.random.default_rng(40)
+    shape = (2, 4 * NSIDE - 1, LMAX + 1)
+    G = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    G = G.astype(np.complex128 if double else np.complex64)
+    jop = _jax_op()
+    ref = np.asarray(jsht._legendre_project_cached(jop, jop.tables(double),
+                                                   jnp.asarray(G)))
+    top = _port_op(double, device=cuda_device)
+    before = _k7_launches(double)
+    got = top._legendre_project(torch.from_numpy(G).to(cuda_device))
+    torch.cuda.synchronize()
+    assert _k7_launches(double) == before + 1
+    assert _rms_rel(got.cpu().numpy(), ref) <= _tol(double)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["jacobi", "cg"])
+@pytest.mark.parametrize("double", [False, True])
+def test_analysis_on_gpu_matches_jax_cached(cuda_device, method, double):
+    """map2alm (iter=3) in the cached mode on the card, the projections
+    through K7 (1 + iter launches with Jacobi) and the syntheses through K4,
+    against the reference on the same maps."""
+    alm = _ralm(np.random.default_rng(2), LMAX)
+    maps = tsht.SHT(NSIDE, LMAX, device="cpu").synthesis(torch.from_numpy(alm))
+    maps = maps.numpy().astype(np.float64 if double else np.float32)
+    ref = np.asarray(_jax_op().analysis(jnp.asarray(maps), 3, method=method))
+    top = _port_op(double, device=cuda_device)
+    before = _k7_launches(double)
+    got = top.analysis(torch.from_numpy(maps).to(cuda_device), 3, method=method)
+    torch.cuda.synchronize()
+    if method == "jacobi":
+        assert _k7_launches(double) == before + 4
+    assert _k7_launches(double) > before
+    assert _rms_rel(got.cpu().numpy(), ref) <= _tol(double)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("double", [False, True])
+def test_spin_transforms_on_gpu_match_jax_cached(cuda_device, double):
+    """alm2map_spin and map2alm_spin(iter=3) in cached mode on the card (K4
+    and K7 on one source, consecutive ℓ rows) against the reference's
+    ``SpinSHT(legendre_mode="cached")`` on its own chunks."""
+    rng = np.random.default_rng(7)
+    cdt = np.complex128 if double else np.complex64
+    E, B = (_ralm(rng, SPIN_LMAX, lo=2).astype(cdt) for _ in range(2))
+    jop, top = _jax_spin(), _port_spin(double, device=cuda_device)
+    ref = jop.synthesis(jnp.asarray(E), jnp.asarray(B))
+    got = top.synthesis(torch.from_numpy(E).to(cuda_device),
+                        torch.from_numpy(B).to(cuda_device))
+    for g, r in zip(got, ref):
+        assert _rms_rel(g.cpu().numpy(), r) <= _tol(double)
+    Q, U = (np.array(r) for r in ref)
+    ref = jop.analysis(jnp.asarray(Q), jnp.asarray(U), 3)
+    before = _k7_launches(double)
+    got = top.analysis(torch.from_numpy(Q).to(cuda_device),
+                       torch.from_numpy(U).to(cuda_device), 3)
+    torch.cuda.synchronize()
+    assert _k7_launches(double) > before
+    for g, r in zip(got, ref):
+        assert _rms_rel(g.cpu().numpy(), r) <= _tol(double)

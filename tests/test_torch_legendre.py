@@ -292,6 +292,90 @@ def test_wrapper_refuses_bad_inputs():
                              A.to("meta"), H0.to("meta"), H1.to("meta"))
 
 
+def _project_case(layout, rng, F2=4, dtype=torch.float64):
+    """(lam, desc, S0, S1, LA, odd0) of one projection: ``planes`` — the
+    ragged chunks of both targets, planes out; ``alm`` — the parity chunks
+    of SHT(8, 23, l_chunk=8), complex a_lm in ℓ order out; ``spin`` —
+    consecutive rows from one source, planes out."""
+    if layout == "planes":
+        lam, desc, _ = _random_chunks(rng, F2=F2, dtype=dtype)
+        S0, S1 = (torch.from_numpy(rng.standard_normal((F2, 5, 11))).to(dtype)
+                  for _ in range(2))
+        return lam, desc, S0, S1, 14, None
+    if layout == "alm":
+        top = _port_cached(8, 23, 8)
+        desc, total = top.lambda_desc()
+        lam = torch.from_numpy(rng.standard_normal(total)).to(dtype)
+        S0, S1 = (torch.from_numpy(rng.standard_normal((F2, top.nhalf, 24))).to(dtype)
+                  for _ in range(2))
+        return lam, desc, S0, S1, 24, top.odd0
+    desc, total = k4.chunk_desc([(0, 9, 29, 0), (9, 20, 24, 0), (29, 3, 5, 0)], 12)
+    lam = torch.from_numpy(rng.standard_normal(total)).to(dtype)
+    return lam, desc, torch.from_numpy(rng.standard_normal((F2, 12, 29))).to(dtype), None, 32, None
+
+
+@pytest.mark.parametrize("layout", ["planes", "alm", "spin"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_project_cpu_route_is_plain_bit_for_bit(layout, dtype):
+    """On CPU tensors legendre_project is legendre_project_plain, bit for
+    bit and with no launch; in ℓ order (``odd0``) it is the planes' even
+    and odd rows interleaved and joined to complex, as the transforms did
+    before the kernel."""
+    lam, desc, S0, S1, LA, odd0 = _project_case(layout, np.random.default_rng(13),
+                                                dtype=dtype)
+    before = _build.launches.copy()
+    got = k4.legendre_project(lam, desc, S0, S1, LA=LA, odd0=odd0)
+    assert _build.launches == before
+    assert torch.equal(got, k4.legendre_project_plain(lam, desc, S0, S1, LA=LA, odd0=odd0))
+    if odd0 is not None:
+        ap = k4.legendre_project_plain(lam, desc, S0, S1, LA=LA)
+        a = torch.empty_like(ap)
+        a[:, 0::2], a[:, 1::2] = ap[:, :(LA + 1) // 2], ap[:, odd0:odd0 + LA // 2]
+        assert got.dtype == (torch.complex128 if dtype == torch.float64 else torch.complex64)
+        assert torch.equal(got, tsht._join(a, (a.shape[0] // 2,)))
+
+
+def test_project_wrapper_refuses_bad_inputs():
+    """The projection's host checks: dtypes, shapes, chunk bounds and
+    targets, chunks sharing a row (the kernel writes each element once),
+    rows past the output, complex a_lm of an odd plane count, and a device
+    that is neither the CPU nor CUDA."""
+    lam, desc, S0, S1, LA, _ = _project_case("planes", np.random.default_rng(14))
+    with pytest.raises(TypeError):
+        k4.legendre_project(lam.float(), desc, S0, S1, LA=LA)
+    with pytest.raises(TypeError):
+        k4.legendre_project(lam, desc, S0, S1.float(), LA=LA)
+    with pytest.raises(ValueError, match="differ in shape"):
+        k4.legendre_project(lam, desc, S0, S1[:, :4], LA=LA)
+    with pytest.raises(ValueError, match="must be"):
+        k4.legendre_project(lam, desc, S0[0], S1[0], LA=LA)
+    with pytest.raises(ValueError, match="no source"):
+        k4.legendre_project(lam, desc, S0, LA=LA)
+    bad = desc.clone()
+    bad[3, 2] = 12  # wider than M
+    with pytest.raises(ValueError, match="exceeds"):
+        k4.legendre_project(lam, bad, S0, S1, LA=LA)
+    bad = desc.clone()
+    bad[1, 3] = 2  # rows 2–4 also in chunk 0
+    with pytest.raises(ValueError, match="overlap"):
+        k4.legendre_project(lam, bad, S0, S1, LA=LA)
+    with pytest.raises(ValueError, match="exceed the output"):
+        k4.legendre_project(lam, desc, S0, S1, LA=12)
+    with pytest.raises(ValueError, match="even F2"):
+        k4.legendre_project(lam, desc, S0[:3], S1[:3], LA=LA, odd0=7)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k4.legendre_project(lam.to("meta"), desc, S0.to("meta"), S1.to("meta"), LA=LA)
+
+
+def test_project_zeroes_rows_no_chunk_covers():
+    """Rows of the output that no chunk covers, and m past a chunk's mw,
+    are zero; with ``LA`` past the last row the planes grow with zero rows."""
+    lam, desc, S0, S1, _, _ = _project_case("planes", np.random.default_rng(15))
+    got = k4.legendre_project(lam, desc, S0, S1, LA=17)
+    assert got.shape == (4, 17, 11) and not got[:, 14:].any()
+    assert not got[:, 4:7, 6:].any() and got[:, 4:7, :6].all()
+
+
 def test_lambda_chunks_from_numpy_checks_shapes():
     top = _port_cached(8, 23, 8)
     desc = top.lambda_desc()[0]
@@ -428,3 +512,129 @@ def test_cached_synthesis_on_gpu_matches_cpu(cuda_device):
     assert _build.launches["cora_legendre_contract_f32"] == before + 1
     rms = np.sqrt(np.mean((maps[1] - maps[0]) ** 2) / np.mean(maps[0] ** 2))
     assert rms <= 1e-6
+
+
+def _gpu_project_case(layout, F2, dtype, rng):
+    """(lam, desc, S0, S1, LA, odd0) for a K7 comparison on the card:
+    ``ragged`` — hand-made chunks of both targets, R=68 and M=37 off the
+    block tiles, a chunk of 70 rows (two row tiles) and rows no chunk
+    covers; ``parity`` — the parity chunks of SHT(16, 40, l_chunk=16), L=41
+    odd, R=32, planes out; ``alm`` — the same, complex a_lm in ℓ order out;
+    ``spin`` — consecutive rows from one source, R=132, M=29."""
+    rnd = lambda *s: torch.from_numpy(rng.standard_normal(s)).to(dtype)
+    if layout == "ragged":
+        rows, off = [], 0
+        for nrows, mw, row0, tgt in ((4, 37, 0, 0), (3, 16, 4, 0), (70, 29, 9, 1),
+                                     (2, 3, 79, 1)):
+            rows.append((off, nrows, mw, row0, tgt))
+            off += nrows * mw * 68
+        return rnd(off), torch.tensor(rows), rnd(F2, 68, 37), rnd(F2, 68, 37), 83, None
+    if layout in ("parity", "alm"):
+        top = _port_cached(16, 40, 16)
+        desc, total = top.lambda_desc()
+        return (rnd(total), desc, rnd(F2, 32, 41), rnd(F2, 32, 41), 41,
+                top.odd0 if layout == "alm" else None)
+    desc, total = k4.chunk_desc([(0, 9, 29, 0), (9, 20, 24, 0), (29, 3, 5, 0)], 132)
+    return rnd(total), desc, rnd(F2, 132, 29), None, 32, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ragged", "parity", "alm", "spin"])
+@pytest.mark.parametrize("F2", [2, 8, 32, 64])
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5),
+                                         (torch.float64, 1e-12)])
+def test_project_kernel_matches_plain_on_gpu(cuda_device, dtype, bound, F2, layout):
+    """K7 against its plain version on the card at every plane tile (F2 = 2,
+    8: the small f32 tile; 32; 64: two f32 tiles, one f64 tile), rings, rows
+    and m off the block tiles, odd L, both outputs and the spin layout; one
+    launch a call, the same bits from two calls."""
+    rng = np.random.default_rng(20 + F2)
+    lam, desc, S0, S1, LA, odd0 = _gpu_project_case(layout, F2, dtype, rng)
+    lam, S0 = lam.to(cuda_device), S0.to(cuda_device)
+    S1 = None if S1 is None else S1.to(cuda_device)
+    entry = ("cora_legendre_project_f64" if dtype == torch.float64
+             else "cora_legendre_project_f32")
+    before = _build.launches[entry]
+    got = k4.legendre_project(lam, desc, S0, S1, LA=LA, odd0=odd0)
+    again = k4.legendre_project(lam, desc, S0, S1, LA=LA, odd0=odd0)
+    torch.cuda.synchronize()
+    assert _build.launches[entry] == before + 2
+    assert torch.equal(got, again)
+    ref = k4.legendre_project_plain(lam, desc, S0, S1, LA=LA, odd0=odd0)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert float((got - ref).abs().max()) <= bound * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-6),
+                                         (torch.float64, 1e-13)])
+def test_project_kernel_is_adjoint_of_k4_on_gpu(cuda_device, dtype, bound):
+    """⟨K4(a), S⟩ = ⟨a, K7(S)⟩ on the parity chunks of SHT(16, 40), dot
+    products in float64."""
+    rng = np.random.default_rng(30)
+    lam, desc, S0, S1, LA, _ = _gpu_project_case("parity", 32, dtype, rng)
+    lam, S = lam.to(cuda_device), [S0.to(cuda_device), S1.to(cuda_device)]
+    A = torch.from_numpy(rng.standard_normal((32, LA, 41))).to(dtype).to(cuda_device)
+    H = [torch.zeros_like(S[0]) for _ in range(2)]
+    k4.legendre_contract(lam, desc, A, *H)
+    P = k4.legendre_project(lam, desc, *S, LA=LA)
+    dot = lambda xs, ys: sum(float((x.double() * y.double()).sum()) for x, y in zip(xs, ys))
+    gap = abs(dot(H, S) - dot([A], [P]))
+    assert gap <= bound * np.sqrt(dot(H, H) * dot(S, S))
+
+
+@pytest.mark.cuda
+def test_project_wrapper_cuda_refuses_bad_inputs(cuda_device):
+    """On the card K7 takes a contiguous Λ whose chunks start on 16-byte
+    vectors."""
+    lam, desc, S0, S1, LA, _ = _gpu_project_case("ragged", 8, torch.float32,
+                                                 np.random.default_rng(31))
+    lam, S0, S1 = lam.to(cuda_device), S0.to(cuda_device), S1.to(cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.legendre_project(torch.stack([lam, lam], 1)[:, 0], desc, S0, S1, LA=LA)
+    shifted = torch.cat([lam[:1], lam])
+    bad = desc.clone()
+    bad[:, 0] += 1
+    with pytest.raises(ValueError, match="16-byte"):
+        k4.legendre_project(shifted, bad, S0, S1, LA=LA)
+
+
+@pytest.mark.cuda
+def test_anafast_projects_through_k7_without_bmm(cuda_device, monkeypatch):
+    """anafast of a 16-channel chunk in cached mode on the card: 1 + iter K7
+    launches, no torch.bmm, and the spectra of the CPU's plain path (both
+    operators cached, host-built Λ on the CPU) within 1e-5."""
+    nside, lmax, it = 16, 47, 3
+    rng = np.random.default_rng(32)
+    maps = torch.from_numpy(rng.standard_normal((16, 12 * nside**2)).astype(np.float32))
+    ref = tsht.anafast(maps, lmax=lmax, iter=it, device="cpu", legendre_mode="cached")
+
+    def no_bmm(*a, **kw):
+        raise AssertionError("torch.bmm on the CUDA projection path")
+
+    monkeypatch.setattr(torch, "bmm", no_bmm)
+    before = _build.launches["cora_legendre_project_f32"]
+    got = tsht.anafast(maps.to(cuda_device), lmax=lmax, iter=it, device=cuda_device)
+    torch.cuda.synchronize()
+    assert _build.launches["cora_legendre_project_f32"] == before + 1 + it
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cached_spin_analysis_projects_through_k7(cuda_device):
+    """map2alm_spin in cached mode on the card launches K7 (one per Jacobi
+    projection and family) and matches the CPU's plain path within 1e-5."""
+    from cora_tpu_torch.healpix import spin as tspin
+
+    nside, lmax = 16, 47
+    rng = np.random.default_rng(33)
+    Q, U = (torch.from_numpy(rng.standard_normal((2, 12 * nside**2)).astype(np.float32))
+            for _ in range(2))
+    ref = tspin.map2alm_spin(Q, U, 2, lmax, iter=1, device="cpu", legendre_mode="cached")
+    before = _build.launches["cora_legendre_project_f32"]
+    got = tspin.map2alm_spin(Q.to(cuda_device), U.to(cuda_device), 2, lmax, iter=1,
+                             device=cuda_device, legendre_mode="cached")
+    torch.cuda.synchronize()
+    assert _build.launches["cora_legendre_project_f32"] > before
+    for g, r in zip(got, ref):
+        assert float((g.cpu() - r).abs().max()) <= 1e-5 * float(r.abs().max())
